@@ -1,0 +1,6 @@
+"""Host data containers and samplers (port of ``dlwp_tpu.data``)."""
+
+from dlwp_torch.data.dataset import PredictorDataset
+from dlwp_torch.data.sampler import SeriesSampler
+
+__all__ = ["PredictorDataset", "SeriesSampler"]

@@ -1,0 +1,5 @@
+"""Autoregressive forecasting (port of ``dlwp_tpu.forecast``)."""
+
+from dlwp_torch.forecast.rollout import Forecast, TimeSeriesEstimator
+
+__all__ = ["Forecast", "TimeSeriesEstimator"]

@@ -1,0 +1,34 @@
+"""Hand-written Hopper kernels and their plain PyTorch versions.
+
+Each wrapper launches its CUDA kernel for CUDA tensors (building it at first
+use, see :mod:`dlwp_torch.kernels._build`) and takes the plain version for
+CPU tensors. Each keeps a ``launches`` count of kernel launches.
+"""
+
+from dlwp_torch.kernels.fused_conv_pool import (
+    fused_conv_pool,
+    fused_conv_pool_plain,
+)
+from dlwp_torch.kernels.lstm_gates import lstm_gates, lstm_gates_plain
+
+WRAPPERS = {"fused_conv_pool": fused_conv_pool, "lstm_gates": lstm_gates}
+
+
+def reset_launch_counts() -> None:
+    for fn in WRAPPERS.values():
+        fn.launches = 0
+
+
+def launch_counts() -> dict[str, int]:
+    return {name: fn.launches for name, fn in WRAPPERS.items()}
+
+
+__all__ = [
+    "WRAPPERS",
+    "fused_conv_pool",
+    "fused_conv_pool_plain",
+    "launch_counts",
+    "lstm_gates",
+    "lstm_gates_plain",
+    "reset_launch_counts",
+]

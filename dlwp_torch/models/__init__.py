@@ -1,0 +1,33 @@
+"""Model layers, ``build_sequential`` and API (port of ``dlwp_tpu.models``)."""
+
+from dlwp_torch.models.api import DLWPNeuralNet
+from dlwp_torch.models.cnn import LAYER_REGISTRY, SequentialModel, build_sequential
+from dlwp_torch.models.layers import (
+    Activation,
+    ConvLSTM2D,
+    CyclicConv2D,
+    FusedConvPool2D,
+    Identity,
+    MaxPool2D,
+    Reshape,
+    UpConv2D,
+    UpSampling2D,
+    get_activation,
+)
+
+__all__ = [
+    "Activation",
+    "ConvLSTM2D",
+    "CyclicConv2D",
+    "DLWPNeuralNet",
+    "FusedConvPool2D",
+    "Identity",
+    "LAYER_REGISTRY",
+    "MaxPool2D",
+    "Reshape",
+    "SequentialModel",
+    "UpConv2D",
+    "UpSampling2D",
+    "build_sequential",
+    "get_activation",
+]

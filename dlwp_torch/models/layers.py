@@ -1,0 +1,340 @@
+"""PyTorch layers for spherical-geometry weather CNNs.
+
+Port of the flagship's layers from ``dlwp_tpu.models.layers``. Data are
+channels-first: (B, C, H, W), or (B, T, C, H, W) for :class:`ConvLSTM2D`.
+Weights keep the flax names and shapes (``kernel`` OIHW and ``bias``;
+``input_kernel``, ``recurrent_kernel`` and ``bias`` for the ConvLSTM), so
+:func:`dlwp_torch.weights.load_flax_params` fills them one to one.
+
+As in flax, a layer learns its input channel count from its first input:
+parameters exist after :meth:`SequentialModel.init` (random, from a
+``torch.Generator``) or after ``load_flax_params``.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from dlwp_torch.kernels import fused_conv_pool, lstm_gates
+from dlwp_torch.kernels.lstm_gates import hard_sigmoid
+from dlwp_torch.ops.conv import conv_after_upsample2, cyclic_conv2d
+from dlwp_torch.ops.pooling import max_pool2d, upsample2d
+
+_ACTIVATIONS = {
+    "linear": lambda x: x,
+    "tanh": torch.tanh,
+    "relu": torch.relu,
+    "sigmoid": torch.sigmoid,
+    "hard_sigmoid": hard_sigmoid,  # Keras's, ConvLSTM2D's default gate
+    "elu": F.elu,
+    "selu": F.selu,
+    "gelu": lambda x: F.gelu(x, approximate="tanh"),  # jax.nn.gelu default
+    "leaky_relu": F.leaky_relu,
+    "softplus": F.softplus,
+    "swish": F.silu,
+}
+
+# Nondecreasing activations commute with max pooling exactly.
+MONOTONE_ACTIVATIONS = {
+    "linear", None, "tanh", "relu", "sigmoid", "hard_sigmoid", "elu",
+    "selu", "leaky_relu", "softplus",
+}
+
+
+def get_activation(act):
+    if act is None:
+        return _ACTIVATIONS["linear"]
+    if callable(act):
+        return act
+    try:
+        return _ACTIVATIONS[act]
+    except KeyError:
+        raise ValueError(
+            f"unknown activation {act!r}; available: {sorted(_ACTIVATIONS)}"
+        ) from None
+
+
+def pair(v) -> tuple[int, int]:
+    return (v, v) if isinstance(v, int) else tuple(v)
+
+
+def _glorot(shape, gen, dtype, device):
+    """flax glorot_uniform(in_axis=1, out_axis=0) on an OIHW shape."""
+    receptive = math.prod(shape[2:])
+    limit = math.sqrt(6.0 / (shape[0] * receptive + shape[1] * receptive))
+    u = torch.rand(shape, generator=gen, dtype=torch.float64)
+    return ((2 * u - 1) * limit).to(dtype=dtype, device=device)
+
+
+def _zeros(shape, gen, dtype, device):
+    return torch.zeros(shape, dtype=dtype, device=device)
+
+
+def _orthogonal(shape, gen, dtype, device):
+    """Orthonormal columns along axis 0 (flax orthogonal(column_axis=0))."""
+    cols = shape[0]
+    rows = math.prod(shape[1:])
+    a = torch.randn((max(rows, cols), min(rows, cols)), generator=gen,
+                    dtype=torch.float64)
+    q, r = torch.linalg.qr(a)
+    q = q * torch.sign(torch.diagonal(r))
+    q = q if rows >= cols else q.T  # (rows, cols)
+    return q.T.reshape(shape).to(dtype=dtype, device=device)
+
+
+class ParamLayer(nn.Module):
+    """A layer whose parameter shapes depend on its input channel count."""
+
+    def param_shapes(self, c_in: int) -> dict[str, tuple]:
+        raise NotImplementedError
+
+    def _initializer(self, name: str):
+        return _zeros if name == "bias" else _glorot
+
+    def in_channels(self, x: torch.Tensor) -> int:
+        return x.shape[-3]
+
+    @property
+    def built(self) -> bool:
+        return all(getattr(self, n) is not None for n in self.param_shapes(1))
+
+    def materialize(self, x: torch.Tensor, gen: torch.Generator) -> None:
+        """Create random parameters for input ``x`` (no-op when built)."""
+        if self.built:
+            return
+        for name, shape in self.param_shapes(self.in_channels(x)).items():
+            val = self._initializer(name)(shape, gen, x.dtype, x.device)
+            setattr(self, name, nn.Parameter(val, requires_grad=False))
+
+    def _require_built(self):
+        if not self.built:
+            raise RuntimeError(
+                f"{type(self).__name__} has no parameters: call "
+                "SequentialModel.init or load_flax_params first"
+            )
+
+
+class _ConvBase(ParamLayer):
+    def __init__(self, features, kernel_size=3, dilation=1,
+                 activation="linear", use_bias=True):
+        super().__init__()
+        self.features = features
+        self.kernel_size = pair(kernel_size)
+        self.dilation = pair(dilation)
+        self.activation = activation
+        self.use_bias = use_bias
+        self.register_parameter("kernel", None)
+        self.register_parameter("bias", None)
+
+    def param_shapes(self, c_in):
+        shapes = {"kernel": (self.features, c_in) + self.kernel_size}
+        if self.use_bias:
+            shapes["bias"] = (self.features,)
+        return shapes
+
+    def _finish(self, y):
+        if self.use_bias:
+            y = y + self.bias[:, None, None]
+        return get_activation(self.activation)(y)
+
+
+class CyclicConv2D(_ConvBase):
+    """Conv2D with periodic-longitude boundary (``layers.py:76``)."""
+
+    def __init__(self, features, kernel_size=3, strides=(1, 1), dilation=1,
+                 activation="linear", lat_mode="zero", use_bias=True):
+        super().__init__(features, kernel_size, dilation, activation, use_bias)
+        self.strides = pair(strides)
+        self.lat_mode = lat_mode
+
+    def forward(self, x):
+        self._require_built()
+        y = cyclic_conv2d(x, self.kernel, strides=self.strides,
+                          lat_mode=self.lat_mode, dilation=self.dilation)
+        return self._finish(y)
+
+
+class FusedConvPool2D(_ConvBase):
+    """CyclicConv2D(3x3) + activation + MaxPool2D(2) (``layers.py:410``).
+
+    3x3 tanh stages on even grids go through the ``fused_conv_pool`` kernel
+    (its plain version on the CPU); any other configuration runs the
+    composition conv -> bias -> activation -> pool.
+    """
+
+    def __init__(self, features, kernel_size=3, dilation=1,
+                 activation="tanh", use_bias=True):
+        super().__init__(features, kernel_size, dilation, activation, use_bias)
+
+    def forward(self, x):
+        self._require_built()
+        d = self.dilation
+        if (
+            self.kernel_size == (3, 3)
+            and d[0] == d[1]
+            and self.activation == "tanh"
+            and x.dim() == 4
+            and x.shape[-1] % 2 == 0
+            and x.shape[-2] % 2 == 0
+        ):
+            return fused_conv_pool(x, self.kernel, self.bias, dilation=d[0])
+        y = self._finish(cyclic_conv2d(x, self.kernel, dilation=d))
+        return max_pool2d(y, (2, 2))
+
+
+class UpConv2D(_ConvBase):
+    """UpSampling2D(2) + CyclicConv2D collapsed onto the small grid
+    (``layers.py:601``). ``emit_small``: a dilation-2 conv whose output
+    stays on the small grid for an ``input_small`` consumer."""
+
+    def __init__(self, features, kernel_size=3, dilation=1,
+                 activation="linear", use_bias=True, emit_small=False,
+                 input_small=False):
+        super().__init__(features, kernel_size, dilation, activation, use_bias)
+        if emit_small and self.dilation != (2, 2):
+            raise ValueError("emit_small needs dilation 2")
+        self.emit_small = emit_small
+        self.input_small = input_small
+
+    def forward(self, x):
+        self._require_built()
+        if self.emit_small:
+            y = cyclic_conv2d(x, self.kernel)
+        else:
+            y = conv_after_upsample2(x, self.kernel, dilation=self.dilation)
+        return self._finish(y)
+
+
+class ConvLSTM2D(ParamLayer):
+    """Convolutional LSTM over (B, T, C, H, W) (``layers.py:190``).
+
+    Keras semantics: gates use ``recurrent_activation`` (default Keras
+    hard_sigmoid), candidate and output use ``activation``. Both convs wrap
+    longitude. Per step: the input conv (dilation d) plus bias, the
+    recurrent conv (dilation 1), then the ``lstm_gates`` kernel. The first
+    step starts from h = c = 0, so its recurrent conv and forget branch
+    vanish and it runs as three plain ops. ``gate_dtype`` bf16 computes the
+    gate chain in bf16 with the carry kept in the input dtype.
+
+    The JAX layer unrolls 1 < T <= 4 and scans longer windows; in eager
+    PyTorch both are the same Python loop. The input convs of all T steps
+    run as one (T*B)-batched conv.
+    """
+
+    def __init__(self, features, kernel_size=3, dilation=1,
+                 activation="tanh", recurrent_activation="hard_sigmoid",
+                 return_sequences=True, lat_mode="zero", gate_dtype=None):
+        super().__init__()
+        if not (isinstance(activation, str)
+                and isinstance(recurrent_activation, str)):
+            raise ValueError("ConvLSTM2D takes activations by name")
+        self.features = features
+        self.kernel_size = pair(kernel_size)
+        self.dilation = pair(dilation)
+        self.activation = activation
+        self.recurrent_activation = recurrent_activation
+        self.return_sequences = return_sequences
+        self.lat_mode = lat_mode
+        if isinstance(gate_dtype, str):
+            gate_dtype = getattr(torch, gate_dtype)
+        if gate_dtype not in (None, torch.bfloat16):
+            raise ValueError("gate_dtype must be None or bfloat16")
+        self.gate_dtype = gate_dtype
+        for name in ("input_kernel", "recurrent_kernel", "bias"):
+            self.register_parameter(name, None)
+
+    def param_shapes(self, c_in):
+        F4 = 4 * self.features
+        return {
+            "input_kernel": (F4, c_in) + self.kernel_size,
+            "recurrent_kernel": (F4, self.features) + self.kernel_size,
+            "bias": (F4,),
+        }
+
+    def _initializer(self, name):
+        if name == "recurrent_kernel":
+            return _orthogonal
+        return super()._initializer(name)
+
+    def in_channels(self, x):
+        return x.shape[2]
+
+    def forward(self, x):
+        self._require_built()
+        B, T, C, H, W = x.shape
+        gd = self.gate_dtype
+        act = get_activation(self.activation)
+        r_act = get_activation(self.recurrent_activation)
+
+        def conv(v, k, dilation=(1, 1)):
+            return cyclic_conv2d(v, k, lat_mode=self.lat_mode,
+                                 dilation=dilation)
+
+        # Time-major, so each step's zx slice is contiguous.
+        x_tm = x.transpose(0, 1).reshape(T * B, C, H, W)
+        zx = conv(x_tm, self.input_kernel, self.dilation)
+        zx = (zx + self.bias[:, None, None]).reshape(T, B, -1, H, W)
+
+        z0 = zx[0] if gd is None else zx[0].to(gd)
+        i0, _, g0, o0 = torch.chunk(z0, 4, dim=-3)
+        c = r_act(i0) * act(g0)
+        h = (r_act(o0) * act(c)).to(x.dtype)
+        c = c.to(x.dtype)
+        hs = [h]
+        for t in range(1, T):
+            zh = conv(h, self.recurrent_kernel)
+            h, c = lstm_gates(zx[t], zh, c, self.activation,
+                              self.recurrent_activation, gd)
+            hs.append(h)
+        if self.return_sequences:
+            return torch.stack(hs, dim=1)
+        return h
+
+
+class Identity(nn.Module):
+    """No-op filler that keeps layer indices equal to the flax slots."""
+
+    def forward(self, x):
+        return x
+
+
+class MaxPool2D(nn.Module):
+    def __init__(self, window=2):
+        super().__init__()
+        self.window = pair(window)
+
+    def forward(self, x):
+        return max_pool2d(x, self.window)
+
+
+class UpSampling2D(nn.Module):
+    def __init__(self, factor=2):
+        super().__init__()
+        self.factor = pair(factor)
+
+    def forward(self, x):
+        return upsample2d(x, self.factor)
+
+
+class Reshape(nn.Module):
+    """Reshape the non-batch dims (Keras ``Reshape``)."""
+
+    def __init__(self, shape):
+        super().__init__()
+        self.shape = tuple(shape)
+
+    def forward(self, x):
+        return x.reshape((x.shape[0],) + self.shape)
+
+
+class Activation(nn.Module):
+    def __init__(self, fn="linear"):
+        super().__init__()
+        self.fn = fn
+
+    def forward(self, x):
+        return get_activation(self.fn)(x)

@@ -1,0 +1,14 @@
+"""Spherical stencil ops (port of ``dlwp_tpu.ops``)."""
+
+from dlwp_torch.ops.conv import conv_after_upsample2, cyclic_conv2d
+from dlwp_torch.ops.padding import pad_latlon
+from dlwp_torch.ops.pooling import avg_pool2d, max_pool2d, upsample2d
+
+__all__ = [
+    "avg_pool2d",
+    "conv_after_upsample2",
+    "cyclic_conv2d",
+    "max_pool2d",
+    "pad_latlon",
+    "upsample2d",
+]
