@@ -19,8 +19,25 @@ Phases, each raising on failure:
 6. timings with CUDA events (median of repeats after warm-up): each kernel
    and its plain version, and the rollout rate in grid points per second
    (B * steps * 36 * 144 / elapsed);
-7. a ``{"kernels": [...]}`` line, then the last line
-   ``{"ok": true, "device": {...}}``.
+7. the barotropic step kernel against its plain version on the card (psi
+   form with and without the hemisphere sign correction, vorticity form):
+   T24 on 37x72 for 20 steps and T72 on 73x144 for 40 steps, relative max
+   |dz|; 7 + 13 steps equal 20 bit for bit;
+8. the barotropic path at full width, the configuration ``bench.py`` times:
+   T72 on 73x144, dt 1800 s, damping 5e-6, ``step_impl="kernel"``,
+   ``run_with_snapshots(24, 12)`` (144 h, 6-hourly) for both forms; 24
+   launches each, finite, snapshot times equal to the plain engine's, and
+   the final state within relative RMS 1e-3 of the plain engine on the CPU
+   in fp32 (printed at every snapshot); its wall time (CUDA events),
+   device kernel time by name (``torch.profiler``) and idle share; then the
+   example's default flow (``examples/run_barotropic.py``: 4 batched init
+   times, T42, plain engine) on the card against the CPU;
+9. barotropic timings (CUDA events, median of 3 after warm-up): ms per step
+   as the two-point slope of 500 and 2000 steps, for the kernel, its plain
+   version and the plain engine, beside the bound per step, and the kernel
+   alone at T24 on 37x72;
+10. a ``{"kernels": [...]}`` line, then the last line
+    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without printing a result when no CUDA device is present.
 """
@@ -50,6 +67,14 @@ TOL_GOLDEN = 1e-4  # fp32 through 3 steps vs the float64 golden values
 # trajectory is held by relative RMS.
 TOL_STEP1 = {"fp32": 1e-4, "bf16": 5e-2}
 TOL_TRAJ_RRMS = {"fp32": 1e-3, "bf16": 5e-2}
+# Barotropic step kernel vs its plain version, relative max |dz|: the JAX
+# package's bar for its Pallas step (tests/test_pallas_step.py) at T24 over
+# 20 steps; the T72 run sums over 3x more modes for 2x more steps.
+TOL_BARO = {24: 1e-5, 72: 1e-4}
+# Barotropic path on the card vs the plain engine on the CPU, fp32: relative
+# RMS of the final spectral vorticity after 288 steps.
+TOL_BARO_RRMS = 1e-3
+BARO_SNAPS, BARO_EVERY, BARO_SLOPE_N = 24, 12, 500
 
 
 def log(*a):
@@ -166,7 +191,7 @@ def check_golden(torch, dev, root):
     err = np.abs(x.cpu().numpy() - data["convlstm_roll3"]).max()
     log(f"golden convlstm_roll3 (fp32 through kernels, {counts}): "
         f"max abs err {err:.3e}")
-    if counts != {"fused_conv_pool": 6, "lstm_gates": 3}:
+    if counts != {"fused_conv_pool": 6, "lstm_gates": 3, "barotropic_step": 0}:
         raise AssertionError(f"golden run did not use the kernels: {counts}")
     if not err <= TOL_GOLDEN:
         raise AssertionError(f"golden: {err} > {TOL_GOLDEN}")
@@ -224,7 +249,8 @@ def run_main_path(torch, dev):
         counts[tag] = launch_counts()
         log(f"main path {tag}: predict({STEPS}) at B={B}: "
             f"values {fc.values.shape}, launches {counts[tag]}")
-        need = {"fused_conv_pool": 2 * STEPS, "lstm_gates": STEPS}
+        need = {"fused_conv_pool": 2 * STEPS, "lstm_gates": STEPS,
+                "barotropic_step": 0}
         if counts[tag] != need:
             raise AssertionError(f"{tag} launches {counts[tag]} != {need}")
         if fc.values.shape != (STEPS * TD, B, C, NLAT, NLON) or not (
@@ -261,26 +287,305 @@ def run_main_path(torch, dev):
 def profile_steps(torch, est, x0, days, ms, tag, steps=4):
     """Device time by kernel over a short rollout (torch.profiler); returns
     the device kernel ms per step."""
+    rollout = est.rollout_fn(steps)
+    return profile_device(torch, lambda: rollout(x0, days, ms),
+                          f"rollout({steps}) {tag}", per=steps, unit="step")
+
+
+def profile_device(torch, fn, label, per=1, unit="call"):
+    """Device kernel time by name over one call of ``fn`` after a warm-up
+    call (torch.profiler); returns the device kernel ms per ``unit``, of
+    which one call holds ``per``."""
     from torch.profiler import ProfilerActivity, profile
 
-    rollout = est.rollout_fn(steps)
-    rollout(x0, days, ms)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        rollout(x0, days, ms)
+        fn()
         torch.cuda.synchronize()
     rows = [e for e in prof.key_averages()
             if getattr(e, "device_time_total", 0) > 0
             and e.device_type.name == "CUDA"]
     total = sum(e.device_time_total for e in rows)
-    log(f"profile of rollout({steps}) {tag}: device kernel time "
-        f"{total / 1e3:.3f} ms")
+    log(f"profile of {label}: device kernel time {total / 1e3:.3f} ms")
     for e in sorted(rows, key=lambda e: -e.device_time_total)[:12]:
-        log(f"  {e.device_time_total / 1e3 / steps:9.4f} ms/step "
+        log(f"  {e.device_time_total / 1e3 / per:9.4f} ms/{unit} "
             f"{100 * e.device_time_total / max(total, 1):5.1f}%  "
-            f"x{e.count // steps:<3d} {e.key[:90]}")
-    return total / 1e3 / steps
+            f"x{e.count // per:<3d} {e.key[:90]}")
+    return total / 1e3 / per
+
+
+def bench_height(grid):
+    """The analytic 500 hPa height that ``bench.py:190-194`` integrates."""
+    lat = np.radians(grid.lat)[:, None]
+    lon = np.radians(grid.lon)[None, :]
+    return (5500.0 - 300.0 * np.sin(lat) ** 2
+            + 80.0 * np.cos(lat) ** 3 * np.cos(3 * lon)).astype(np.float32)
+
+
+def perturbed_height(grid, seed=7):
+    """The bench height plus smooth random waves in zonal wavenumbers
+    1..24, so that more than the bench's m = 0 and 3 carry signal; stable
+    for the 40-step checks."""
+    rng = np.random.RandomState(seed)
+    lat = np.radians(grid.lat)[:, None]
+    lon = np.radians(grid.lon)[None, :]
+    pert = sum(10.0 * rng.randn() * np.cos(lat) ** m
+               * np.sin((m % 5 + 1) * lat + rng.rand())
+               * np.cos(m * lon + 2 * np.pi * rng.rand())
+               for m in range(1, 25))
+    return (bench_height(grid) + pert).astype(np.float32)
+
+
+def example_heights(grid, n_init=4):
+    """The 500 hPa heights of the example's synthetic source
+    (``examples/_synthetic.py``) at its first ``n_init`` 6-hourly times,
+    without its per-time noise."""
+    lat = np.radians(grid.lat)[:, None]
+    lon = np.radians(grid.lon)[None, :]
+    t = np.arange(n_init)[:, None, None] * 6 / 24.0  # days
+    return (5500.0 - 300.0 * np.sin(lat) ** 2
+            + 120.0 * np.cos(lat) ** 3 * np.cos(3 * (lon - 0.12 * t))
+            + 60.0 * np.cos(lat) ** 2 * np.sin(2 * (lon + 0.07 * t) + 1.0)
+            + 30.0 * np.sin(2 * np.pi * t / 365.0) * np.sin(lat)
+            ).astype(np.float32)
+
+
+def baro_model(form, nlat, nlon, T, device, **kw):
+    """``form``: 'psi', 'psi_no_sh' (correct_sh=False) or 'vrt'."""
+    from dlwp_torch import BarotropicModel, BarotropicModelPsi, LatLonGrid
+
+    grid = LatLonGrid.regular(nlat, nlon)
+    kw = dict(dt=1800.0, damping_coefficient=5e-6, device=device, **kw)
+    if form == "vrt":
+        return BarotropicModel(grid, T, **kw)
+    return BarotropicModelPsi(grid, T, correct_sh=form == "psi", **kw)
+
+
+def state_parts(state):
+    return [x.contiguous() for x in (
+        state.vrt_spec.real, state.vrt_spec.imag,
+        state.vrt_spec_prev.real, state.vrt_spec_prev.imag)]
+
+
+def baro_work(form, M, J, L, n_steps):
+    """(bytes, flops) of one launch of ``n_steps``: every table and the
+    state read once, the state written once; per step the Legendre
+    contractions over the valid (m, n >= m) pairs, the dense DFT products,
+    the grid products and the update."""
+    from dlwp_torch.kernels.barotropic_step import table_shapes
+
+    tri = M * (M + 1) // 2
+    if form == "vrt":
+        step = (12 * tri * J + 12 * L * M * J + 4 * L * J + 8 * M * L * J
+                + 8 * tri * J + 20 * tri)
+    else:
+        step = (16 * tri * J + 16 * L * M * J + 3 * L * J + 4 * M * L * J
+                + 4 * tri * J + 20 * tri)
+    tables = sum(int(np.prod(s)) for s in table_shapes(
+        "vrt" if form == "vrt" else "psi", M, J, L).values())
+    return 4 * (tables + 8 * M * M), step * n_steps
+
+
+def check_barotropic_kernel(torch, dev):
+    """Kernel vs plain version at T24 and T72, and bit-equal resume;
+    returns the largest max |dz| in metres."""
+    from dlwp_torch.kernels import barotropic_step, barotropic_step_plain
+
+    worst = 0.0
+    for nlat, nlon, T, n in ((37, 72, 24, 20), (73, 144, 72, 40)):
+        for form in ("psi", "psi_no_sh", "vrt"):
+            m = baro_model(form, nlat, nlon, T, dev, step_impl="kernel")
+            z0 = (100.0 * np.random.RandomState(1).randn(nlat, nlon)
+                  if T == 24 else perturbed_height(m.grid))
+            s0 = m.from_z(z0)
+            args = (m._kernel_form, m._kernel_tables, *state_parts(s0), 0, n,
+                    m.dt, m.robert_coefficient)
+            got = barotropic_step(*args)
+            torch.cuda.synchronize()
+            want = barotropic_step_plain(*args)
+            zs = [m.z_grid(type(s0)(torch.complex(v[0], v[1]), s0.vrt_spec,
+                                    n, s0.t)) for v in (got, want)]
+            dz = (zs[0] - zs[1]).abs().max().item()
+            rel = dz / zs[1].abs().max().item()
+            s20 = m.run(s0, 20)
+            s2 = m.run(m.run(s0, 7), 13)
+            torch.cuda.synchronize()
+            same = (torch.equal(s2.vrt_spec, s20.vrt_spec)
+                    and torch.equal(s2.vrt_spec_prev, s20.vrt_spec_prev))
+            log(f"check barotropic_step T{T} {nlat}x{nlon} {form} {n} steps: "
+                f"max|dz| {dz:.3e} m, relative {rel:.3e}; 7+13 == 20: {same}; "
+                f"{barotropic_step.grid_blocks} blocks")
+            if not (np.isfinite(rel) and rel <= TOL_BARO[T]):
+                raise AssertionError(f"barotropic_step T{T} {form}: {rel}")
+            if not same:
+                raise AssertionError(f"barotropic_step T{T} {form}: resume")
+            worst = max(worst, dz)
+    return worst
+
+
+def rel_rms(got, want):
+    return ((got - want).abs().pow(2).mean().sqrt()
+            / want.abs().pow(2).mean().sqrt()).item()
+
+
+def run_barotropic_path(torch, dev):
+    """The bench configuration through ``run_with_snapshots(24, 12)`` on the
+    card (kernel) and on the CPU (plain engine), then its wall and device
+    time on the card; returns the launches and the times by form."""
+    from dlwp_torch.kernels import launch_counts, reset_launch_counts
+
+    launches, profiles = {}, {}
+    for form in ("psi", "vrt"):
+        card = baro_model(form, 73, 144, 72, None, step_impl="kernel")
+        z = bench_height(card.grid)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        final, times, zs = card.run_with_snapshots(card.from_z(z), BARO_SNAPS,
+                                                   BARO_EVERY)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+        launches[form] = counts["barotropic_step"]
+        log(f"barotropic path {form}: run_with_snapshots({BARO_SNAPS}, "
+            f"{BARO_EVERY}) in {wall * 1e3:.1f} ms (first call, host clock), "
+            f"launches {counts}")
+        need = {"fused_conv_pool": 0, "lstm_gates": 0,
+                "barotropic_step": BARO_SNAPS}
+        if counts != need:
+            raise AssertionError(f"barotropic {form} launches {counts}")
+        if zs.shape != (BARO_SNAPS, 73, 144) or not (
+                torch.isfinite(zs).all() and torch.isfinite(final.vrt_spec)
+                .all()):
+            raise AssertionError(f"barotropic {form}: bad output {zs.shape}")
+        cpu = baro_model(form, 73, 144, 72, "cpu")
+        c_final, c_times, c_zs = cpu.run_with_snapshots(cpu.from_z(z),
+                                                        BARO_SNAPS, BARO_EVERY)
+        if not torch.equal(times, c_times):
+            raise AssertionError(f"barotropic {form}: snapshot times differ")
+        per_snap = [rel_rms(zs[i].cpu(), c_zs[i]) for i in range(BARO_SNAPS)]
+        final_rrms = rel_rms(final.vrt_spec.cpu(), c_final.vrt_spec)
+        log(f"barotropic path {form} vs CPU plain engine, relative RMS of z "
+            f"at each 6-hourly snapshot: "
+            + " ".join(f"{x:.2e}" for x in per_snap))
+        log(f"barotropic path {form}: final vrt_spec relative RMS "
+            f"{final_rrms:.3e} after {BARO_SNAPS * BARO_EVERY} steps; times "
+            f"equal the plain engine's ({float(times[-1]) / 3600:.0f} h)")
+        if not final_rrms <= TOL_BARO_RRMS:
+            raise AssertionError(f"barotropic {form}: {final_rrms}")
+        s0 = card.from_z(z)
+
+        def path():
+            return card.run_with_snapshots(s0, BARO_SNAPS, BARO_EVERY)
+
+        wall = timed_ms(path, reps=3, inner=1, warmup=1)
+        device = profile_device(
+            torch, path, f"barotropic run_with_snapshots({BARO_SNAPS}, "
+            f"{BARO_EVERY}) {form}")
+        log(f"barotropic path {form}: {wall:.3f} ms per run_with_snapshots "
+            f"(CUDA events, median of 3), device kernel time {device:.3f} "
+            f"ms: idle {100 * (1 - device / wall):.1f}%")
+        profiles[form] = {"wall_ms": wall, "device_ms": device}
+    return launches, profiles
+
+
+def run_example_flow(torch, dev):
+    """``examples/run_barotropic.py``'s default flow: 4 batched init times
+    at T42 through the plain engine, on the card and on the CPU."""
+    from dlwp_torch.kernels import launch_counts, reset_launch_counts
+
+    card = baro_model("psi", 73, 144, 42, dev)
+    cpu = baro_model("psi", 73, 144, 42, "cpu")
+    z0 = example_heights(card.grid)
+    reset_launch_counts()
+    card.run_with_snapshots(card.from_z(z0), 1, 1)  # warm-up (cuFFT plans)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, times, zs = card.run_with_snapshots(card.from_z(z0), BARO_SNAPS,
+                                           BARO_EVERY)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    _, c_times, c_zs = cpu.run_with_snapshots(cpu.from_z(z0), BARO_SNAPS,
+                                              BARO_EVERY)
+    rrms = rel_rms(zs.cpu(), c_zs)
+    steps = z0.shape[0] * BARO_SNAPS * BARO_EVERY
+    log(f"example flow (4 init times, T42, plain engine): {zs.shape} in "
+        f"{wall:.3f} s on the card ({steps / wall:.0f} member-steps/s, "
+        f"host clock); relative RMS of z vs the CPU {rrms:.3e}; launches "
+        f"{launch_counts()}")
+    if launch_counts()["barotropic_step"] != 0:
+        raise AssertionError("batched states must run the plain engine")
+    if zs.shape != (BARO_SNAPS, 4, 73, 144) or not torch.isfinite(zs).all():
+        raise AssertionError(f"example flow: bad output {zs.shape}")
+    if not (torch.equal(times, c_times) and rrms <= TOL_BARO_RRMS):
+        raise AssertionError(f"example flow vs CPU: {rrms}")
+    return {"wall_s": wall, "member_steps_per_s": steps / wall,
+            "rel_rms_vs_cpu": rrms}
+
+
+def time_barotropic(torch, dev):
+    """ms per step (two-point slope of BARO_SLOPE_N and 4x as many steps)
+    of the kernel, its plain version and the plain engine, per form."""
+    from dlwp_torch.kernels import barotropic_step, barotropic_step_plain
+
+    n = BARO_SLOPE_N
+    rows = {}
+    for form in ("psi", "vrt"):
+        m = baro_model(form, 73, 144, 72, dev, step_impl="kernel")
+        plain = baro_model(form, 73, 144, 72, dev)
+        s0 = m.from_z(bench_height(m.grid))
+        parts = state_parts(s0)
+        tabs = m._kernel_tables
+
+        def kernel(k):
+            return barotropic_step(m._kernel_form, tabs, *parts, 0, k, m.dt,
+                                   m.robert_coefficient)
+
+        def plain_version(k):
+            return barotropic_step_plain(m._kernel_form, tabs, *parts, 0, k,
+                                         m.dt, m.robert_coefficient)
+
+        def plain_engine(k):
+            return plain.run(s0, k)
+
+        row = {}
+        for name, fn, reps in (("ms", kernel, 3), ("plain_ms", plain_version, 3),
+                               ("plain_engine_ms", plain_engine, 3)):
+            t1 = timed_ms(lambda: fn(n), reps=reps, inner=1, warmup=1)
+            t4 = timed_ms(lambda: fn(4 * n), reps=reps, inner=1, warmup=1)
+            row[name] = (t4 - t1) / (3 * n)
+        row["launch_ms_12_steps"] = timed_ms(lambda: kernel(BARO_EVERY),
+                                             reps=5, inner=20, warmup=3)
+        M, J, L = 73, 73, 144
+        nbytes, flops = baro_work(form, M, J, L, BARO_EVERY)
+        # Per step at the main path's launch of BARO_EVERY steps.
+        row["bound_ms"], row["bound_by"] = bound_ms(nbytes / BARO_EVERY,
+                                                    flops / BARO_EVERY)
+        row["bytes_per_launch"], row["flops_per_step"] = (
+            nbytes, flops // BARO_EVERY)
+        row["grid_blocks"] = barotropic_step.grid_blocks
+        # The same kernel at T24 on 37x72 (37 blocks, ~11x less work a
+        # step): what does not shrink with the work is the fixed cost.
+        small = baro_model(form, 37, 72, 24, dev, step_impl="kernel")
+        sp = state_parts(small.from_z(bench_height(small.grid)))
+
+        def kernel_t24(k):
+            return barotropic_step(small._kernel_form, small._kernel_tables,
+                                   *sp, 0, k, small.dt,
+                                   small.robert_coefficient)
+
+        t1 = timed_ms(lambda: kernel_t24(n), reps=3, inner=1, warmup=1)
+        t4 = timed_ms(lambda: kernel_t24(4 * n), reps=3, inner=1, warmup=1)
+        row["ms_T24"] = (t4 - t1) / (3 * n)
+        log(f"timing barotropic_step {form} T72 73x144, ms per step: kernel "
+            f"{row['ms']:.5f} ({1e3 / row['ms']:.0f} steps/s), plain version "
+            f"{row['plain_ms']:.5f}, plain engine {row['plain_engine_ms']:.5f}"
+            f", bound {row['bound_ms']:.6f} ({row['bound_by']}); one "
+            f"{BARO_EVERY}-step launch {row['launch_ms_12_steps']:.4f} ms; "
+            f"kernel at T24 on 37x72 {row['ms_T24']:.5f}")
+        rows[form] = row
+    return rows
 
 
 def main() -> int:
@@ -313,6 +618,10 @@ def main() -> int:
     errs, timing = check_kernels(torch, dev)
     check_golden(torch, dev, root)
     launches, rollout = run_main_path(torch, dev)
+    baro_err = check_barotropic_kernel(torch, dev)
+    baro_launches, baro_path = run_barotropic_path(torch, dev)
+    example = run_example_flow(torch, dev)
+    baro_timing = time_barotropic(torch, dev)
 
     kernels = []
     for name, source, replaces in (
@@ -341,7 +650,25 @@ def main() -> int:
             "library_ms": None,
             "per_shape": timing[name],
         })
-    log(json.dumps({"rollout": rollout, "card": card}))
+    rows = list(baro_timing.values())
+    kernels.append({
+        "name": "barotropic_step", "route": "cuda",
+        "source": "dlwp_torch/csrc/barotropic_step.cu",
+        "replaces": "dlwp_tpu/barotropic/pallas_step.py:123",
+        "launches": sum(baro_launches.values()),
+        "max_abs_err": baro_err,
+        # Per integration step at T72 on 73x144, mean of the two forms.
+        "ms": float(np.mean([r["ms"] for r in rows])),
+        "plain_ms": float(np.mean([r["plain_ms"] for r in rows])),
+        "bound_ms": float(np.mean([r["bound_ms"] for r in rows])),
+        "bound_by": rows[0]["bound_by"],
+        "library_ms": None,
+        "unit": "per step",
+        "launches_by_form": baro_launches,
+        "per_form": baro_timing,
+    })
+    log(json.dumps({"rollout": rollout, "barotropic_path": baro_path,
+                    "barotropic_example": example, "card": card}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

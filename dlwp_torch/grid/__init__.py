@@ -1,4 +1,5 @@
-"""Grid helpers (port of ``dlwp_tpu.grid``): solar insolation."""
+"""Grid helpers (port of ``dlwp_tpu.grid``): lat/lon grids and quadrature,
+solar insolation."""
 
 from dlwp_torch.grid.insolation import (
     day_of_year,
@@ -6,9 +7,23 @@ from dlwp_torch.grid.insolation import (
     insolation_from_tables,
     insolation_tables,
 )
+from dlwp_torch.grid.latlon import (
+    EARTH_RADIUS,
+    GRAVITY,
+    OMEGA,
+    LatLonGrid,
+    clenshaw_curtis_weights,
+    gaussian_latitudes,
+)
 
 __all__ = [
+    "EARTH_RADIUS",
+    "GRAVITY",
+    "LatLonGrid",
+    "OMEGA",
+    "clenshaw_curtis_weights",
     "day_of_year",
+    "gaussian_latitudes",
     "insolation",
     "insolation_from_tables",
     "insolation_tables",

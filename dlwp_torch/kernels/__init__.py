@@ -5,13 +5,21 @@ use, see :mod:`dlwp_torch.kernels._build`) and takes the plain version for
 CPU tensors. Each keeps a ``launches`` count of kernel launches.
 """
 
+from dlwp_torch.kernels.barotropic_step import (
+    barotropic_step,
+    barotropic_step_plain,
+)
 from dlwp_torch.kernels.fused_conv_pool import (
     fused_conv_pool,
     fused_conv_pool_plain,
 )
 from dlwp_torch.kernels.lstm_gates import lstm_gates, lstm_gates_plain
 
-WRAPPERS = {"fused_conv_pool": fused_conv_pool, "lstm_gates": lstm_gates}
+WRAPPERS = {
+    "fused_conv_pool": fused_conv_pool,
+    "lstm_gates": lstm_gates,
+    "barotropic_step": barotropic_step,
+}
 
 
 def reset_launch_counts() -> None:
@@ -25,6 +33,8 @@ def launch_counts() -> dict[str, int]:
 
 __all__ = [
     "WRAPPERS",
+    "barotropic_step",
+    "barotropic_step_plain",
     "fused_conv_pool",
     "fused_conv_pool_plain",
     "launch_counts",

@@ -1,10 +1,14 @@
-"""Carry flax parameter trees into the port's modules.
+"""Carry flax parameter trees and barotropic states into the port.
 
 A flax ``SequentialModel`` keeps its parameters as
 ``{"params": {"layers_{i}": {name: array}}}``. The port's
 ``SequentialModel.layers[i]`` holds the same names with the same shapes
 (OIHW ``kernel`` and ``bias``; ``input_kernel``, ``recurrent_kernel`` and
 ``bias`` for ``ConvLSTM2D``), so loading is a checked one-to-one copy.
+
+The barotropic core has no weights; its state is what crosses:
+:func:`barotropic_state_from_numpy` resumes a JAX ``BarotropicState`` taken
+out as numpy arrays.
 """
 
 from __future__ import annotations
@@ -13,6 +17,8 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from dlwp_torch.barotropic.model import BarotropicState
+from dlwp_torch.device import resolve_device
 from dlwp_torch.models.layers import ParamLayer
 
 
@@ -73,3 +79,26 @@ def tree_from_leaves(model, leaves) -> dict:
     for (slot, name), leaf in zip(names, leaves):
         tree[slot][name] = leaf
     return {"params": tree}
+
+
+def barotropic_state_from_numpy(vrt_spec, vrt_spec_prev, step, t,
+                                device=None) -> BarotropicState:
+    """A :class:`BarotropicState` from numpy arrays (e.g. a JAX state's
+    ``np.asarray`` fields): complex spectra (..., T+1, T+1) on ``device``
+    (``None`` -> ``cuda``) in their own precision, ``step`` as an int and
+    ``t`` as a host 0-d tensor of the matching real dtype."""
+    dev = resolve_device(device)
+    cur, prev = np.asarray(vrt_spec), np.asarray(vrt_spec_prev)
+    if not (np.iscomplexobj(cur) and cur.shape == prev.shape
+            and cur.dtype == prev.dtype):
+        raise ValueError(
+            f"vrt_spec {cur.dtype}{cur.shape} and vrt_spec_prev "
+            f"{prev.dtype}{prev.shape} must be complex of one shape and dtype"
+        )
+    real = torch.float64 if cur.dtype == np.complex128 else torch.float32
+    return BarotropicState(
+        vrt_spec=torch.tensor(cur, device=dev),
+        vrt_spec_prev=torch.tensor(prev, device=dev),
+        step=int(step),
+        t=torch.tensor(float(np.asarray(t)), dtype=real),
+    )

@@ -7,17 +7,25 @@ PyTorch for CUDA:
 
 Each kernel is held against its plain PyTorch version on the same inputs
 (fp32 1e-5: only the summation order differs; bf16 gates 5e-2, a few bf16
-rounding steps near 1), and the fused flagship on the card against the
-same model on the CPU.
+rounding steps near 1; the barotropic step 1e-5 relative in height after
+20 steps, the JAX package's bar for its Pallas step), and the fused
+flagship on the card against the same model on the CPU.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from dlwp_torch import build_sequential
+from dlwp_torch import (
+    BarotropicModel,
+    BarotropicModelPsi,
+    LatLonGrid,
+    build_sequential,
+)
 from dlwp_torch.flagship import convlstm_specs
 from dlwp_torch.kernels import (
+    barotropic_step,
+    barotropic_step_plain,
     fused_conv_pool,
     fused_conv_pool_plain,
     launch_counts,
@@ -68,7 +76,8 @@ def test_kernels_match_plain_on_card(dev):
             for got, want in zip(lstm_gates(zx, zh, c, "tanh", ra, gd),
                                  lstm_gates_plain(zx, zh, c, "tanh", ra, gd)):
                 torch.testing.assert_close(got, want, rtol=0, atol=tol)
-    assert launch_counts() == {"fused_conv_pool": 3, "lstm_gates": 4}
+    assert launch_counts() == {"fused_conv_pool": 3, "lstm_gates": 4,
+                               "barotropic_step": 0}
 
 
 def test_flagship_on_card_matches_cpu(dev):
@@ -88,5 +97,44 @@ def test_flagship_on_card_matches_cpu(dev):
             for name, model in (("cpu", cpu), ("cuda", card)):
                 v = xs[name]
                 xs[name] = torch.cat([model(v), v[:, :, 2:3]], dim=2)
-    assert launch_counts() == {"fused_conv_pool": 6, "lstm_gates": 3}
+    assert launch_counts() == {"fused_conv_pool": 6, "lstm_gates": 3,
+                               "barotropic_step": 0}
     torch.testing.assert_close(xs["cuda"].cpu(), xs["cpu"], rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("form", ["psi", "psi_no_sh", "vrt"])
+def test_barotropic_kernel_matches_plain_on_card(dev, form):
+    """20 steps at T24 on 37x72 through the kernel and through its plain
+    version on the same tables and state; then 7 + 13 == 20 bit for bit,
+    and run() is one launch."""
+    grid = LatLonGrid.regular(37, 72)
+    kw = dict(dt=1800.0, step_impl="kernel", device=dev)
+    if form == "vrt":
+        m = BarotropicModel(grid, 24, **kw)
+    else:
+        m = BarotropicModelPsi(grid, 24, correct_sh=form == "psi", **kw)
+    z0 = 100.0 * np.random.RandomState(1).randn(37, 72)
+    s0 = m.from_z(z0)
+    parts = [x.contiguous() for x in (s0.vrt_spec.real, s0.vrt_spec.imag,
+                                      s0.vrt_spec_prev.real,
+                                      s0.vrt_spec_prev.imag)]
+    args = (m._kernel_form, m._kernel_tables, *parts, 0, 20, m.dt,
+            m.robert_coefficient)
+    got = barotropic_step(*args)
+    want = barotropic_step_plain(*args)
+    torch.cuda.synchronize()
+    as_state = type(s0)
+    zk = m.z_grid(as_state(torch.complex(got[0], got[1]), s0.vrt_spec, 20, s0.t))
+    zp = m.z_grid(as_state(torch.complex(want[0], want[1]), s0.vrt_spec, 20,
+                           s0.t))
+    rel = ((zk - zp).abs().max() / zp.abs().max()).item()
+    assert rel <= 1e-5, rel
+
+    reset_launch_counts()
+    s20 = m.run(s0, 20)
+    s2 = m.run(m.run(s0, 7), 13)
+    torch.cuda.synchronize()
+    assert launch_counts()["barotropic_step"] == 3
+    assert torch.equal(s2.vrt_spec, s20.vrt_spec)
+    assert torch.equal(s2.vrt_spec_prev, s20.vrt_spec_prev)
+    assert torch.equal(s20.vrt_spec, torch.complex(got[0], got[1]))

@@ -76,7 +76,8 @@ def test_cpu_tensors_take_plain_version_without_counting():
     zx, zh, c = (torch.from_numpy(a) for a in _gate_operands(4))
     for got, want in zip(lstm_gates(zx, zh, c), lstm_gates_plain(zx, zh, c)):
         torch.testing.assert_close(got, want, rtol=0, atol=0)
-    assert launch_counts() == {"fused_conv_pool": 0, "lstm_gates": 0}
+    assert launch_counts() == {"fused_conv_pool": 0, "lstm_gates": 0,
+                               "barotropic_step": 0}
 
 
 @pytest.mark.parametrize("case", ["odd_grid", "bad_kernel", "meta_device",

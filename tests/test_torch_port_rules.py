@@ -10,7 +10,9 @@ import torch
 
 import dlwp_torch
 from dlwp_torch import (
+    BarotropicModelPsi,
     DLWPNeuralNet,
+    LatLonGrid,
     PredictorDataset,
     SeriesSampler,
     TimeSeriesEstimator,
@@ -49,7 +51,7 @@ def test_package_found_its_files():
 
 
 @pytest.mark.parametrize("entry", ["resolve_device", "build_sequential",
-                                   "DLWPNeuralNet"])
+                                   "DLWPNeuralNet", "BarotropicModelPsi"])
 def test_default_device_is_cuda_and_raises_without_a_card(entry, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -57,6 +59,8 @@ def test_default_device_is_cuda_and_raises_without_a_card(entry, monkeypatch):
             resolve_device()
         elif entry == "build_sequential":
             build_sequential(convlstm_specs(8, 16))
+        elif entry == "BarotropicModelPsi":
+            BarotropicModelPsi(LatLonGrid.regular(19, 36), 12, dt=1800.0)
         else:
             DLWPNeuralNet(is_recurrent=True)
     assert resolve_device("cpu") == torch.device("cpu")
