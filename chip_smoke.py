@@ -36,7 +36,24 @@ Phases, each raising on failure:
    as the two-point slope of 500 and 2000 steps, for the kernel, its plain
    version and the plain engine, beside the bound per step, and the kernel
    alone at T24 on 37x72;
-10. a ``{"kernels": [...]}`` line, then the last line
+10. the lat-band kernels (``halo_exchange``, ``overlap_conv``,
+    ``overlap_conv_db``) against their plain versions on meshes of virtual
+    shards of the one card (lat 1, 2, 4 and data 2 x lat 2), at every
+    sharded conv of the flagship at B=64 and on odd cases (W=18, B=5 with
+    chunk 2, 0-sided halos, bf16 halos): halos bit-equal, convs within
+    1e-5;
+11. the spatial-parallel forecast at full width: the flagship built with
+    ``mesh=build_mesh(MeshConfig(data=1, lat=2), devices=[cuda:0] * 2)``,
+    ``batch_spec=("data", None, None, "lat", None)``,
+    ``spatial_impl="overlap"``, ``predict(32)`` at B=64 in fp32 gates;
+    launch counts equal to those the port's dispatch gives (derived from
+    one CPU forward), the forecast held against the unsharded forecast on
+    the card and 4 samples against the same sharded predict on the CPU;
+    then B=8 for 4 steps, which takes ``overlap_conv``; the sharded and
+    unsharded rollout rates, the sharded device time by kernel and idle
+    share; each new kernel, its plain version and cuDNN's ``F.conv2d`` on
+    the pre-padded shards timed at the path's shapes beside its bound;
+12. a ``{"kernels": [...]}`` line, then the last line
     ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without printing a result when no CUDA device is present.
@@ -75,6 +92,26 @@ TOL_BARO = {24: 1e-5, 72: 1e-4}
 # RMS of the final spectral vorticity after 288 steps.
 TOL_BARO_RRMS = 1e-3
 BARO_SNAPS, BARO_EVERY, BARO_SLOPE_N = 24, 12, 500
+# The spatial-parallel path: two lat bands of the one card, as the JAX
+# recurrent dry run shards its ConvLSTM input (__graft_entry__.py:201).
+SHARD_SPEC = ("data", None, None, "lat", None)
+B_SMALL, STEPS_SMALL = 8, 4
+# Meshes of virtual shards the lat-band kernels are checked on: (data, lat).
+PAR_MESHES = ((1, 1), (1, 2), (1, 4), (2, 2))
+# The flagship's sharded convs at B=64: (name, x shape, O, kernel size,
+# dilation). Dilated and 5x5 convs take the halo kernel, the 3x3 undilated
+# ones the overlap kernels.
+HALO_CONVS = (
+    ("convlstm input", (TD * B, C + 1, NLAT, NLON), 48, 3, 2),
+    ("tower conv 1", (B, 4 * (C + 1) * TD, NLAT, NLON), 32, 3, 2),
+    ("tower conv 5", (B, 64, NLAT, NLON), 32, 3, 2),
+    ("tower conv 6", (B, 32, NLAT, NLON), TD * C, 5, 1),
+)
+OVERLAP_CONVS = (
+    ("convlstm recurrent", (B, 12, NLAT, NLON), 48),
+    ("tower conv 2", (B, 32, NLAT // 2, NLON // 2), 64),
+    ("tower conv 4", (B, 128, NLAT // 2, NLON // 2), 64),
+)
 
 
 def log(*a):
@@ -99,6 +136,13 @@ def timed_ms(fn, reps=5, inner=10, warmup=2):
         end.synchronize()
         times.append(start.elapsed_time(end) / inner)
     return float(np.median(times))
+
+
+def expected_counts(**nonzero):
+    """Expected launch counts: ``nonzero`` and 0 for every other kernel."""
+    from dlwp_torch.kernels import WRAPPERS
+
+    return {name: nonzero.get(name, 0) for name in WRAPPERS}
 
 
 def bound_ms(nbytes, flops):
@@ -191,14 +235,15 @@ def check_golden(torch, dev, root):
     err = np.abs(x.cpu().numpy() - data["convlstm_roll3"]).max()
     log(f"golden convlstm_roll3 (fp32 through kernels, {counts}): "
         f"max abs err {err:.3e}")
-    if counts != {"fused_conv_pool": 6, "lstm_gates": 3, "barotropic_step": 0}:
+    if counts != expected_counts(fused_conv_pool=6, lstm_gates=3):
         raise AssertionError(f"golden run did not use the kernels: {counts}")
     if not err <= TOL_GOLDEN:
         raise AssertionError(f"golden: {err} > {TOL_GOLDEN}")
 
 
-def flagship_stack(device, seed=0):
-    """Synthetic dataset -> model -> sampler, as a user builds it."""
+def flagship_stack(device, seed=0, mesh=None):
+    """Synthetic dataset -> model -> sampler, as a user builds it; with a
+    ``mesh``, the model shards latitude bands over it (``overlap``)."""
     from dlwp_torch import DLWPNeuralNet, PredictorDataset, SeriesSampler
     from dlwp_torch.flagship import convlstm_specs
 
@@ -216,7 +261,9 @@ def flagship_stack(device, seed=0):
     )
     dlwp = DLWPNeuralNet(time_dim=TD, scaler_type=None, is_recurrent=True,
                          device=device)
-    dlwp.build_model(convlstm_specs(NLAT, NLON, C, TD))
+    dlwp.build_model(convlstm_specs(NLAT, NLON, C, TD), mesh=mesh,
+                     batch_spec=SHARD_SPEC if mesh else None,
+                     spatial_impl="overlap")
     sampler = SeriesSampler(data, model=dlwp, input_time_steps=TD,
                             output_time_steps=TD, batch_size=B,
                             add_insolation=True)
@@ -230,14 +277,8 @@ def run_main_path(torch, dev):
     dlwp, sampler = flagship_stack(dev)
     x_sample, _ = sampler.generate(np.arange(1))
     dlwp.init(x_sample, seed=0)
-    tree = {"params": {
-        f"layers_{i}": {k: p.detach().cpu().numpy()
-                        for k, p in layer.named_parameters()}
-        for i, layer in enumerate(dlwp.base_model.layers)
-        if any(True for _ in layer.parameters())
-    }}
     cpu, cpu_sampler = flagship_stack("cpu")
-    cpu.load_flax_params(tree)
+    cpu.load_flax_params(params_tree(dlwp))
     torch.set_num_threads(os.cpu_count() or 1)
 
     results, counts = {}, {}
@@ -249,8 +290,7 @@ def run_main_path(torch, dev):
         counts[tag] = launch_counts()
         log(f"main path {tag}: predict({STEPS}) at B={B}: "
             f"values {fc.values.shape}, launches {counts[tag]}")
-        need = {"fused_conv_pool": 2 * STEPS, "lstm_gates": STEPS,
-                "barotropic_step": 0}
+        need = expected_counts(fused_conv_pool=2 * STEPS, lstm_gates=STEPS)
         if counts[tag] != need:
             raise AssertionError(f"{tag} launches {counts[tag]} != {need}")
         if fc.values.shape != (STEPS * TD, B, C, NLAT, NLON) or not (
@@ -284,18 +324,30 @@ def run_main_path(torch, dev):
     return counts["fp32"], results
 
 
-def profile_steps(torch, est, x0, days, ms, tag, steps=4):
+def params_tree(dlwp):
+    """The model's weights as a flax-style tree of numpy arrays."""
+    return {"params": {
+        f"layers_{i}": {k: p.detach().cpu().numpy()
+                        for k, p in layer.named_parameters()}
+        for i, layer in enumerate(dlwp.base_model.layers)
+        if any(True for _ in layer.parameters())
+    }}
+
+
+def profile_steps(torch, est, x0, days, ms, tag, steps=4, names=None):
     """Device time by kernel over a short rollout (torch.profiler); returns
     the device kernel ms per step."""
     rollout = est.rollout_fn(steps)
     return profile_device(torch, lambda: rollout(x0, days, ms),
-                          f"rollout({steps}) {tag}", per=steps, unit="step")
+                          f"rollout({steps}) {tag}", per=steps, unit="step",
+                          names=names)
 
 
-def profile_device(torch, fn, label, per=1, unit="call"):
+def profile_device(torch, fn, label, per=1, unit="call", names=None):
     """Device kernel time by name over one call of ``fn`` after a warm-up
     call (torch.profiler); returns the device kernel ms per ``unit``, of
-    which one call holds ``per``."""
+    which one call holds ``per``, and fills ``names`` (if given) with
+    {kernel name: (device ms, launches) per unit}."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -308,6 +360,9 @@ def profile_device(torch, fn, label, per=1, unit="call"):
             if getattr(e, "device_time_total", 0) > 0
             and e.device_type.name == "CUDA"]
     total = sum(e.device_time_total for e in rows)
+    if names is not None:
+        names.update({e.key: (e.device_time_total / 1e3 / per, e.count / per)
+                      for e in rows})
     log(f"profile of {label}: device kernel time {total / 1e3:.3f} ms")
     for e in sorted(rows, key=lambda e: -e.device_time_total)[:12]:
         log(f"  {e.device_time_total / 1e3 / per:9.4f} ms/{unit} "
@@ -451,8 +506,7 @@ def run_barotropic_path(torch, dev):
         log(f"barotropic path {form}: run_with_snapshots({BARO_SNAPS}, "
             f"{BARO_EVERY}) in {wall * 1e3:.1f} ms (first call, host clock), "
             f"launches {counts}")
-        need = {"fused_conv_pool": 0, "lstm_gates": 0,
-                "barotropic_step": BARO_SNAPS}
+        need = expected_counts(barotropic_step=BARO_SNAPS)
         if counts != need:
             raise AssertionError(f"barotropic {form} launches {counts}")
         if zs.shape != (BARO_SNAPS, 73, 144) or not (
@@ -588,6 +642,307 @@ def time_barotropic(torch, dev):
     return rows
 
 
+def virtual_mesh(dev, data, lat):
+    """A (data, lat) mesh whose entries all name ``dev``."""
+    from dlwp_torch.parallel import MeshConfig, build_mesh
+
+    return build_mesh(MeshConfig(data=data, lat=lat),
+                      devices=[dev] * (data * lat))
+
+
+def max_err(got, want):
+    return max((a - b).abs().max().item()
+               for ra, rb in zip(got, want) for a, b in zip(ra, rb))
+
+
+def check_parallel_kernels(torch, dev):
+    """The lat-band kernels against their plain versions on every mesh of
+    PAR_MESHES; returns the largest |kernel - plain| per kernel."""
+    from dlwp_torch.kernels import (
+        halo_exchange, halo_exchange_plain, overlap_conv, overlap_conv_db,
+        overlap_conv_plain,
+    )
+    from dlwp_torch.parallel.mesh import split_shards
+
+    g = torch.Generator(device=dev).manual_seed(1)
+    errs = {"halo_exchange": 0.0, "overlap_conv": 0.0, "overlap_conv_db": 0.0}
+    halo_cases = [(name, shape, kh, d, torch.float32)
+                  for name, shape, _, kh, d in HALO_CONVS]
+    halo_cases += [("odd W=18", (5, 3, 8, 18), 3, 1, torch.float32),
+                   ("odd 0-sided (0, 1)", (5, 3, 8, 18), None, (0, 1),
+                    torch.float32),
+                   ("odd 0-sided (1, 0) bf16", (3, 2, 8, 18), None, (1, 0),
+                    torch.bfloat16),
+                   ("odd bf16 (1, 2)", (3, 2, 8, 18), None, (1, 2),
+                    torch.bfloat16)]
+    # (name, x shape, O, chunk of overlap_conv_db)
+    conv_cases = [(name, shape, o, ch) for (name, shape, o), ch in
+                  zip(OVERLAP_CONVS, (5, 11, 4))]
+    conv_cases += [("odd W=18 B=5 chunk 2", (5, 3, 8, 18), 7, 2)]
+    for data, lat in PAR_MESHES:
+        mesh = virtual_mesh(dev, data, lat)
+        tag = f"data={data} lat={lat}"
+        for name, shape, kh, d, dtype in halo_cases:
+            if shape[2] % lat or shape[0] % data:
+                continue
+            halo = d if kh is None else ((kh - 1) * d // 2,
+                                         (kh - 1) * d - (kh - 1) * d // 2)
+            x = torch.randn(shape, device=dev, generator=g).to(dtype)
+            shards = split_shards(x, mesh, "data", "lat")
+            got = halo_exchange(shards, halo)
+            torch.cuda.synchronize()
+            want = halo_exchange_plain(shards, halo)
+            same = all(torch.equal(a, b) for ra, rb in zip(got, want)
+                       for a, b in zip(ra, rb))
+            log(f"check halo_exchange {tag} {name} {shape} halo {halo} "
+                f"{dtype}: bit-equal {same}")
+            if not same:
+                raise AssertionError(f"halo_exchange {tag} {name} differs")
+        for name, shape, o, chunk in conv_cases:
+            if shape[2] % lat or shape[2] // lat < 2 or shape[0] % data:
+                continue
+            x = torch.randn(shape, device=dev, generator=g)
+            k = torch.randn(o, shape[1], 3, 3, device=dev,
+                            generator=g) / (9 * shape[1]) ** 0.5
+            shards = split_shards(x, mesh, "data", "lat")
+            want = overlap_conv_plain(shards, k)
+            for kname, fn in (("overlap_conv", overlap_conv),
+                              ("overlap_conv_db",
+                               lambda s, kk: overlap_conv_db(s, kk, chunk))):
+                got = fn(shards, k)
+                torch.cuda.synchronize()
+                err = max_err(got, want)
+                log(f"check {kname} {tag} {name} {shape}->{o}"
+                    f"{f' chunk {chunk}' if kname.endswith('db') else ''}: "
+                    f"max|kernel-plain| = {err:.3e}")
+                if not err <= TOL_F32:
+                    raise AssertionError(f"{kname} {tag} {name}: {err}")
+                errs[kname] = max(errs[kname], err)
+    return errs
+
+
+def dispatch_launches(torch, cpu_model, batch):
+    """Kernel launches of one forward of the lat=2 sharded flagship on one
+    card, derived from the port's own dispatch: one forward of the same
+    model on the CPU (plain versions) with every kernel wrapper's call
+    sites recorded; on a one-card mesh each call is one launch."""
+    from unittest import mock
+
+    import dlwp_torch.models.layers as layers
+    import dlwp_torch.parallel.pallas_halo as ph
+    import dlwp_torch.parallel.pallas_overlap as po
+
+    calls = expected_counts()
+
+    def recorded(module, name):
+        fn = getattr(module, name)
+
+        def wrapper(*a, **kw):
+            calls[name] += 1
+            return fn(*a, **kw)
+        return mock.patch.object(module, name, wrapper)
+
+    x = torch.zeros(batch, TD, C + 1, NLAT, NLON)
+    with recorded(layers, "lstm_gates"), recorded(layers, "fused_conv_pool"), \
+            recorded(ph, "halo_exchange"), recorded(po, "overlap_conv"), \
+            recorded(po, "overlap_conv_db"), torch.inference_mode():
+        cpu_model.base_model(x)
+    return calls
+
+
+def run_sharded_path(torch, dev):
+    """The lat=2 spatial-parallel forecast on the card (the slice's main
+    path) against the unsharded forecast and the CPU; then B=8, rates and
+    the profile. Returns the launches per run and the measurements."""
+    from dlwp_torch import TimeSeriesEstimator
+    from dlwp_torch.kernels import launch_counts, reset_launch_counts
+
+    card, sampler = flagship_stack(dev)
+    card.init(sampler.generate(np.arange(1))[0], seed=0)
+    sharded, sh_sampler = flagship_stack(dev, mesh=virtual_mesh(dev, 1, 2))
+    sharded.base_model.share_params_from(card.base_model)
+    cpu, cpu_sampler = flagship_stack(
+        "cpu", mesh=virtual_mesh(torch.device("cpu"), 1, 2))
+    cpu.load_flax_params(params_tree(card))
+    per_step = {b: dispatch_launches(torch, cpu, b) for b in (B, B_SMALL)}
+    log(f"sharded path: launches per step from the dispatch: {per_step}")
+    if per_step[B_SMALL]["overlap_conv"] == 0:
+        raise AssertionError("B=8 does not reach overlap_conv")
+
+    est = TimeSeriesEstimator(sharded, sh_sampler)
+    reset_launch_counts()
+    fc = est.predict(STEPS, samples=np.arange(B))
+    torch.cuda.synchronize()
+    counts = {"B64": launch_counts()}
+    need = {k: STEPS * v for k, v in per_step[B].items()}
+    log(f"sharded path: predict({STEPS}) at B={B} on data=1 x lat=2 of "
+        f"one card: values {fc.values.shape}, launches {counts['B64']}")
+    if counts["B64"] != need:
+        raise AssertionError(f"sharded launches {counts['B64']} != {need}")
+    if fc.values.shape != (STEPS * TD, B, C, NLAT, NLON) or not (
+            np.isfinite(fc.values).all()):
+        raise AssertionError(f"sharded: bad forecast {fc.values.shape}")
+    ref = TimeSeriesEstimator(card, sampler).predict(STEPS,
+                                                     samples=np.arange(B))
+    result = {}
+    for tag, want, got in (
+            ("unsharded card", ref.values, fc.values),
+            ("sharded CPU", None, fc.values[:, :4])):
+        t0 = time.perf_counter()
+        if want is None:
+            want = TimeSeriesEstimator(cpu, cpu_sampler).predict(
+                STEPS, samples=np.arange(4)).values
+        step1 = float(np.abs(got[:TD] - want[:TD]).max())
+        rrms = float(np.sqrt(np.mean((got - want) ** 2))
+                     / np.sqrt(np.mean(want ** 2)))
+        log(f"sharded path vs {tag} ({time.perf_counter() - t0:.1f} s): "
+            f"step-1 max abs {step1:.3e}, {STEPS}-step relative RMS "
+            f"{rrms:.3e}")
+        if not (step1 <= TOL_STEP1["fp32"] and rrms <= TOL_TRAJ_RRMS["fp32"]):
+            raise AssertionError(f"sharded vs {tag}: {step1}, {rrms}")
+        result[f"vs {tag}"] = {"step1_max_abs": step1, "rel_rms": rrms}
+
+    reset_launch_counts()
+    small = est.predict(STEPS_SMALL, samples=np.arange(B_SMALL))
+    torch.cuda.synchronize()
+    counts["B8"] = launch_counts()
+    need = {k: STEPS_SMALL * v for k, v in per_step[B_SMALL].items()}
+    log(f"sharded path: predict({STEPS_SMALL}) at B={B_SMALL}: launches "
+        f"{counts['B8']}")
+    if counts["B8"] != need or not np.isfinite(small.values).all():
+        raise AssertionError(f"sharded B={B_SMALL}: {counts['B8']} != {need}")
+
+    # Rates in turns (unsharded, sharded, sharded, unsharded) on one card.
+    rolls = {}
+    for tag, e in (("unsharded", TimeSeriesEstimator(card, sampler)),
+                   ("sharded", est)):
+        x0, days, ms, _ = e.prepare_inputs(np.arange(B))
+        rolls[tag] = (e, e.rollout_fn(STEPS), x0, days, ms)
+    elapsed = {"unsharded": [], "sharded": []}
+    for tag in ("unsharded", "sharded", "sharded", "unsharded"):
+        _, roll, x0, days, ms = rolls[tag]
+        elapsed[tag].append(timed_ms(lambda: roll(x0, days, ms), reps=3,
+                                     inner=1, warmup=1) / 1e3)
+    for tag, ts in elapsed.items():
+        sec = float(np.mean(ts))
+        result[f"{tag}_rollout"] = {"elapsed_s": sec,
+                                    "grid_points_per_s":
+                                    B * STEPS * NLAT * NLON / sec}
+        log(f"rollout {tag} fp32: {sec * 1e3:.2f} ms per predict({STEPS}) at "
+            f"B={B} -> {B * STEPS * NLAT * NLON / sec / 1e6:.2f} Mgp/s")
+    e, _, x0, days, ms = rolls["sharded"]
+    names = {}
+    device = profile_steps(torch, e, x0, days, ms, "sharded fp32",
+                           names=names)
+    wall = result["sharded_rollout"]["elapsed_s"] * 1e3 / STEPS
+    result["sharded_device_ms_per_step"] = device
+    # Device time per launch of the lat-band kernels on the path: their
+    # event timings below include the wrappers' host work.
+    result["device_ms_per_launch"] = {
+        kernel: sum(t for k, (t, _) in names.items() if kernel in k)
+        / max(sum(n for k, (_, n) in names.items() if kernel in k), 1)
+        for kernel in ("halo_kernel", "overlap_db_kernel")}
+    log(f"sharded rollout: device ms per launch of the lat-band kernels "
+        f"{result['device_ms_per_launch']}")
+    result["sharded_idle_share"] = 1 - device / wall
+    log(f"sharded rollout: device {device:.3f} ms a step of {wall:.3f} ms: "
+        f"idle {100 * (1 - device / wall):.1f}%")
+    return counts, per_step, result
+
+
+def overlap_dispatch(torch, shape, o):
+    """``[(batch, chunk), ...]``: the overlap kernel launches the port's
+    dispatch makes for one conv of global ``shape`` on the lat=2 mesh of
+    one card (chunk None: the single-shot kernel), read off the dispatch
+    with meta tensors."""
+    from unittest import mock
+
+    import dlwp_torch.parallel.pallas_overlap as po
+
+    plan = []
+
+    def record(shards, kernel, chunk=None):
+        plan.append((shards[0][0].shape[0], chunk))
+        return [[torch.empty((s.shape[0], o) + s.shape[2:], device="meta")
+                 for s in r] for r in shards]
+
+    b, c, h, w = shape
+    shards = [[torch.empty(b, c, h // 2, w, device="meta")] * 2]
+    with mock.patch.object(po, "_overlap_local_db", record), \
+            mock.patch.object(po, "overlap_conv", record):
+        po._overlap_local(shards, torch.empty(o, c, 3, 3, device="meta"))
+    return plan
+
+
+def time_parallel_kernels(torch, dev):
+    """Each lat-band kernel, its plain version and (for the convs) cuDNN's
+    F.conv2d on the pre-padded shards, at the shapes the sharded path gives
+    it on the lat=2 mesh of one card: the halo at its four convs, the
+    pipelined conv at its five launches a step at B=64, the single-shot
+    conv at its three at B=8."""
+    import torch.nn.functional as F
+
+    from dlwp_torch.kernels import (
+        halo_exchange, halo_exchange_plain, overlap_conv, overlap_conv_db,
+        overlap_conv_plain,
+    )
+    from dlwp_torch.kernels.halo_exchange import halo_rows_plain
+    from dlwp_torch.ops.padding import pad_latlon
+    from dlwp_torch.parallel.mesh import split_shards
+
+    mesh = virtual_mesh(dev, 1, 2)
+    g = torch.Generator(device=dev).manual_seed(2)
+    rows = {"halo_exchange": [], "overlap_conv": [], "overlap_conv_db": []}
+    for name, shape, _, kh, d in HALO_CONVS:
+        eh = (kh - 1) * d
+        halo = (eh // 2, eh - eh // 2)
+        shards = split_shards(torch.randn(shape, device=dev, generator=g),
+                              mesh, "data", "lat")
+        out = halo_exchange(shards, halo)
+        nbytes = 4 * sum(s.numel() for r in shards + out for s in r)
+        rows["halo_exchange"].append(dict(
+            conv=name, shape=list(shape), halo=list(halo),
+            ms=timed_ms(lambda: halo_exchange(shards, halo)),
+            plain_ms=timed_ms(lambda: halo_exchange_plain(shards, halo)),
+            library_ms=None, bytes=nbytes, flops=0))
+    for name, shape, o, batch, chunk in [
+            (name, shape, o, batch, chunk)
+            for b_run in (B, B_SMALL)
+            for name, shape, o in OVERLAP_CONVS
+            for batch, chunk in overlap_dispatch(
+                torch, (b_run,) + shape[1:], o)]:
+        shape = (batch,) + shape[1:]
+        shards = split_shards(torch.randn(shape, device=dev, generator=g),
+                              mesh, "data", "lat")
+        k = torch.randn(o, shape[1], 3, 3, device=dev,
+                        generator=g) / (9 * shape[1]) ** 0.5
+        blocks = torch.cat([pad_latlon(p, (0, 0), (1, 1))
+                            for r in shards for p in halo_rows_plain(r, (1, 1))])
+        if chunk is None:
+            kname, fn = "overlap_conv", lambda: overlap_conv(shards, k)
+        else:
+            kname, fn = "overlap_conv_db", (
+                lambda: overlap_conv_db(shards, k, chunk))
+        b_, c_, h_, w_ = shape
+        rows[kname].append(dict(
+            conv=name, shape=list(shape), out_channels=o, chunk=chunk,
+            ms=timed_ms(fn),
+            plain_ms=timed_ms(lambda: overlap_conv_plain(shards, k)),
+            library_ms=timed_ms(lambda: F.conv2d(blocks, k)),
+            bytes=4 * (b_ * c_ * h_ * w_ + k.numel() + b_ * o * h_ * w_),
+            flops=2 * b_ * o * h_ * w_ * c_ * 9))
+    for name, rs in rows.items():
+        for r in rs:
+            r["bound_ms"], r["bound_by"] = bound_ms(r["bytes"], r["flops"])
+            lib = ("" if r["library_ms"] is None
+                   else f", cuDNN {r['library_ms']:.4f} ms")
+            log(f"timing {name} {r['conv']} {r['shape']}"
+                f"{'' if r.get('chunk') is None else ' chunk %d' % r['chunk']}"
+                f": kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms"
+                f"{lib}, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -616,8 +971,11 @@ def main() -> int:
                 log(f"  {name}: {line.strip()}")
 
     errs, timing = check_kernels(torch, dev)
+    errs.update(check_parallel_kernels(torch, dev))
     check_golden(torch, dev, root)
-    launches, rollout = run_main_path(torch, dev)
+    main_launches, rollout = run_main_path(torch, dev)
+    sharded_launches, per_step, sharded = run_sharded_path(torch, dev)
+    par_timing = time_parallel_kernels(torch, dev)
     baro_err = check_barotropic_kernel(torch, dev)
     baro_launches, baro_path = run_barotropic_path(torch, dev)
     example = run_example_flow(torch, dev)
@@ -641,7 +999,7 @@ def main() -> int:
                 f"({r['bound_by']})")
         kernels.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces, "launches": main_launches[name],
             "max_abs_err": errs[name],
             "ms": float(np.mean([r["ms"] for r in rows])),
             "plain_ms": float(np.mean([r["plain_ms"] for r in rows])),
@@ -667,7 +1025,44 @@ def main() -> int:
         "launches_by_form": baro_launches,
         "per_form": baro_timing,
     })
-    log(json.dumps({"rollout": rollout, "barotropic_path": baro_path,
+    for name, replaces, run in (
+        ("halo_exchange", "dlwp_tpu/parallel/pallas_halo.py:33", "B64"),
+        ("overlap_conv", "dlwp_tpu/parallel/pallas_overlap.py:77", "B8"),
+        ("overlap_conv_db", "dlwp_tpu/parallel/pallas_overlap.py:163", "B64"),
+    ):
+        # Mean per launch over the launches of one step of the sharded
+        # path's run that takes the kernel (B=64, or B=8 for overlap_conv).
+        rows = par_timing[name]
+        source = ("dlwp_torch/csrc/halo_exchange.cu" if name == "halo_exchange"
+                  else "dlwp_torch/csrc/overlap_conv.cu")
+        entry = {
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": sharded_launches[run][name],
+            "max_abs_err": errs[name],
+            "ms": float(np.mean([r["ms"] for r in rows])),
+            "plain_ms": float(np.mean([r["plain_ms"] for r in rows])),
+            "bound_ms": float(np.mean([r["bound_ms"] for r in rows])),
+            "bound_by": rows[0]["bound_by"],
+            "library_ms": None,
+            "launches_run": f"sharded predict at B={run[1:]}",
+            "per_launch": rows,
+        }
+        profiled = {"halo_exchange": "halo_kernel",
+                    "overlap_conv_db": "overlap_db_kernel"}.get(name)
+        if profiled:
+            entry["device_ms_per_launch_on_path"] = (
+                sharded["device_ms_per_launch"][profiled])
+        if name == "halo_exchange":
+            entry["library_note"] = ("no single PyTorch call builds the "
+                                     "padded shards")
+        else:
+            entry["library_ms"] = float(np.mean([r["library_ms"]
+                                                 for r in rows]))
+        kernels.append(entry)
+    log(json.dumps({"rollout": rollout, "sharded_path": sharded,
+                    "sharded_launches": sharded_launches,
+                    "launches_per_step": per_step,
+                    "barotropic_path": baro_path,
                     "barotropic_example": example, "card": card}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2,7 +2,8 @@
 
 The port of ``dlwp_tpu`` (JAX on TPU), module for module, with the same
 NCHW / (B, T, C, H, W) layouts at public functions: the ConvLSTM forecast
-stack and the spectral barotropic core. Entry points run on
+stack, its lat-band spatial-parallel form (:mod:`dlwp_torch.parallel`)
+and the spectral barotropic core. Entry points run on
 ``cuda`` unless given ``device="cpu"``; see :mod:`dlwp_torch.device`.
 Hand-written kernels live in ``csrc/`` with their wrappers and plain
 PyTorch versions in :mod:`dlwp_torch.kernels`.

@@ -13,12 +13,21 @@ from dlwp_torch.kernels.fused_conv_pool import (
     fused_conv_pool,
     fused_conv_pool_plain,
 )
+from dlwp_torch.kernels.halo_exchange import halo_exchange, halo_exchange_plain
 from dlwp_torch.kernels.lstm_gates import lstm_gates, lstm_gates_plain
+from dlwp_torch.kernels.overlap_conv import (
+    overlap_conv,
+    overlap_conv_db,
+    overlap_conv_plain,
+)
 
 WRAPPERS = {
     "fused_conv_pool": fused_conv_pool,
     "lstm_gates": lstm_gates,
     "barotropic_step": barotropic_step,
+    "halo_exchange": halo_exchange,
+    "overlap_conv": overlap_conv,
+    "overlap_conv_db": overlap_conv_db,
 }
 
 
@@ -37,8 +46,13 @@ __all__ = [
     "barotropic_step_plain",
     "fused_conv_pool",
     "fused_conv_pool_plain",
+    "halo_exchange",
+    "halo_exchange_plain",
     "launch_counts",
     "lstm_gates",
     "lstm_gates_plain",
+    "overlap_conv",
+    "overlap_conv_db",
+    "overlap_conv_plain",
     "reset_launch_counts",
 ]

@@ -15,6 +15,7 @@ import torch
 
 from dlwp_torch.device import resolve_device
 from dlwp_torch.models.cnn import build_sequential
+from dlwp_torch.parallel.spatial import SpatialSharding
 from dlwp_torch.utils.scaler import SCALERS, MeanImputer
 from dlwp_torch.weights import load_flax_params
 
@@ -47,14 +48,40 @@ class DLWPNeuralNet:
         self.layer_specs: Sequence | None = None
         self.base_model = None
         self._build_config: dict = {}
+        self._spatial = None
 
-    def build_model(self, layers: Sequence, fuse: bool = True) -> None:
+    def build_model(self, layers: Sequence, fuse: bool = True, mesh=None,
+                    batch_spec=None, spatial_impl: str = "ppermute") -> None:
         """Build the model from layer specs; parameters come from
-        :meth:`init` or :meth:`load_flax_params`."""
+        :meth:`init` or :meth:`load_flax_params`.
+
+        ``mesh`` (a :class:`~dlwp_torch.parallel.mesh.Mesh`) with a
+        ``batch_spec`` such as ``("data", None, None, "lat", None)``
+        shards latitude bands: the first axis named after the batch that
+        has more than one shard on the mesh is the lat axis, and every
+        spherical conv takes the sharded path of ``spatial_impl``
+        ('ppermute', 'pallas' or 'overlap'). Activations stay global
+        tensors on this model's device between layers."""
         self.layer_specs = layers
         self._build_config = {"fuse": fuse}
-        self.base_model = build_sequential(layers, fuse=fuse,
-                                           device=self.device)
+        if mesh is not None:
+            self._build_config.update(mesh=mesh, batch_spec=batch_spec,
+                                      spatial_impl=spatial_impl)
+        spatial = None
+        if mesh is not None and batch_spec is not None:
+            lat_axes = [a for a in tuple(batch_spec)[1:]
+                        if a is not None and mesh.shape.get(a, 1) > 1]
+            if lat_axes:
+                spatial = SpatialSharding(
+                    mesh=mesh,
+                    data_axis=tuple(batch_spec)[0],
+                    lat_axis=lat_axes[0],
+                    lon_axis=lat_axes[1] if len(lat_axes) > 1 else None,
+                    impl=spatial_impl,
+                )
+        self._spatial = spatial
+        self.base_model = build_sequential(layers, spatial=spatial,
+                                           fuse=fuse, device=self.device)
 
     @property
     def model(self):

@@ -17,6 +17,7 @@ import torch
 import torch.nn as nn
 
 from dlwp_torch.device import resolve_device
+from dlwp_torch.parallel.spatial import attach_spatial
 from dlwp_torch.models.layers import (
     MONOTONE_ACTIVATIONS,
     Activation,
@@ -92,12 +93,14 @@ def _peephole_fuse(layers: list) -> list:
     """conv3x3+pool -> FusedConvPool2D; upsample+conv -> UpConv2D; a
     dilation-2 UpConv2D followed by a conv keeps its output on the small
     grid (``cnn.py:387``). Fused layers take the conv's slot, an Identity
-    the other."""
+    the other. A conv that carries a ``spatial`` sharding stays as it is
+    (the fused forms are single-device)."""
     out = list(layers)
     for i in range(len(out) - 1):
         a, b = out[i], out[i + 1]
         if (
             isinstance(a, CyclicConv2D)
+            and a.spatial is None
             and isinstance(b, MaxPool2D)
             and b.window == (2, 2)
             and a.kernel_size == (3, 3)
@@ -112,6 +115,7 @@ def _peephole_fuse(layers: list) -> list:
             isinstance(a, UpSampling2D)
             and a.factor == (2, 2)
             and isinstance(b, CyclicConv2D)
+            and b.spatial is None
             and b.strides == (1, 1)
             and b.lat_mode == "zero"
             and b.kernel_size[0] == b.kernel_size[1]
@@ -126,6 +130,7 @@ def _peephole_fuse(layers: list) -> list:
             and not a.emit_small
             and a.dilation == (2, 2)
             and isinstance(b, CyclicConv2D)
+            and b.spatial is None
             and b.strides == (1, 1)
             and b.lat_mode == "zero"
             and b.kernel_size[0] == b.kernel_size[1] <= 5
@@ -173,12 +178,17 @@ class SequentialModel(nn.Module):
                 setattr(mine, name, p)
 
 
-def build_sequential(specs: Sequence, fuse: bool = True,
+def build_sequential(specs: Sequence, spatial=None, fuse: bool = True,
                      device=None) -> SequentialModel:
     """Build a :class:`SequentialModel` from specs on ``device`` (default
-    ``cuda``; raises without a card unless ``device='cpu'``)."""
+    ``cuda``; raises without a card unless ``device='cpu'``).
+
+    ``spatial``: an optional
+    :class:`~dlwp_torch.parallel.spatial.SpatialSharding`, attached to every
+    layer that takes one before fusing, so its convs run the lat-band
+    sharded path."""
     dev = resolve_device(device)
-    layers = [resolve_layer(s) for s in specs]
+    layers = [attach_spatial(resolve_layer(s), spatial) for s in specs]
     if fuse:
         layers = _peephole_fuse(layers)
     return SequentialModel(layers, device=dev)

@@ -143,18 +143,25 @@ class _ConvBase(ParamLayer):
 
 
 class CyclicConv2D(_ConvBase):
-    """Conv2D with periodic-longitude boundary (``layers.py:76``)."""
+    """Conv2D with periodic-longitude boundary (``layers.py:76``).
+
+    ``spatial``: an optional
+    :class:`~dlwp_torch.parallel.spatial.SpatialSharding`; the conv then
+    takes its lat-band sharded path whenever the shapes admit it."""
 
     def __init__(self, features, kernel_size=3, strides=(1, 1), dilation=1,
-                 activation="linear", lat_mode="zero", use_bias=True):
+                 activation="linear", lat_mode="zero", use_bias=True,
+                 spatial=None):
         super().__init__(features, kernel_size, dilation, activation, use_bias)
         self.strides = pair(strides)
         self.lat_mode = lat_mode
+        self.spatial = spatial
 
     def forward(self, x):
         self._require_built()
-        y = cyclic_conv2d(x, self.kernel, strides=self.strides,
-                          lat_mode=self.lat_mode, dilation=self.dilation)
+        conv = cyclic_conv2d if self.spatial is None else self.spatial.conv
+        y = conv(x, self.kernel, strides=self.strides,
+                 lat_mode=self.lat_mode, dilation=self.dilation)
         return self._finish(y)
 
 
@@ -222,12 +229,15 @@ class ConvLSTM2D(ParamLayer):
 
     The JAX layer unrolls 1 < T <= 4 and scans longer windows; in eager
     PyTorch both are the same Python loop. The input convs of all T steps
-    run as one (T*B)-batched conv.
+    run as one (T*B)-batched conv. ``spatial`` (a ``SpatialSharding``)
+    sends both convs down the lat-band sharded path, as in
+    :class:`CyclicConv2D`; the gates stay one ``lstm_gates`` call a step.
     """
 
     def __init__(self, features, kernel_size=3, dilation=1,
                  activation="tanh", recurrent_activation="hard_sigmoid",
-                 return_sequences=True, lat_mode="zero", gate_dtype=None):
+                 return_sequences=True, lat_mode="zero", gate_dtype=None,
+                 spatial=None):
         super().__init__()
         if not (isinstance(activation, str)
                 and isinstance(recurrent_activation, str)):
@@ -244,6 +254,7 @@ class ConvLSTM2D(ParamLayer):
         if gate_dtype not in (None, torch.bfloat16):
             raise ValueError("gate_dtype must be None or bfloat16")
         self.gate_dtype = gate_dtype
+        self.spatial = spatial
         for name in ("input_kernel", "recurrent_kernel", "bias"):
             self.register_parameter(name, None)
 
@@ -271,8 +282,8 @@ class ConvLSTM2D(ParamLayer):
         r_act = get_activation(self.recurrent_activation)
 
         def conv(v, k, dilation=(1, 1)):
-            return cyclic_conv2d(v, k, lat_mode=self.lat_mode,
-                                 dilation=dilation)
+            fn = cyclic_conv2d if self.spatial is None else self.spatial.conv
+            return fn(v, k, lat_mode=self.lat_mode, dilation=dilation)
 
         # Time-major, so each step's zx slice is contiguous.
         x_tm = x.transpose(0, 1).reshape(T * B, C, H, W)

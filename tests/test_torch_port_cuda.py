@@ -8,8 +8,10 @@ PyTorch for CUDA:
 Each kernel is held against its plain PyTorch version on the same inputs
 (fp32 1e-5: only the summation order differs; bf16 gates 5e-2, a few bf16
 rounding steps near 1; the barotropic step 1e-5 relative in height after
-20 steps, the JAX package's bar for its Pallas step), and the fused
-flagship on the card against the same model on the CPU.
+20 steps, the JAX package's bar for its Pallas step; the halo exchange bit
+for bit), the fused flagship on the card against the same model on the
+CPU, and the lat-band sharded flagship on two virtual shards of the card
+against the unsharded one.
 """
 
 import numpy as np
@@ -28,11 +30,18 @@ from dlwp_torch.kernels import (
     barotropic_step_plain,
     fused_conv_pool,
     fused_conv_pool_plain,
+    halo_exchange,
+    halo_exchange_plain,
     launch_counts,
     lstm_gates,
     lstm_gates_plain,
+    overlap_conv,
+    overlap_conv_db,
+    overlap_conv_plain,
     reset_launch_counts,
 )
+from dlwp_torch.parallel import MeshConfig, SpatialSharding, build_mesh
+from dlwp_torch.parallel.mesh import split_shards
 
 torch.set_num_threads(2)
 pytestmark = pytest.mark.cuda
@@ -77,7 +86,8 @@ def test_kernels_match_plain_on_card(dev):
                                  lstm_gates_plain(zx, zh, c, "tanh", ra, gd)):
                 torch.testing.assert_close(got, want, rtol=0, atol=tol)
     assert launch_counts() == {"fused_conv_pool": 3, "lstm_gates": 4,
-                               "barotropic_step": 0}
+                               "barotropic_step": 0, "halo_exchange": 0,
+                               "overlap_conv": 0, "overlap_conv_db": 0}
 
 
 def test_flagship_on_card_matches_cpu(dev):
@@ -98,7 +108,8 @@ def test_flagship_on_card_matches_cpu(dev):
                 v = xs[name]
                 xs[name] = torch.cat([model(v), v[:, :, 2:3]], dim=2)
     assert launch_counts() == {"fused_conv_pool": 6, "lstm_gates": 3,
-                               "barotropic_step": 0}
+                               "barotropic_step": 0, "halo_exchange": 0,
+                               "overlap_conv": 0, "overlap_conv_db": 0}
     torch.testing.assert_close(xs["cuda"].cpu(), xs["cpu"], rtol=0, atol=1e-4)
 
 
@@ -138,3 +149,56 @@ def test_barotropic_kernel_matches_plain_on_card(dev, form):
     assert torch.equal(s2.vrt_spec, s20.vrt_spec)
     assert torch.equal(s2.vrt_spec_prev, s20.vrt_spec_prev)
     assert torch.equal(s20.vrt_spec, torch.complex(got[0], got[1]))
+
+
+def _lat2(dev):
+    return build_mesh(MeshConfig(data=1, lat=2), devices=[dev] * 2)
+
+
+def test_parallel_kernels_match_plain_on_card(dev):
+    """The lat-band kernels on two virtual shards of the card: the halo
+    exchange bit for bit (with a 0-sided halo), both conv kernels within
+    1e-5 (B=5 with chunk 2 pads the pipelined kernel's batch)."""
+    rng = np.random.RandomState(8)
+    x = torch.from_numpy(rng.randn(5, 3, 8, 18).astype(np.float32)).to(dev)
+    k = torch.from_numpy((rng.randn(7, 3, 3, 3) / np.sqrt(27)).astype(
+        np.float32)).to(dev)
+    shards = split_shards(x, _lat2(dev), "data", "lat")
+    reset_launch_counts()
+    for halo in ((2, 2), (0, 1)):
+        for got, want in zip(halo_exchange(shards, halo)[0],
+                             halo_exchange_plain(shards, halo)[0]):
+            assert torch.equal(got, want)
+    want = overlap_conv_plain(shards, k)[0]
+    for got in (overlap_conv(shards, k)[0], overlap_conv_db(shards, k, 2)[0]):
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a, b, rtol=0, atol=1e-5)
+    assert launch_counts() == {"fused_conv_pool": 0, "lstm_gates": 0,
+                               "barotropic_step": 0, "halo_exchange": 2,
+                               "overlap_conv": 1, "overlap_conv_db": 1}
+
+
+def test_sharded_flagship_on_card_matches_unsharded(dev):
+    """Three autoregressive steps of the flagship at 16x32 on two virtual
+    lat shards of the card (impl 'overlap': every level shards) against the
+    unsharded fused model on the card, same weights; fp32 on both sides."""
+    specs = convlstm_specs(16, 32)
+    x = torch.from_numpy(
+        np.random.RandomState(9).randn(4, 2, 3, 16, 32).astype(np.float32))
+    plain = build_sequential(specs, device=dev)
+    plain.init(x, seed=2)
+    sharded = build_sequential(
+        specs, spatial=SpatialSharding(_lat2(dev), impl="overlap"),
+        device=dev)
+    sharded.share_params_from(plain)
+    reset_launch_counts()
+    xs = {"plain": x.to(dev), "sharded": x.to(dev)}
+    with torch.inference_mode():
+        for _ in range(3):
+            for name, model in (("plain", plain), ("sharded", sharded)):
+                v = xs[name]
+                xs[name] = torch.cat([model(v), v[:, :, 2:3]], dim=2)
+    counts = launch_counts()
+    assert counts["overlap_conv"] == 3 * 4 and counts["halo_exchange"] == 3 * 4
+    assert counts["lstm_gates"] == 6 and counts["fused_conv_pool"] == 6
+    torch.testing.assert_close(xs["sharded"], xs["plain"], rtol=0, atol=1e-4)

@@ -19,9 +19,14 @@ from dlwp_tpu.ops.lstm_gates import fused_lstm_gates as jax_gates
 from dlwp_torch.kernels import (
     fused_conv_pool,
     fused_conv_pool_plain,
+    halo_exchange,
+    halo_exchange_plain,
     launch_counts,
     lstm_gates,
     lstm_gates_plain,
+    overlap_conv,
+    overlap_conv_db,
+    overlap_conv_plain,
     reset_launch_counts,
 )
 
@@ -76,8 +81,16 @@ def test_cpu_tensors_take_plain_version_without_counting():
     zx, zh, c = (torch.from_numpy(a) for a in _gate_operands(4))
     for got, want in zip(lstm_gates(zx, zh, c), lstm_gates_plain(zx, zh, c)):
         torch.testing.assert_close(got, want, rtol=0, atol=0)
+    shards = [[x[:, :, :4], x[:, :, 4:]]]
+    for got, want in zip(halo_exchange(shards, (1, 2))[0],
+                         halo_exchange_plain(shards, (1, 2))[0]):
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+    for got in (overlap_conv(shards, k)[0], overlap_conv_db(shards, k, 1)[0]):
+        for a, b_ in zip(got, overlap_conv_plain(shards, k)[0]):
+            torch.testing.assert_close(a, b_, rtol=0, atol=0)
     assert launch_counts() == {"fused_conv_pool": 0, "lstm_gates": 0,
-                               "barotropic_step": 0}
+                               "barotropic_step": 0, "halo_exchange": 0,
+                               "overlap_conv": 0, "overlap_conv_db": 0}
 
 
 @pytest.mark.parametrize("case", ["odd_grid", "bad_kernel", "meta_device",

@@ -20,6 +20,7 @@ from dlwp_torch import (
 )
 from dlwp_torch.device import resolve_device
 from dlwp_torch.flagship import convlstm_specs
+from dlwp_torch.parallel import MeshConfig, SpatialSharding, build_mesh
 
 torch.set_num_threads(2)
 ROOT = pathlib.Path(__file__).resolve().parent.parent
@@ -51,12 +52,15 @@ def test_package_found_its_files():
 
 
 @pytest.mark.parametrize("entry", ["resolve_device", "build_sequential",
-                                   "DLWPNeuralNet", "BarotropicModelPsi"])
+                                   "DLWPNeuralNet", "BarotropicModelPsi",
+                                   "build_mesh"])
 def test_default_device_is_cuda_and_raises_without_a_card(entry, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         if entry == "resolve_device":
             resolve_device()
+        elif entry == "build_mesh":
+            build_mesh(MeshConfig(data=1, lat=2))
         elif entry == "build_sequential":
             build_sequential(convlstm_specs(8, 16))
         elif entry == "BarotropicModelPsi":
@@ -75,7 +79,7 @@ def test_cuda_device_turns_tf32_off(monkeypatch):
     assert torch.backends.cuda.matmul.allow_tf32 is False
 
 
-def _recurrent_stack(fuse):
+def _recurrent_stack(fuse, mesh=None):
     rng = np.random.RandomState(0)
     n = 12
     data = PredictorDataset(
@@ -87,16 +91,24 @@ def _recurrent_stack(fuse):
     )
     net = DLWPNeuralNet(time_dim=2, is_recurrent=True, scaler_type=None,
                         device="cpu")
-    net.build_model(convlstm_specs(8, 16), fuse=fuse)
+    net.build_model(convlstm_specs(8, 16), fuse=fuse, mesh=mesh,
+                    batch_spec=("data", None, None, "lat", None),
+                    spatial_impl="overlap")
     sampler = SeriesSampler(data, model=net, input_time_steps=2,
                             output_time_steps=2, add_insolation=True)
     net.init(sampler.generate(np.arange(1))[0], seed=0)
     return net, sampler
 
 
-@pytest.mark.parametrize("fuse", [True, False])
-def test_gate_dtype_rebuild_keeps_caller_model_and_build_config(fuse):
-    net, sampler = _recurrent_stack(fuse)
+@pytest.mark.parametrize("fuse,sharded", [(True, False), (False, False),
+                                          (True, True)],
+                         ids=["True", "False", "sharded"])
+def test_gate_dtype_rebuild_keeps_caller_model_and_build_config(fuse,
+                                                                sharded):
+    mesh = (build_mesh(MeshConfig(data=1, lat=2),
+                       devices=[torch.device("cpu")] * 2) if sharded
+            else None)
+    net, sampler = _recurrent_stack(fuse, mesh)
     specs_before = [tuple(s) for s in net.layer_specs]
     base_before = net.base_model
     params_before = dict(net.base_model.named_parameters())
@@ -106,7 +118,15 @@ def test_gate_dtype_rebuild_keeps_caller_model_and_build_config(fuse):
     served = est16.model
     assert served is not net and served.base_model is not base_before
     assert served.base_model.layers[0].gate_dtype == torch.bfloat16
-    assert served._build_config == net._build_config == {"fuse": fuse}
+    config = {"fuse": fuse}
+    if sharded:
+        config.update(mesh=mesh, batch_spec=("data", None, None, "lat", None),
+                      spatial_impl="overlap")
+        spatial = served._spatial
+        assert isinstance(spatial, SpatialSharding) and spatial.mesh is mesh
+        assert spatial.impl == "overlap" and spatial.lat_axis == "lat"
+        assert served.base_model.layers[0].spatial is spatial
+    assert served._build_config == net._build_config == config
     assert ([type(l) for l in served.base_model.layers]
             == [type(l) for l in base_before.layers])
     assert served.device == net.device
