@@ -39,9 +39,11 @@ Phases, each raising on failure:
 10. the lat-band kernels (``halo_exchange``, ``overlap_conv``,
     ``overlap_conv_db``) against their plain versions on meshes of virtual
     shards of the one card (lat 1, 2, 4 and data 2 x lat 2), at every
-    sharded conv of the flagship at B=64 and on odd cases (W=18, B=5 with
-    chunk 2, 0-sided halos, bf16 halos): halos bit-equal, convs within
-    1e-5;
+    sharded conv of the flagship at B=64 and on odd cases (W=18, 72, 144;
+    C=3, 12, 32, 128; O=7, 48, 64; B=5 with chunk 2; 0-sided and bf16
+    halos): halos bit-equal; convs within 1e-5, the two conv kernels
+    bit-equal to each other and to themselves on shards whose base is not
+    16-byte aligned;
 11. the spatial-parallel forecast at full width: the flagship built with
     ``mesh=build_mesh(MeshConfig(data=1, lat=2), devices=[cuda:0] * 2)``,
     ``batch_spec=("data", None, None, "lat", None)``,
@@ -51,8 +53,11 @@ Phases, each raising on failure:
     the card and 4 samples against the same sharded predict on the CPU;
     then B=8 for 4 steps, which takes ``overlap_conv``; the sharded and
     unsharded rollout rates, the sharded device time by kernel and idle
-    share; each new kernel, its plain version and cuDNN's ``F.conv2d`` on
-    the pre-padded shards timed at the path's shapes beside its bound;
+    share; each lat-band kernel, its plain version and cuDNN's
+    ``F.conv2d`` on the pre-padded shards timed at the path's shapes
+    (CUDA events, and device time from ``torch.profiler``) beside its
+    bound: fp32 FMA, and for the convs also their 3xTF32 tensor-core
+    arithmetic;
 12. a ``{"kernels": [...]}`` line, then the last line
     ``{"ok": true, "device": {...}}``.
 
@@ -72,6 +77,7 @@ import numpy as np
 # Published H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor
 # cores and HBM3 bandwidth. Bounds are stated against these.
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12  # dense TF32 on the tensor cores
 PEAK_BYTES = 3.35e12
 
 B, STEPS, NLAT, NLON, C, TD = 64, 32, 36, 144, 2, 2
@@ -145,8 +151,8 @@ def expected_counts(**nonzero):
     return {name: nonzero.get(name, 0) for name in WRAPPERS}
 
 
-def bound_ms(nbytes, flops):
-    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_FP32_FLOPS
+def bound_ms(nbytes, flops, peak=PEAK_FP32_FLOPS):
+    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / peak
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -675,10 +681,15 @@ def check_parallel_kernels(torch, dev):
                     torch.bfloat16),
                    ("odd bf16 (1, 2)", (3, 2, 8, 18), None, (1, 2),
                     torch.bfloat16)]
-    # (name, x shape, O, chunk of overlap_conv_db)
+    # (name, x shape, O, chunk of overlap_conv_db): the flagship's, then
+    # ragged widths (18, 72, 144), channels (3, 12, 32, 128) and outputs
+    # (7, 48, 64), padded chunks.
     conv_cases = [(name, shape, o, ch) for (name, shape, o), ch in
                   zip(OVERLAP_CONVS, (5, 11, 4))]
-    conv_cases += [("odd W=18 B=5 chunk 2", (5, 3, 8, 18), 7, 2)]
+    conv_cases += [("odd W=18 B=5 chunk 2", (5, 3, 8, 18), 7, 2),
+                   ("odd W=72 B=6 chunk 4", (6, 12, 8, 72), 48, 4),
+                   ("odd W=144 C=128 O=7 chunk 3", (4, 128, 8, 144), 7, 3),
+                   ("odd W=18 C=32 O=64 chunk 5", (6, 32, 8, 18), 64, 5)]
     for data, lat in PAR_MESHES:
         mesh = virtual_mesh(dev, data, lat)
         tag = f"data={data} lat={lat}"
@@ -692,8 +703,7 @@ def check_parallel_kernels(torch, dev):
             got = halo_exchange(shards, halo)
             torch.cuda.synchronize()
             want = halo_exchange_plain(shards, halo)
-            same = all(torch.equal(a, b) for ra, rb in zip(got, want)
-                       for a, b in zip(ra, rb))
+            same = all_equal(got, want)
             log(f"check halo_exchange {tag} {name} {shape} halo {halo} "
                 f"{dtype}: bit-equal {same}")
             if not same:
@@ -706,19 +716,54 @@ def check_parallel_kernels(torch, dev):
                             generator=g) / (9 * shape[1]) ** 0.5
             shards = split_shards(x, mesh, "data", "lat")
             want = overlap_conv_plain(shards, k)
-            for kname, fn in (("overlap_conv", overlap_conv),
-                              ("overlap_conv_db",
-                               lambda s, kk: overlap_conv_db(s, kk, chunk))):
-                got = fn(shards, k)
+            outs = {}
+            for kname, wrapper, fn in (
+                    ("overlap_conv", overlap_conv, overlap_conv),
+                    ("overlap_conv_db", overlap_conv_db,
+                     lambda s, kk: overlap_conv_db(s, kk, chunk))):
+                got = outs[kname] = fn(shards, k)
+                plan, grid = wrapper.last_launch
+                # The same shards from a base 4 bytes past 16-byte
+                # alignment: the 4-byte copy path, the same sums.
+                odd = fn(unaligned(torch, shards), k)
                 torch.cuda.synchronize()
                 err = max_err(got, want)
+                same = all_equal(got, odd)
                 log(f"check {kname} {tag} {name} {shape}->{o}"
                     f"{f' chunk {chunk}' if kname.endswith('db') else ''}: "
-                    f"max|kernel-plain| = {err:.3e}")
-                if not err <= TOL_F32:
-                    raise AssertionError(f"{kname} {tag} {name}: {err}")
+                    f"max|kernel-plain| = {err:.3e}; unaligned copy "
+                    f"bit-equal {same}; tile {plan.bb}x{plan.rb}, "
+                    f"{plan.warps} warps, {plan.stages} stages, "
+                    f"{plan.tiles} tiles, grid {grid}")
+                if not (err <= TOL_F32 and same):
+                    raise AssertionError(f"{kname} {tag} {name}: {err}, "
+                                         f"unaligned equal {same}")
                 errs[kname] = max(errs[kname], err)
+            if not all_equal(outs["overlap_conv"], outs["overlap_conv_db"]):
+                raise AssertionError(f"overlap_conv != overlap_conv_db bit "
+                                     f"for bit: {tag} {name}")
     return errs
+
+
+def all_equal(got, want):
+    import torch
+
+    return all(torch.equal(a, b) for ra, rb in zip(got, want)
+               for a, b in zip(ra, rb))
+
+
+def unaligned(torch, shards):
+    """Contiguous copies of ``shards`` whose data starts one float past a
+    16-byte boundary (as a batch-piece view can)."""
+    out = []
+    for row in shards:
+        out.append([])
+        for s in row:
+            buf = torch.empty(s.numel() + 4, device=s.device, dtype=s.dtype)
+            view = buf[1:1 + s.numel()].view(s.shape)
+            view.copy_(s)
+            out[-1].append(view)
+    return out
 
 
 def dispatch_launches(torch, cpu_model, batch):
@@ -842,8 +887,12 @@ def run_sharded_path(torch, dev):
         kernel: sum(t for k, (t, _) in names.items() if kernel in k)
         / max(sum(n for k, (_, n) in names.items() if kernel in k), 1)
         for kernel in ("halo_kernel", "overlap_db_kernel")}
+    result["device_ms_per_step_by_kernel"] = {
+        kernel: sum(t for k, (t, _) in names.items() if kernel in k)
+        for kernel in ("halo_kernel", "overlap_db_kernel")}
     log(f"sharded rollout: device ms per launch of the lat-band kernels "
-        f"{result['device_ms_per_launch']}")
+        f"{result['device_ms_per_launch']}, per step "
+        f"{result['device_ms_per_step_by_kernel']}")
     result["sharded_idle_share"] = 1 - device / wall
     log(f"sharded rollout: device {device:.3f} ms a step of {wall:.3f} ms: "
         f"idle {100 * (1 - device / wall):.1f}%")
@@ -924,23 +973,67 @@ def time_parallel_kernels(torch, dev):
             kname, fn = "overlap_conv_db", (
                 lambda: overlap_conv_db(shards, k, chunk))
         b_, c_, h_, w_ = shape
+        fn()
+        plan, grid = (overlap_conv if chunk is None
+                      else overlap_conv_db).last_launch
         rows[kname].append(dict(
             conv=name, shape=list(shape), out_channels=o, chunk=chunk,
             ms=timed_ms(fn),
             plain_ms=timed_ms(lambda: overlap_conv_plain(shards, k)),
             library_ms=timed_ms(lambda: F.conv2d(blocks, k)),
+            device_ms=device_ms_per_call(torch, fn),
+            library_device_ms=device_ms_per_call(
+                torch, lambda: F.conv2d(blocks, k)),
             bytes=4 * (b_ * c_ * h_ * w_ + k.numel() + b_ * o * h_ * w_),
-            flops=2 * b_ * o * h_ * w_ * c_ * 9))
+            flops=2 * b_ * o * h_ * w_ * c_ * 9,
+            plan=plan._asdict(), grid=grid))
     for name, rs in rows.items():
         for r in rs:
             r["bound_ms"], r["bound_by"] = bound_ms(r["bytes"], r["flops"])
             lib = ("" if r["library_ms"] is None
                    else f", cuDNN {r['library_ms']:.4f} ms")
+            if name != "halo_exchange":
+                # The kernel's own arithmetic: three TF32 tensor-core
+                # products per multiply-add. bound_fp32_ms: fp32 FMA.
+                r["bound_fp32_ms"] = r["bound_ms"]
+                r["bound_ms"], r["bound_by"] = bound_ms(
+                    r["bytes"], 3 * r["flops"], PEAK_TF32_FLOPS)
+                lib += (f" (device {r['library_device_ms']:.4f}); device "
+                        f"{r['device_ms']:.4f} ms: "
+                        f"{r['library_device_ms'] / r['device_ms']:.2f}x "
+                        f"cuDNN's speed, {100 * r['bound_ms'] / r['device_ms']:.1f}"
+                        f"% of the 3xTF32 bound, "
+                        f"{100 * r['bound_fp32_ms'] / r['device_ms']:.1f}% "
+                        f"of the fp32 bound {r['bound_fp32_ms']:.4f} ms; "
+                        f"tile {r['plan']['bb']}x{r['plan']['rb']}, "
+                        f"{r['plan']['warps']} warps, {r['plan']['stages']} "
+                        f"stages, {r['plan']['tiles']} tiles, grid {r['grid']}")
             log(f"timing {name} {r['conv']} {r['shape']}"
                 f"{'' if r.get('chunk') is None else ' chunk %d' % r['chunk']}"
                 f": kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms"
                 f"{lib}, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
     return rows
+
+
+def device_ms_per_call(torch, fn, calls=10):
+    """Device kernel time of one call of ``fn`` (torch.profiler, mean of
+    ``calls`` after a warm-up call): the kernels alone, without the host
+    work that the event timings of a short call include."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.device_time_total for e in prof.key_averages()
+                if getattr(e, "device_time_total", 0) > 0
+                and e.device_type.name == "CUDA")
+    if total <= 0:
+        raise AssertionError("the profiler saw no device time")
+    return total / 1e3 / calls
 
 
 def main() -> int:
@@ -1056,8 +1149,13 @@ def main() -> int:
             entry["library_note"] = ("no single PyTorch call builds the "
                                      "padded shards")
         else:
-            entry["library_ms"] = float(np.mean([r["library_ms"]
-                                                 for r in rows]))
+            # bound_ms: 3 TF32 tensor-core products per multiply-add, the
+            # kernel's arithmetic; bound_fp32_ms: the fp32 FMA bound.
+            # device_ms: profiler kernel time, without the wrapper's host
+            # work that short calls' event times include.
+            for key in ("library_ms", "bound_fp32_ms", "device_ms",
+                        "library_device_ms"):
+                entry[key] = float(np.mean([r[key] for r in rows]))
         kernels.append(entry)
     log(json.dumps({"rollout": rollout, "sharded_path": sharded,
                     "sharded_launches": sharded_launches,

@@ -1,67 +1,100 @@
 // 3x3 cyclic convolution of lat-band shards reading the neighbours' edge
-// rows, fp32, for Hopper (sm_90a). Two entry points:
+// rows, fp32 results through 3xTF32 tensor-core products, for Hopper
+// (sm_90a). Two entry points:
 //
 //   dlwp_overlap_conv     replaces dlwp_tpu/parallel/pallas_overlap.py,
-//                         _overlap_kernel (via _overlap_local): the whole
-//                         batch of a shard at once;
+//                         _overlap_kernel (via _overlap_local): one tile
+//                         per block;
 //   dlwp_overlap_conv_db  replaces _overlap_kernel_db (via
-//                         _overlap_local_db): the same conv, each block
-//                         walking the batch in `chunk`-sized pieces through
-//                         a two-stage cp.async ring in shared memory.
+//                         _overlap_local_db): the same tiles walked by a
+//                         persistent grid in `chunk`-major order, the
+//                         counterpart of the TPU's chunk pipeline.
 //
 // For every shard s of one card, x_s (B, C, H, W) and kernel k (O, C, 3, 3)
-// (passed transposed as kt (C, 3, 3, O)), computes
+// (read as it is), computes
 //     y_s[b, o, h, w] = sum_{c, dy, dx} k[o, c, dy, dx]
 //                       * x_s[b, c, h + dy - 1, (w + dx - 1) mod W]
 // where row -1 is the northern neighbour's last row and row H the southern
 // neighbour's first, zero where there is no neighbour: cyclic_conv2d(x, k,
-// lat_mode='zero') of the global field, band by band. Every output sums in
-// the same order (input channels ascending, then dy, then dx), so the two
-// entry points agree bit for bit.
+// lat_mode='zero') of the global field, band by band. Output is fp32.
 //
 // Bound on an H100 SXM: 2 * B * O * H * W * C * 9 flops against a few bytes
-// per flop's worth of data, so the fp32 FMA rate (67 TFLOP/s). At the
-// flagship on a lat=2 mesh, B=64: the ConvLSTM recurrent conv (12 -> 48 at
-// 36x144) is 3.44 GFLOP, 0.051 ms; tower conv 2 (32 -> 64 at 18x72) 3.06
-// GFLOP, 0.046 ms; tower conv 4 (128 -> 64 at 18x72) 12.2 GFLOP, 0.18 ms.
+// per flop's worth of data. In fp32 FMA that is 67 TFLOP/s; this kernel
+// does three TF32 tensor-core products per multiply-add, so its own bound
+// is 3 * flops / 495 TFLOP/s, 2.4x below the fp32 one. At the flagship on
+// a lat=2 mesh, B=64: the ConvLSTM recurrent conv (12 -> 48 at 36x144) is
+// 3.44 GFLOP, 0.051 ms in fp32 FMA, 0.021 ms in 3xTF32; its 80 MB of input
+// and output take 0.024 ms at 3.35 TB/s.
 //
-// Design (simple, correct first; fp32 FMA on CUDA cores, no tensor cores):
-// - The TPU kernel started remote DMAs of the edge rows, computed the
-//   interior rows on the MXU while they flew, then the two edge rows; it
-//   kept (H, B, C, W) blocks and a (dx, O, 3C) weight matrix with rolled
-//   outputs to suit Mosaic's 128-lane tiling. None of that carries over:
-//   here a block's three input rows simply come from the neighbour's
-//   allocation when they fall outside the shard. The neighbours' rows exist
-//   before the launch, so no block waits on another.
-// - One launch covers every shard on the card: the kernel parameters hold a
-//   table of per-shard input and output pointers and neighbour indices.
-// - A block owns one output row h of one shard, 32 columns (threadIdx.x;
-//   the ragged tile at W = 72 or 144 is masked, the longitude index wraps
-//   as (w + dx - 1) mod W in the load) and 16 output channels (threadIdx.y
-//   picks 4). Input channels go through shared memory in slabs of 8: the
-//   three input rows of up to 16 samples, 34 columns each, and the slab's
-//   weights as [c][tap][o], read as one 16-byte broadcast. Each thread
-//   keeps 16 samples x 4 channels of sums in registers.
-// - dlwp_overlap_conv: the batch is cut in groups of 16 samples across the
-//   grid; a block stages each slab, syncs and computes.
-// - dlwp_overlap_conv_db: the grid has no batch dimension; a block walks
-//   the batch chunk by chunk (chunks of more than 16 samples in pieces of
-//   16), slab by slab. Unit u + 1 is staged with cp.async into the other
-//   half of the ring while unit u computes. A chunk past the batch end (the
-//   pad of B up to a multiple of chunk) is neither read nor written.
+// Design, against what held the first version (one output row per block,
+// CUDA-core FMA) back:
+// 1. The batch is a grid dimension. A tile is `bb` samples x `rb` output
+//    rows of one shard, full row width, an o-group of 64 or 32 output
+//    channels;
+//    the tiles of a launch cover (chunk, sample group, o-group, shard, row
+//    group). dlwp_overlap_conv gives each tile its own block;
+//    dlwp_overlap_conv_db launches SMs x resident blocks
+//    (cudaOccupancyMaxActiveBlocksPerMultiprocessor), each walking tiles
+//    t = blockIdx.x, + gridDim.x, ... so that every block finishes chunk j
+//    before chunk j + 1 and no tile straddles a chunk. Tiles of a chunk
+//    past the batch end (the pad of B up to a multiple of chunk) do not
+//    exist: nothing there is read or written.
+// 2. `chunk` no longer sizes anything in the block: the tile comes from
+//    the plan (dlwp_torch/kernels/overlap_conv.py, _plan), chosen per shape
+//    for two blocks and 16 warps an SM where the work has them. Blocks
+//    have at most 10 warps at <= 102 registers, so two fit an SM.
+// 3. Each input row of a tile is staged once per 8-channel slab: rows
+//    h0 - 1 .. h0 + rb of bb samples, full width, with the two wrap
+//    columns written beside the row, so the longitude wrap and the 3x3
+//    shift are offsets into shared memory. Row interiors go as 16-byte
+//    cp.async.cg where W % 4 == 0 and every row is 16-byte aligned, else 4
+//    bytes at a time (the same values either way). Weights are read
+//    straight from (O, C, 3, 3), 16 bytes at a time where C % 4 == 0: in
+//    the persistent form, where they fit (C = 12 and 32 on the flagship),
+//    every slab's weights are staged once per block and stay; else each
+//    slab's with its rows. A ring of `stages` buffers runs over (tile,
+//    slab) units across tile boundaries, so the next tile's first slabs
+//    load while this tile's epilogue stores. Row strides are padded so the
+//    fragment loads of a warp hit 32 banks.
+// 4. Tensor cores: an implicit GEMM with M = output pixels (fragments of 16
+//    longitudes of one output row), N = output channels in n8 tiles, K =
+//    (8-channel slab) x (9 taps), one mma.sync.m16n8k8 TF32 step per tap
+//    and slab (m16n8k4 where a last slab holds 4 channels or fewer, so
+//    C = 12 costs 12 channels' products, not 16). Each warp owns two M
+//    fragments and `NTW` n8 tiles. fp32
+//    accuracy from the 3xTF32 split: v = hi + lo, hi = v rounded to TF32,
+//    lo = v - hi (read by the tensor core as TF32), and lo_a hi_b +
+//    hi_a lo_b + hi_a hi_b per step, lo_a lo_b dropped. The tensor core
+//    truncates its sums, so each slab's 27 products are chained on it and
+//    then added to fp32 sums in registers; one chain over all of K drifts
+//    past 1e-5 at C = 128 (tests/test_torch_port_overlap.py emulates both).
+// 5. No ragged 32-column tiles: W = 144 is 9 fragments exactly, W = 72 is 5
+//    with the last 8 columns masked at the store.
+//
+// Every output sums in the same order (slabs ascending, then dy, then dx,
+// then the tensor core's k8 or k4 sum), whatever the tile, so the two
+// entry points agree bit for bit.
+//
+// What bounds it in practice (PERF.md): issuing a stage's copies
+// costs about as much as its products, and neither the tensor pipe nor
+// issue is saturated. One producer warp, cp.async.bulk per row, and
+// operands split once per stage in shared memory were each tried and
+// were no faster.
 
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 namespace {
 
 constexpr int MAX_SHARDS = 64;
-constexpr int TW = 32;        // output columns per block
-constexpr int TY = 4;         // thread rows per block
-constexpr int OPT = 4;        // output channels per thread
-constexpr int OT = TY * OPT;  // output channels per block
-constexpr int CS = 8;         // input channels per shared-memory slab
-constexpr int MAXG = 16;      // samples summed together per thread
-constexpr int TWP = TW + 2;   // staged input columns
+constexpr int CS = 8;      // input channels per slab (the k8 depth)
+constexpr int LM = 4;      // left margin of a staged row, in floats
+constexpr int WR = 76;     // staged weight row: 72 values of one o, padded
+constexpr int MW = 2;      // M fragments per warp
+constexpr int MAX_NTW = 4;  // n8 tiles per warp: 2 x 32 sums in registers
+constexpr int MAX_WARPS = 10;  // a block; two fit an SM at <= 102 registers
+constexpr int MIN_BLOCKS = 2;
 
 struct Table {
   const float* x[MAX_SHARDS];
@@ -70,16 +103,61 @@ struct Table {
   int south[MAX_SHARDS];
 };
 
-__host__ __device__ constexpr int imin(int a, int b) { return a < b ? a : b; }
+// Plan values, in the order of the `plan` array of the C entry points.
+enum PlanField {
+  P_BB, P_RB, P_WARPS, P_STAGES, P_RS, P_NT, P_NTW, P_NOG, P_VEC_X, P_VEC_W,
+  P_SMEM, P_TILES, P_RESIDENT, P_FIELDS
+};
 
-// Floats of one stage for `ng` samples: input rows, then weights.
-__host__ __device__ constexpr int stage_floats(int ng) {
-  return ng * CS * 3 * TWP + CS * 9 * OT;
+struct Params {
+  Table t;
+  const float* k;
+  int B, C, H, W, O, n, chunk;
+  int bb, rb, rs, nfrag, mf, n_rg, n_og, nslab, tiles, vec_x, vec_w;
+  int nsplit;  // warps sharing one fragment pair, NTW n8 tiles each
+  int og_width;  // output channels of an o-group, nt n8 tiles
+  int xs_floats, ws_floats, stages;
+  int resident;  // the weights of every slab stay in shared memory
+};
+
+// A tile, with the start of its first sample in its shard and in the
+// neighbours' edge rows (the north's last row, the south's first; nullptr
+// where there is no neighbour).
+struct Tile {
+  int s, b0, nb, h0, nr, og;
+  const float *north, *self, *south;
+};
+
+__device__ __forceinline__ Tile decode(const Params& p, int t) {
+  const int ts = p.n_og * p.n * p.n_rg;  // tiles of one sample group
+  const int per_chunk = ((p.chunk + p.bb - 1) / p.bb) * ts;
+  const int j = t / per_chunk;
+  const int r = t % per_chunk;
+  const int q = r % ts;
+  Tile tl;
+  tl.b0 = j * p.chunk + (r / ts) * p.bb;
+  tl.nb = min(p.bb, min((j + 1) * p.chunk, p.B) - tl.b0);
+  tl.og = q / (p.n * p.n_rg);
+  tl.s = (q / p.n_rg) % p.n;
+  tl.h0 = (q % p.n_rg) * p.rb;
+  tl.nr = min(p.rb, p.H - tl.h0);
+  const size_t off = (size_t)tl.b0 * p.C * p.H * p.W;
+  const int n = p.t.north[tl.s], so = p.t.south[tl.s];
+  tl.self = p.t.x[tl.s] + off;
+  tl.north = n >= 0 ? p.t.x[n] + off + (size_t)(p.H - 1) * p.W : nullptr;
+  tl.south = so >= 0 ? p.t.x[so] + off : nullptr;
+  return tl;
 }
 
 __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
                "l"(src));
 }
 
@@ -92,99 +170,168 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// The per-block view of one shard and one output row.
-struct Block {
-  const float* x;      // this shard
-  const float* north;  // neighbours, or nullptr
-  const float* south;
-  float* y;
-  int h, o0, w;        // output row, first channel, this thread's column
-  int gcol[2];         // input column of staged columns lane and lane + 32
-};
-
-__device__ Block make_block(const Table& t, int s, int h, int W) {
-  Block k;
-  k.x = t.x[s];
-  k.north = t.north[s] >= 0 ? t.x[t.north[s]] : nullptr;
-  k.south = t.south[s] >= 0 ? t.x[t.south[s]] : nullptr;
-  k.y = t.y[s];
-  k.h = h;
-  k.o0 = blockIdx.y * OT;
-  const int w0 = blockIdx.x * TW;
-  k.w = w0 + threadIdx.x;
-  for (int i = 0; i < 2; ++i) {
-    const int c = (w0 - 1 + (int)threadIdx.x + 32 * i) % W;
-    k.gcol[i] = c < 0 ? c + W : c;
+// Stage the input rows of slab c0 of tile tl: xs [bl][r][cc][rs] (row r =
+// input row h0 - 1 + r, interior at column LM, wrap columns at LM - 1 and
+// LM + W).
+__device__ void stage_x(float* xs, const Params& p, const Tile& tl, int c0) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  const int W = p.W, H = p.H;
+  const int nrows = p.bb * (p.rb + 2) * CS;
+  const int nq = p.vec_x ? W / 4 : W;
+  // Row index (bl * (rb + 2) + r) * CS + cc, stepped by nwarps without
+  // division.
+  int cc = warp % CS, r = warp / CS, bl = 0;
+  while (r >= p.rb + 2) r -= p.rb + 2, ++bl;
+  for (int row = warp; row < nrows; row += nwarps) {
+    const int c = c0 + cc;
+    const int gr = tl.h0 - 1 + r;
+    const float* src = nullptr;
+    if (bl < tl.nb && c < p.C && r <= tl.nr + 1) {
+      const float* base =
+          gr < 0 ? tl.north : (gr >= H ? tl.south : tl.self + (size_t)gr * W);
+      if (base) src = base + (size_t)(bl * p.C + c) * H * W;
+    }
+    float* dst = xs + row * p.rs + LM;
+    if (!src) {
+      for (int i = lane - 1; i <= W; i += 32) dst[i] = 0.f;
+    } else {
+      // The interior (quads or floats), then the two wrap columns.
+      for (int i = lane; i < nq + 2; i += 32) {
+        if (i < nq) {
+          if (p.vec_x) {
+            cp_async16(dst + 4 * i, src + 4 * i);
+          } else {
+            cp_async4(dst + i, src + i);
+          }
+        } else {
+          cp_async4(i == nq ? dst - 1 : dst + W, i == nq ? src + W - 1 : src);
+        }
+      }
+    }
+    for (cc += nwarps; cc >= CS; cc -= CS) {
+      if (++r == p.rb + 2) r = 0, ++bl;
+    }
   }
-  return k;
 }
 
-// Stage samples [b0, b0 + ns) and channels [c0, c0 + cn) of the three input
-// rows of blk.h into xs ([g][cc][r][col], g stride CS * 3 * TWP) and the
-// slab's weights into ws ([cc * 9 + tap][oo]).
-template <bool ASYNC>
-__device__ void stage(float* xs, float* ws, const Block& blk,
-                      const float* __restrict__ kt, int b0, int ns, int c0,
-                      int cn, int C, int H, int W, int O) {
-  const int lane = threadIdx.x;
-  const int nrows = ns * cn * 3;
-  for (int q = threadIdx.y; q < nrows; q += TY) {
-    const int r = q % 3;
-    const int cc = (q / 3) % cn;
-    const int g = q / (3 * cn);
-    const int gr = blk.h - 1 + r;
-    const float* base = gr < 0 ? blk.north : (gr >= H ? blk.south : blk.x);
-    const int row = gr < 0 ? H - 1 : (gr >= H ? 0 : gr);
-    float* dst = xs + ((g * CS + cc) * 3 + r) * TWP;
-    const float* src =
-        base ? base + (((size_t)(b0 + g) * C + c0 + cc) * H + row) * W
-             : nullptr;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int col = lane + 32 * i;
-      if (col >= TWP) break;
-      if (!src) {
-        dst[col] = 0.f;
-      } else if (ASYNC) {
-        cp_async4(dst + col, src + blk.gcol[i]);
+// Stage the weights of slab c0 for o-group og: ws [o - 64 og][WR], the
+// slab's 8 channels x 9 taps of output channel o.
+__device__ void stage_w(float* ws, const Params& p, int og, int c0) {
+  const int nrow_o = p.ws_floats / WR;
+  if (p.vec_w) {  // C % 4 == 0: a row's cn * 9 values are aligned quads
+    const int nq = min(CS, p.C - c0) * 9 / 4;
+    for (int i = threadIdx.x; i < nrow_o * 18; i += blockDim.x) {
+      const int ol = i / 18, q = i % 18;
+      const int o = og * p.og_width + ol;
+      float* dst = ws + ol * WR + 4 * q;
+      if (o < p.O && q < nq) {
+        cp_async16(dst, p.k + ((size_t)o * p.C + c0) * 9 + 4 * q);
       } else {
-        dst[col] = __ldg(src + blk.gcol[i]);
+        *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+    }
+  } else {
+    for (int i = threadIdx.x; i < nrow_o * 72; i += blockDim.x) {
+      const int ol = i / 72, j = i % 72;
+      const int o = og * p.og_width + ol;
+      float* dst = ws + ol * WR + j;
+      if (o < p.O && c0 + j / 9 < p.C) {
+        cp_async4(dst, p.k + ((size_t)o * p.C + c0) * 9 + j);
+      } else {
+        *dst = 0.f;
       }
     }
   }
-  for (int i = threadIdx.y * TW + lane; i < cn * 9 * OT; i += TW * TY) {
-    const int o = blk.o0 + i % OT;
-    const float* src = kt + (size_t)(c0 * 9 + i / OT) * O + o;
-    if (o >= O) {
-      ws[i] = 0.f;
-    } else if (ASYNC) {
-      cp_async4(ws + i, src);
-    } else {
-      ws[i] = __ldg(src);
-    }
-  }
 }
 
-__device__ __forceinline__ void compute(float (&acc)[MAXG][OPT],
+// v = hi + lo: hi is v rounded to TF32 (to nearest, ties away, as
+// cvt.rna.tf32.f32 does), lo the exact rest, which the tensor core reads
+// as TF32 by dropping its low 13 bits.
+__device__ __forceinline__ void split(float v, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(v - __uint_as_float(hi));
+}
+
+// m16n8k4: the last slab when it holds 4 channels or fewer.
+__device__ __forceinline__ void mma4(float (&d)[4], const uint32_t (&a)[4],
+                                     uint32_t b0) {
+  asm("mma.sync.aligned.m16n8k4.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5}, {%6}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(b0));
+}
+
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Fragment f of the tile is output row rl of sample bl, columns
+// 16 fr .. 16 fr + 15, f = (bl * rb + rl) * nfrag + fr. Warp w takes
+// fragments 2 (w / nsplit) and 2 (w / nsplit) + 1, and n8 tiles
+// NTW (w % nsplit) .. NTW (w % nsplit) + NTW - 1 of the o-group.
+struct Frag {
+  int bl, rl, w0, ok;
+};
+
+__device__ __forceinline__ Frag frag(const Params& p, int i) {
+  int f = ((threadIdx.x >> 5) / p.nsplit) * MW + i;
+  Frag fr;
+  fr.ok = f < p.mf;
+  if (!fr.ok) f = 0;  // computed on valid memory, never stored
+  fr.bl = f / (p.rb * p.nfrag);
+  fr.rl = (f / p.nfrag) % p.rb;
+  fr.w0 = (f % p.nfrag) * 16;
+  return fr;
+}
+
+// One slab: 9 k8 steps (k4 steps where K4: the slab's channels 4..7 are
+// all padding) of 3xTF32 products, chained on the tensor cores into tmp
+// (zero on entry). Every (fragment, n8 tile) pair is its own chain, so the
+// products of one tap are independent. ws points at this warp's first n8
+// tile.
+template <int NTW, bool K4>
+__device__ __forceinline__ void compute(float (&tmp)[MW][NTW][4],
                                         const float* xs, const float* ws,
-                                        int ns, int cn) {
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  for (int cc = 0; cc < cn; ++cc) {
+                                        const int (&abase)[MW], int rs) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
 #pragma unroll
-    for (int dy = 0; dy < 3; ++dy) {
+  for (int dy = 0; dy < 3; ++dy) {
 #pragma unroll
-      for (int dx = 0; dx < 3; ++dx) {
-        const float4 w4 = *reinterpret_cast<const float4*>(
-            ws + (cc * 9 + dy * 3 + dx) * OT + ty * OPT);
-        const float* xc = xs + (cc * 3 + dy) * TWP + tx + dx;
+    for (int dx = 0; dx < 3; ++dx) {
+      const int tap = dy * 3 + dx;
+      uint32_t ahi[MW][4], alo[MW][4];
 #pragma unroll
-        for (int g = 0; g < MAXG; ++g) {
-          if (g < ns) {
-            const float v = xc[g * CS * 3 * TWP];
-            acc[g][0] = fmaf(w4.x, v, acc[g][0]);
-            acc[g][1] = fmaf(w4.y, v, acc[g][1]);
-            acc[g][2] = fmaf(w4.z, v, acc[g][2]);
-            acc[g][3] = fmaf(w4.w, v, acc[g][3]);
+      for (int i = 0; i < MW; ++i) {
+        const float* a = xs + abase[i] + dy * CS * rs + dx;
+        split(a[0], ahi[i][0], alo[i][0]);
+        split(a[8], ahi[i][1], alo[i][1]);
+        if (!K4) {
+          split(a[4 * rs], ahi[i][2], alo[i][2]);
+          split(a[4 * rs + 8], ahi[i][3], alo[i][3]);
+        }
+      }
+#pragma unroll
+      for (int nt = 0; nt < NTW; ++nt) {
+        const float* b = ws + (nt * 8 + g) * WR + t * 9 + tap;
+        uint32_t b0h, b0l, b1h = 0, b1l = 0;
+        split(b[0], b0h, b0l);
+        if (!K4) split(b[36], b1h, b1l);
+#pragma unroll
+        for (int i = 0; i < MW; ++i) {
+          if (K4) {
+            mma4(tmp[i][nt], alo[i], b0h);
+            mma4(tmp[i][nt], ahi[i], b0l);
+            mma4(tmp[i][nt], ahi[i], b0h);
+          } else {
+            mma(tmp[i][nt], alo[i], b0h, b1h);
+            mma(tmp[i][nt], ahi[i], b0l, b1l);
+            mma(tmp[i][nt], ahi[i], b0h, b1h);
           }
         }
       }
@@ -192,171 +339,235 @@ __device__ __forceinline__ void compute(float (&acc)[MAXG][OPT],
   }
 }
 
-// Write samples [b0, b0 + ns) of this thread's sums and clear them.
-__device__ __forceinline__ void store(float (&acc)[MAXG][OPT],
-                                      const Block& blk, int b0, int ns, int H,
-                                      int W, int O) {
+template <int NTW>
+__device__ __forceinline__ void store(float (&acc)[MW][NTW][4],
+                                      const Params& p, const Tile& tl) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int o0 =
+      tl.og * p.og_width + ((threadIdx.x >> 5) % p.nsplit) * NTW * 8;
+  float* y = p.t.y[tl.s];
 #pragma unroll
-  for (int g = 0; g < MAXG; ++g) {
+  for (int i = 0; i < MW; ++i) {
+    const Frag fr = frag(p, i);
+    const bool row_ok = fr.ok && fr.bl < tl.nb && fr.rl < tl.nr;
+    const size_t b = tl.b0 + fr.bl;
+    const int h = tl.h0 + fr.rl;
 #pragma unroll
-    for (int j = 0; j < OPT; ++j) {
-      const int o = blk.o0 + threadIdx.y * OPT + j;
-      if (g < ns && o < O && blk.w < W) {
-        blk.y[(((size_t)(b0 + g) * O + o) * H + blk.h) * W + blk.w] =
-            acc[g][j];
+    for (int nt = 0; nt < NTW; ++nt) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int w = fr.w0 + g + (j >> 1) * 8;
+        const int o = o0 + nt * 8 + 2 * t + (j & 1);
+        if (row_ok && w < p.W && o < p.O) {
+          y[((b * p.O + o) * p.H + h) * p.W + w] = acc[i][nt][j];
+        }
+        acc[i][nt][j] = 0.f;
       }
-      acc[g][j] = 0.f;
     }
   }
 }
 
-// grid (W tiles, O tiles, shards * H * groups of MAXG samples); dynamic
-// shared memory: one stage of ng = min(B, MAXG) samples.
-__global__ void __launch_bounds__(TW* TY)
-overlap_kernel(const Table t, const float* __restrict__ kt, int B, int C,
-               int H, int W, int O, int ng) {
+// The block walks tiles blockIdx.x, + gridDim.x, ...; unit u is slab
+// u % nslab of its (u / nslab)-th tile. A ring of p.stages buffers keeps
+// stages - 1 units in flight ahead of the one computed.
+// The block walks tiles blockIdx.x, + gridDim.x, ...; unit u is slab k of
+// its t-th tile, in buffer u % stages of the ring, which keeps stages - 1
+// units in flight ahead of the one computed. Each slab's tensor-core chain
+// is added to the fp32 sums: chains over more of K drift past 1e-5 on the
+// card.
+template <int NTW>
+__device__ void run(const Params& p) {
   extern __shared__ __align__(16) float smem[];
-  float* xs = smem;
-  float* ws = smem + ng * CS * 3 * TWP;
-  const int n_groups = (B + MAXG - 1) / MAXG;
-  const int sh = blockIdx.z / n_groups;
-  const int b0 = (blockIdx.z % n_groups) * MAXG;
-  const int ns = min(MAXG, B - b0);
-  const Block blk = make_block(t, sh / H, sh % H, W);
-
-  float acc[MAXG][OPT];
-#pragma unroll
-  for (int g = 0; g < MAXG; ++g)
-#pragma unroll
-    for (int j = 0; j < OPT; ++j) acc[g][j] = 0.f;
-
-  for (int c0 = 0; c0 < C; c0 += CS) {
-    const int cn = min(CS, C - c0);
-    __syncthreads();  // the previous slab has been read
-    stage<false>(xs, ws, blk, kt, b0, ns, c0, cn, C, H, W, O);
-    __syncthreads();
-    compute(acc, xs, ws, ns, cn);
+  float* wring = smem + p.stages * p.xs_floats;
+  const int nw = p.resident ? p.nslab : p.stages;  // weight buffers
+  // Margins and pads stay zero (all sizes are multiples of 4 floats).
+  for (int i = threadIdx.x; i < (p.stages * p.xs_floats + nw * p.ws_floats) / 4;
+       i += blockDim.x)
+    reinterpret_cast<float4*>(smem)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  __syncthreads();
+  if (p.resident) {  // in the first unit's copy group
+    for (int k = 0; k < p.nslab; ++k)
+      stage_w(wring + k * p.ws_floats, p, 0, k * CS);
   }
-  store(acc, blk, b0, ns, H, W, O);
-}
 
-// grid (W tiles, O tiles, shards * H); dynamic shared memory: two stages of
-// ng = min(chunk, MAXG) samples.
-__global__ void __launch_bounds__(TW* TY)
-overlap_db_kernel(const Table t, const float* __restrict__ kt, int B, int C,
-                  int H, int W, int O, int chunk, int ng) {
-  extern __shared__ __align__(16) float smem[];
-  const Block blk = make_block(t, blockIdx.z / H, blockIdx.z % H, W);
-  const int nchunks = (B + chunk - 1) / chunk;
-  const int npiece = (chunk + ng - 1) / ng;  // pieces of a chunk
-  const int nslab = (C + CS - 1) / CS;
-  const int units = nchunks * npiece * nslab;
-
-  float acc[MAXG][OPT];
-#pragma unroll
-  for (int g = 0; g < MAXG; ++g)
-#pragma unroll
-    for (int j = 0; j < OPT; ++j) acc[g][j] = 0.f;
-
-  // Unit u: slab u % nslab of piece (u / nslab) % npiece of chunk
-  // u / (nslab * npiece). ns <= 0 marks a piece past the batch end.
-  auto decode = [&](int u, int& b0, int& ns, int& c0, int& cn) {
-    const int k = u % nslab;
-    const int jq = u / nslab;
-    const int j = jq / npiece;
-    b0 = j * chunk + (jq % npiece) * ng;
-    ns = min(ng, min((j + 1) * chunk, B) - b0);
-    c0 = k * CS;
-    cn = min(CS, C - c0);
-  };
-  auto prefetch = [&](int u) {
-    int b0, ns, c0, cn;
-    decode(u, b0, ns, c0, cn);
-    float* xs = smem + (u & 1) * stage_floats(ng);
-    if (ns > 0) {
-      stage<true>(xs, xs + ng * CS * 3 * TWP, blk, kt, b0, ns, c0, cn, C, H,
-                  W, O);
+  const int units =
+      (p.tiles - blockIdx.x + gridDim.x - 1) / gridDim.x * p.nslab;
+  int pf_u = 0, pf_k = 0, pf_t = blockIdx.x, pf_buf = 0;
+  Tile pf_tile = decode(p, pf_t);
+  auto prefetch = [&]() {
+    if (pf_u++ < units) {
+      stage_x(smem + pf_buf * p.xs_floats, p, pf_tile, pf_k * CS);
+      if (!p.resident) {
+        stage_w(wring + pf_buf * p.ws_floats, p, pf_tile.og, pf_k * CS);
+      }
+      if (++pf_k == p.nslab) {
+        pf_k = 0;
+        pf_t += gridDim.x;
+        if (pf_t < p.tiles) pf_tile = decode(p, pf_t);
+      }
+      if (++pf_buf == p.stages) pf_buf = 0;
     }
     cp_async_commit();
   };
 
-  prefetch(0);
-  for (int u = 0; u < units; ++u) {
-    if (u + 1 < units) {
-      prefetch(u + 1);
+  const int lane = threadIdx.x & 31;
+  int abase[MW];
+#pragma unroll
+  for (int i = 0; i < MW; ++i) {
+    const Frag fr = frag(p, i);
+    abase[i] = ((fr.bl * (p.rb + 2) + fr.rl) * CS + (lane & 3)) * p.rs +
+               LM - 1 + fr.w0 + (lane >> 2);
+  }
+  const int wbase = ((threadIdx.x >> 5) % p.nsplit) * NTW * 8 * WR;
+  float acc[MW][NTW][4] = {}, tmp[MW][NTW][4] = {};
+
+  for (int u = 0; u < p.stages - 1; ++u) prefetch();
+  for (int u = 0, k = 0, t = blockIdx.x, buf = 0; u < units; ++u) {
+    if (p.stages == 3) {
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
     }
-    __syncthreads();  // unit u has landed for every thread
-    int b0, ns, c0, cn;
-    decode(u, b0, ns, c0, cn);
-    if (ns > 0) {
-      const float* xs = smem + (u & 1) * stage_floats(ng);
-      compute(acc, xs, xs + ng * CS * 3 * TWP, ns, cn);
-      if (c0 + cn == C) store(acc, blk, b0, ns, H, W, O);
+    __syncthreads();  // unit u landed; unit u - 1's buffer is free
+    prefetch();
+    const float* ws = wring + (p.resident ? k : buf) * p.ws_floats;
+    if (p.C - k * CS <= 4) {
+      compute<NTW, true>(tmp, smem + buf * p.xs_floats, ws + wbase, abase,
+                         p.rs);
+    } else {
+      compute<NTW, false>(tmp, smem + buf * p.xs_floats, ws + wbase, abase,
+                          p.rs);
     }
-    __syncthreads();  // unit u's half of the ring may be refilled
+#pragma unroll
+    for (int i = 0; i < MW; ++i)
+#pragma unroll
+      for (int nt = 0; nt < NTW; ++nt)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          acc[i][nt][j] += tmp[i][nt][j];
+          tmp[i][nt][j] = 0.f;
+        }
+    if (++k == p.nslab) {
+      store<NTW>(acc, p, decode(p, t));
+      k = 0;
+      t += gridDim.x;
+    }
+    if (++buf == p.stages) buf = 0;
   }
+  cp_async_wait<0>();
 }
 
-Table make_table(const float* const* x, float* const* y, const int* north,
-                 const int* south, int n) {
-  Table t;
+template <int NTW>
+__global__ void __launch_bounds__(MAX_WARPS * 32, MIN_BLOCKS) overlap_kernel(
+    const Params p) {
+  run<NTW>(p);
+}
+
+template <int NTW>
+__global__ void __launch_bounds__(MAX_WARPS * 32, MIN_BLOCKS)
+    overlap_db_kernel(const Params p) {
+  run<NTW>(p);
+}
+
+template <int NTW>
+int launch(const Params& p, int threads, int smem, bool persistent,
+           cudaStream_t stream, int* grid_out) {
+  void (*kernel)(const Params) =
+      persistent ? &overlap_db_kernel<NTW> : &overlap_kernel<NTW>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  int grid = p.tiles;
+  if (persistent) {
+    int dev = 0, sms = 0, per_sm = 0;
+    if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return (int)err;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        threads, smem);
+    if (err != cudaSuccess) return (int)err;
+    if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+    grid = sms * per_sm < grid ? sms * per_sm : grid;
+  }
+  if (grid_out) *grid_out = grid;
+  kernel<<<grid, threads, smem, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+int dispatch(const float* const* x, float* const* y, const int* north,
+             const int* south, int n, const float* k, int B, int C, int H,
+             int W, int O, int chunk, const int* plan, bool persistent,
+             void* stream, int* grid_out) {
+  if (n < 1 || n > MAX_SHARDS || chunk < 1 || B < 1 || H < 2)
+    return (int)cudaErrorInvalidValue;
+  Params p;
   for (int i = 0; i < n; ++i) {
-    t.x[i] = x[i];
-    t.y[i] = y[i];
-    t.north[i] = north[i];
-    t.south[i] = south[i];
+    p.t.x[i] = x[i];
+    p.t.y[i] = y[i];
+    p.t.north[i] = north[i];
+    p.t.south[i] = south[i];
   }
-  return t;
-}
-
-template <typename K>
-int set_smem(K kernel, int bytes) {
-  if (bytes <= 48 * 1024) return 0;
-  return (int)cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  p.k = k;
+  p.B = B, p.C = C, p.H = H, p.W = W, p.O = O, p.n = n, p.chunk = chunk;
+  p.bb = plan[P_BB], p.rb = plan[P_RB], p.rs = plan[P_RS];
+  p.n_og = plan[P_NOG], p.vec_x = plan[P_VEC_X], p.vec_w = plan[P_VEC_W];
+  p.stages = plan[P_STAGES], p.tiles = plan[P_TILES];
+  p.nfrag = (W + 15) / 16;
+  p.mf = p.bb * p.rb * p.nfrag;
+  p.n_rg = (H + p.rb - 1) / p.rb;
+  p.nslab = (C + CS - 1) / CS;
+  const int nt = plan[P_NT], ntw = plan[P_NTW];
+  p.nsplit = ntw > 0 ? nt / ntw : 0;
+  p.xs_floats = p.bb * (p.rb + 2) * CS * p.rs;
+  p.og_width = nt * 8;
+  p.ws_floats = nt * 8 * WR;
+  p.resident = plan[P_RESIDENT];
+  const int threads = plan[P_WARPS] * 32;
+  const int smem = plan[P_SMEM];
+  if (nt < 1 || nt > 8 || ntw < 1 || ntw > MAX_NTW || nt % ntw ||
+      p.bb < 1 || p.rb < 1 ||
+      plan[P_WARPS] != (p.mf + MW - 1) / MW * p.nsplit ||
+      plan[P_WARPS] > MAX_WARPS || (p.stages != 2 && p.stages != 3) ||
+      p.rs < LM + 16 * p.nfrag + 1 || p.rs % 4 || p.tiles < 1 ||
+      (p.resident && p.n_og != 1) ||
+      smem != (p.stages * p.xs_floats +
+               (p.resident ? p.nslab : p.stages) * p.ws_floats) *
+                  (int)sizeof(float))
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  switch (ntw) {
+    case 1: return launch<1>(p, threads, smem, persistent, s, grid_out);
+    case 2: return launch<2>(p, threads, smem, persistent, s, grid_out);
+    case 3: return launch<3>(p, threads, smem, persistent, s, grid_out);
+    case 4: return launch<4>(p, threads, smem, persistent, s, grid_out);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
 extern "C" int dlwp_overlap_conv_max_shards() { return MAX_SHARDS; }
 
-extern "C" int dlwp_overlap_conv_smem_bytes(int B, int chunk) {
-  if (chunk <= 0) return (int)sizeof(float) * stage_floats(imin(B, MAXG));
-  return 2 * (int)sizeof(float) * stage_floats(imin(chunk, MAXG));
-}
-
-// Both launch on `stream` and return cudaGetLastError() after the launch
-// (0 = ok). x, y, north, south: n per-shard entries (host arrays).
+// Both launch on `stream` and return the first CUDA error of the set-up
+// (shared-memory attribute, occupancy query) or cudaGetLastError() after
+// the launch (0 = ok). x, y, north, south: n per-shard entries (host
+// arrays); plan: the P_FIELDS values of the wrapper's _plan; grid_out
+// receives the blocks launched.
 extern "C" int dlwp_overlap_conv(const float* const* x, float* const* y,
                                  const int* north, const int* south, int n,
-                                 const float* kt, int B, int C, int H, int W,
-                                 int O, void* stream) {
-  if (n < 1 || n > MAX_SHARDS) return (int)cudaErrorInvalidValue;
-  const int ng = imin(B, MAXG);
-  const int smem = dlwp_overlap_conv_smem_bytes(B, 0);
-  const int err = set_smem(overlap_kernel, smem);
-  if (err) return err;
-  const dim3 grid((W + TW - 1) / TW, (O + OT - 1) / OT,
-                  n * H * ((B + MAXG - 1) / MAXG));
-  overlap_kernel<<<grid, dim3(TW, TY), smem, (cudaStream_t)stream>>>(
-      make_table(x, y, north, south, n), kt, B, C, H, W, O, ng);
-  return (int)cudaGetLastError();
+                                 const float* k, int B, int C, int H, int W,
+                                 int O, const int* plan, void* stream,
+                                 int* grid_out) {
+  return dispatch(x, y, north, south, n, k, B, C, H, W, O, B, plan, false,
+                  stream, grid_out);
 }
 
 extern "C" int dlwp_overlap_conv_db(const float* const* x, float* const* y,
                                     const int* north, const int* south, int n,
-                                    const float* kt, int B, int C, int H,
-                                    int W, int O, int chunk, void* stream) {
-  if (n < 1 || n > MAX_SHARDS || chunk < 1) return (int)cudaErrorInvalidValue;
-  const int ng = imin(chunk, MAXG);
-  const int smem = dlwp_overlap_conv_smem_bytes(B, chunk);
-  const int err = set_smem(overlap_db_kernel, smem);
-  if (err) return err;
-  const dim3 grid((W + TW - 1) / TW, (O + OT - 1) / OT, n * H);
-  overlap_db_kernel<<<grid, dim3(TW, TY), smem, (cudaStream_t)stream>>>(
-      make_table(x, y, north, south, n), kt, B, C, H, W, O, chunk, ng);
-  return (int)cudaGetLastError();
+                                    const float* k, int B, int C, int H,
+                                    int W, int O, int chunk, const int* plan,
+                                    void* stream, int* grid_out) {
+  return dispatch(x, y, north, south, n, k, B, C, H, W, O, chunk, plan, true,
+                  stream, grid_out);
 }

@@ -1,20 +1,24 @@
 """3x3 cyclic conv of lat-band shards (kernel ``csrc/overlap_conv.cu``).
 
 Port of the two Pallas kernels of ``dlwp_tpu.parallel.pallas_overlap``:
-:func:`overlap_conv` of ``_overlap_kernel`` (the whole batch at once) and
-:func:`overlap_conv_db` of ``_overlap_kernel_db`` (the batch walked in
-``chunk``-sized pieces through a double-buffered ring). Both compute, for
+:func:`overlap_conv` of ``_overlap_kernel`` (one tile per block) and
+:func:`overlap_conv_db` of ``_overlap_kernel_db`` (a persistent grid
+walking the tiles ``chunk`` by ``chunk``). Both compute, for
 ``shards[d][l]`` (B, C, H, W), ``cyclic_conv2d(x, kernel,
 lat_mode='zero')`` of each data row's global field band by band, reading
-the neighbouring bands' edge rows, in float32 whatever the input dtype.
-For CUDA tensors each launches its kernel once per card, covering every
-shard on it; for CPU tensors both take the plain version,
-:func:`overlap_conv_plain`. ``.launches`` counts kernel launches.
+the neighbouring bands' edge rows, in float32 whatever the input dtype,
+and agree bit for bit. For CUDA tensors each launches its kernel once per
+card, covering every shard on it, with the tiling of :func:`_plan`; for
+CPU tensors both take the plain version, :func:`overlap_conv_plain`.
+``.launches`` counts kernel launches; ``.last_launch`` holds the plan and
+grid of the last one.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -57,23 +61,153 @@ def _check(shards, kernel, name):
     return first
 
 
+# Tile constants of csrc/overlap_conv.cu.
+_CS, _LM, _WR, _MW, _MAX_WARPS = 8, 4, 76, 2, 10
+_OG = (64, 32)  # output channels an o-group may have
+_MAX_NTW = 4  # n8 tiles a warp: its fp32 sums and chains fit the registers
+_MAX_SMEM = 227 * 1024  # a block's shared memory on Hopper
+_TWO_PER_SM = 113 * 1024  # two blocks of this fit on one SM
+_MAX_GRID = 2 ** 31 - 1
+_N_SM = 132  # H100 SXM; the wrapper reads the card's own count
+
+
+class Plan(NamedTuple):
+    """One launch's tiling (see csrc/overlap_conv.cu): tiles of ``bb``
+    samples x ``rb`` output rows of one shard, full width, an o-group of
+    ``nt`` n8 tiles of output channels (``n_og`` groups); ``warps``
+    warps, each of ``_MW`` 16-pixel fragments x ``ntw`` n8 tiles; a ring of
+    ``stages`` buffers of input rows, and of weights unless the weights of
+    every slab are ``resident``, ``smem`` bytes in all; ``tiles`` tiles,
+    chunk-major."""
+    bb: int
+    rb: int
+    warps: int
+    stages: int
+    rs: int
+    nt: int
+    ntw: int
+    n_og: int
+    smem: int
+    tiles: int
+    chunk: int
+    nfrag: int
+    n_rg: int
+    resident: bool
+
+
+def _row_stride(nfrag):
+    """Floats per staged row: margin, the fragments' columns and the right
+    wrap column, a multiple of 4 that is 8 or 24 mod 32, so the A fragment
+    loads (4 channels x 8 columns a warp) hit 32 banks."""
+    rs = -(-(_LM + 16 * nfrag + 1) // 4) * 4
+    while rs % 32 not in (8, 24):
+        rs += 4
+    return rs
+
+
+def _sample_groups(B, chunk, bb):
+    """Sample groups of ``bb`` per chunk, summed over the chunks that hold
+    samples (a chunk past the batch end has none)."""
+    full, last = divmod(B, chunk)
+    return full * -(-chunk // bb) + (-(-last // bb) if last else 0)
+
+
+def _ring(x_bytes, w_bytes, nslab, keep_weights):
+    """(stages, shared-memory bytes, resident) of the first layout that
+    lets two blocks share an SM: weights of every slab resident (where
+    ``keep_weights``) with 3 or 2 stages of input rows, else 3 or 2 stages
+    of both; else 2 stages of both if one block fits; else None."""
+    for resident in (True, False) if keep_weights else (False,):
+        for stages in (3, 2):
+            smem = stages * x_bytes + (nslab if resident else stages) * w_bytes
+            if smem <= _TWO_PER_SM:
+                return stages, smem, resident
+    smem = 2 * (x_bytes + w_bytes)
+    return (2, smem, False) if smem <= _MAX_SMEM else None
+
+
+def _candidates(B, C, H, W, O, chunk, n_shards):
+    """Every tiling of at most ``_MAX_WARPS`` warps whose ring fits shared
+    memory, with its share of masked (sample, row) slots."""
+    persistent = chunk is not None
+    chunk = B if chunk is None else min(int(chunk), B)
+    nfrag = -(-W // 16)
+    rs = _row_stride(nfrag)
+    shapes = {(-(-min(O, og) // 8), -(-O // og)) for og in _OG}
+    for nt, n_og, ntw in ((nt, n_og, d) for nt, n_og in sorted(shapes)
+                          for d in range(1, min(nt, _MAX_NTW) + 1)
+                          if nt % d == 0):
+        for rb in range(1, H + 1):
+            n_rg = -(-H // rb)
+            for bb in range(1, chunk + 1):
+                warps = -(-bb * rb * nfrag // _MW) * (nt // ntw)
+                if warps > _MAX_WARPS:
+                    break
+                # Weights stay only where a block walks several tiles of
+                # one o-group.
+                ring = _ring(4 * bb * (rb + 2) * _CS * rs,
+                             4 * nt * 8 * _WR, -(-C // _CS),
+                             persistent and n_og == 1)
+                if ring is None:
+                    break
+                groups = _sample_groups(B, chunk, bb)
+                yield (Plan(bb, rb, warps, ring[0], rs, nt, ntw, n_og,
+                            ring[1], groups * n_og * n_shards * n_rg,
+                            chunk, nfrag, n_rg, ring[2]),
+                       1 - B * H / (groups * bb * n_rg * rb))
+
+
+@functools.cache  # a launch's plan depends on its shapes alone
+def _plan(B, C, H, W, O, chunk, n_shards, n_sm=_N_SM) -> Plan:
+    """The tiling of one launch; ``chunk`` None is the single-shot form
+    (one chunk of B). Among the candidates: enough tiles for two per SM
+    and enough warps for 16 per SM where the work has them (else as many
+    as it has), masked samples and rows at most 1/8 where possible; then
+    the widest o-group (fewest input loads), the most n8 tiles a warp
+    (fewest fragment loads an mma), the most fragments a tile (fewest
+    weight loads)."""
+    cands = list(_candidates(B, C, H, W, O, chunk, n_shards))
+    if not cands:
+        raise ValueError(f"overlap_conv: no tile fits W={W}, C={C}, O={O}")
+    want_tiles = min(2 * n_sm, max(p.tiles for p, _ in cands))
+    ok = [(p, w) for p, w in cands if p.tiles >= want_tiles]
+    want_warps = min(16 * n_sm, max(p.tiles * p.warps for p, _ in ok))
+    ok = [(p, w) for p, w in ok if p.tiles * p.warps >= want_warps]
+    ok = [(p, w) for p, w in ok if w <= 0.125] or ok
+    return max(ok, key=lambda pw: (pw[0].nt, pw[0].ntw, pw[0].bb * pw[0].rb,
+                                   -pw[1], pw[0].rb))[0]
+
+
+def _tile(plan: Plan, B, H, n_shards, t):
+    """Tile ``t`` of a plan, as the kernel decodes it: (shard, first
+    sample, samples, first row, rows, o-group)."""
+    ts = plan.n_og * n_shards * plan.n_rg
+    per_chunk = -(-plan.chunk // plan.bb) * ts
+    j, r = divmod(t, per_chunk)
+    q = r % ts
+    b0 = j * plan.chunk + (r // ts) * plan.bb
+    nb = min(plan.bb, min((j + 1) * plan.chunk, B) - b0)
+    h0 = (q % plan.n_rg) * plan.rb
+    return ((q // plan.n_rg) % n_shards, b0, nb, h0, min(plan.rb, H - h0),
+            q // (n_shards * plan.n_rg))
+
+
+@functools.cache
 def _lib():
     lib = _build.load("overlap_conv")
     head = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p]
-    lib.dlwp_overlap_conv.argtypes = head + [ctypes.c_int] * 5 + [
-        ctypes.c_void_p]
-    lib.dlwp_overlap_conv_db.argtypes = head + [ctypes.c_int] * 6 + [
-        ctypes.c_void_p]
-    for fn in (lib.dlwp_overlap_conv, lib.dlwp_overlap_conv_db):
-        fn.restype = ctypes.c_int
-    lib.dlwp_overlap_conv_smem_bytes.argtypes = [ctypes.c_int] * 2
-    for fn in (lib.dlwp_overlap_conv_smem_bytes,
+    tail = [ctypes.c_void_p] * 3  # plan, stream, grid_out
+    lib.dlwp_overlap_conv.argtypes = head + [ctypes.c_int] * 5 + tail
+    lib.dlwp_overlap_conv_db.argtypes = head + [ctypes.c_int] * 6 + tail
+    for fn in (lib.dlwp_overlap_conv, lib.dlwp_overlap_conv_db,
                lib.dlwp_overlap_conv_max_shards):
         fn.restype = ctypes.c_int
     return lib
 
 
-_MAX_SMEM = 227 * 1024
+@functools.cache
+def _sm_count(dev):
+    return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
 def _launch(shards, kernel, chunk, name):
@@ -85,37 +219,46 @@ def _launch(shards, kernel, chunk, name):
         raise ValueError(f"{name}: shards must be float32, got {first.dtype}")
     groups = device_groups(shards, name)
     lib = _lib()
-    if lib.dlwp_overlap_conv_smem_bytes(B, chunk or 0) > _MAX_SMEM:
-        raise ValueError(f"{name}: chunk {chunk} too large")
     out = [[None] * len(row) for row in shards]
     for dev, keys in groups.items():
         n = len(keys)
-        groups_z = 1 if chunk else -(-B // 16)
-        if n > lib.dlwp_overlap_conv_max_shards() or n * H * groups_z > 65535:
-            raise ValueError(f"{name}: grid too large for {n} shards of "
-                             f"{tuple(first.shape)}")
-        kt = kernel.to(device=dev, dtype=torch.float32).permute(
-            1, 2, 3, 0).contiguous()
+        if n > lib.dlwp_overlap_conv_max_shards():
+            raise ValueError(f"{name}: {n} shards on {dev}, more than "
+                             f"{lib.dlwp_overlap_conv_max_shards()}")
+        plan = _plan(B, C, H, W, O, chunk, n, _sm_count(dev))
+        if plan.tiles > _MAX_GRID or max(B * C, B * O) * H * W >= 2 ** 31:
+            raise ValueError(f"{name}: {n} shards of {tuple(first.shape)} "
+                             "are too large")
+        k = kernel.to(device=dev, dtype=torch.float32).contiguous()
+        xs = [shards[d][l].data_ptr() for d, l in keys]
         for d, l in keys:
             out[d][l] = torch.empty((B, O, H, W), device=dev,
                                     dtype=torch.float32)
+        vec_x = W % 4 == 0 and all(p % 16 == 0 for p in xs)
+        vec_w = C % 4 == 0 and k.data_ptr() % 16 == 0
+        fields = (plan.bb, plan.rb, plan.warps, plan.stages, plan.rs, plan.nt,
+                  plan.ntw, plan.n_og, int(vec_x), int(vec_w), plan.smem,
+                  plan.tiles, int(plan.resident))
         north, south = neighbour_table(keys)
+        grid = ctypes.c_int(0)
         args = [
-            (ctypes.c_void_p * n)(*[shards[d][l].data_ptr() for d, l in keys]),
+            (ctypes.c_void_p * n)(*xs),
             (ctypes.c_void_p * n)(*[out[d][l].data_ptr() for d, l in keys]),
             (ctypes.c_int * n)(*north), (ctypes.c_int * n)(*south), n,
-            kt.data_ptr(), B, C, H, W, O,
+            k.data_ptr(), B, C, H, W, O,
         ]
+        if chunk:
+            args.append(plan.chunk)
+        args += [(ctypes.c_int * len(fields))(*fields)]
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream().cuda_stream
-            if chunk:
-                err = lib.dlwp_overlap_conv_db(*args, chunk, stream)
-            else:
-                err = lib.dlwp_overlap_conv(*args, stream)
+            fn = lib.dlwp_overlap_conv_db if chunk else lib.dlwp_overlap_conv
+            err = fn(*args, stream, ctypes.byref(grid))
         if err:
             raise RuntimeError(f"{name} launch failed: CUDA error {err}")
         wrapper = overlap_conv_db if chunk else overlap_conv
         wrapper.launches += 1
+        wrapper.last_launch = (plan, grid.value)
     return out
 
 
@@ -141,3 +284,4 @@ def overlap_conv_db(shards, kernel, chunk: int):
 
 overlap_conv.launches = 0
 overlap_conv_db.launches = 0
+overlap_conv.last_launch = overlap_conv_db.last_launch = None

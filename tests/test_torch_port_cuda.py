@@ -9,7 +9,8 @@ Each kernel is held against its plain PyTorch version on the same inputs
 (fp32 1e-5: only the summation order differs; bf16 gates 5e-2, a few bf16
 rounding steps near 1; the barotropic step 1e-5 relative in height after
 20 steps, the JAX package's bar for its Pallas step; the halo exchange bit
-for bit), the fused flagship on the card against the same model on the
+for bit; the two overlap convs bit for bit with each other), the fused
+flagship on the card against the same model on the
 CPU, and the lat-band sharded flagship on two virtual shards of the card
 against the unsharded one.
 """
@@ -155,27 +156,55 @@ def _lat2(dev):
     return build_mesh(MeshConfig(data=1, lat=2), devices=[dev] * 2)
 
 
+def _unaligned(shards):
+    """Contiguous copies starting one float past a 16-byte boundary."""
+    out = []
+    for row in shards:
+        out.append([])
+        for s in row:
+            buf = torch.empty(s.numel() + 4, device=s.device, dtype=s.dtype)
+            out[-1].append(buf[1:1 + s.numel()].view(s.shape).copy_(s))
+    return out
+
+
+# (B, C, H, W, O, chunk): widths 18, 72, 144; channels 3, 12, 32, 128;
+# outputs 7, 48, 64; chunks that pad the batch.
+CONV_CASES = [(5, 3, 8, 18, 7, 2), (6, 12, 8, 72, 48, 4),
+              (4, 128, 8, 144, 7, 3), (6, 32, 8, 18, 64, 5),
+              (3, 12, 8, 144, 64, 2)]
+
+
 def test_parallel_kernels_match_plain_on_card(dev):
     """The lat-band kernels on two virtual shards of the card: the halo
-    exchange bit for bit (with a 0-sided halo), both conv kernels within
-    1e-5 (B=5 with chunk 2 pads the pipelined kernel's batch)."""
+    exchange bit for bit (with a 0-sided halo); both conv kernels within
+    1e-5 of the plain version, bit-equal to each other and to themselves
+    on shards whose base is not 16-byte aligned (B=5 with chunk 2 pads the
+    pipelined kernel's batch)."""
     rng = np.random.RandomState(8)
     x = torch.from_numpy(rng.randn(5, 3, 8, 18).astype(np.float32)).to(dev)
-    k = torch.from_numpy((rng.randn(7, 3, 3, 3) / np.sqrt(27)).astype(
-        np.float32)).to(dev)
     shards = split_shards(x, _lat2(dev), "data", "lat")
     reset_launch_counts()
     for halo in ((2, 2), (0, 1)):
         for got, want in zip(halo_exchange(shards, halo)[0],
                              halo_exchange_plain(shards, halo)[0]):
             assert torch.equal(got, want)
-    want = overlap_conv_plain(shards, k)[0]
-    for got in (overlap_conv(shards, k)[0], overlap_conv_db(shards, k, 2)[0]):
-        for a, b in zip(got, want):
-            torch.testing.assert_close(a, b, rtol=0, atol=1e-5)
+    for B, C, H, W, O, chunk in CONV_CASES:
+        x = torch.from_numpy(rng.randn(B, C, H, W).astype(np.float32)).to(dev)
+        k = torch.from_numpy((rng.randn(O, C, 3, 3) / np.sqrt(9 * C)).astype(
+            np.float32)).to(dev)
+        shards = split_shards(x, _lat2(dev), "data", "lat")
+        want = overlap_conv_plain(shards, k)[0]
+        single = overlap_conv(shards, k)[0]
+        for got in (single, overlap_conv_db(shards, k, chunk)[0],
+                    overlap_conv(_unaligned(shards), k)[0],
+                    overlap_conv_db(_unaligned(shards), k, chunk)[0]):
+            for a, b, c in zip(got, want, single):
+                torch.testing.assert_close(a, b, rtol=0, atol=1e-5)
+                assert torch.equal(a, c)
+    n = len(CONV_CASES)
     assert launch_counts() == {"fused_conv_pool": 0, "lstm_gates": 0,
                                "barotropic_step": 0, "halo_exchange": 2,
-                               "overlap_conv": 1, "overlap_conv_db": 1}
+                               "overlap_conv": 2 * n, "overlap_conv_db": 2 * n}
 
 
 def test_sharded_flagship_on_card_matches_unsharded(dev):
