@@ -6,19 +6,31 @@
 Phases, each raising on failure:
 
 1. the card's name and power limit (``nvidia-smi``);
-2. build of every kernel in ``dlwp_torch/csrc`` (``nvcc``, in parallel);
+2. build of every kernel in ``dlwp_torch/csrc`` (``nvcc``, in parallel),
+   with each kernel's registers and spills from ``-Xptxas -v``;
 3. each kernel against its plain PyTorch version on the card, at the
-   flagship shapes and on an odd case;
+   flagship shapes and on odd cases (``fused_conv_pool``: both encoder
+   stages, the odd cases of ``CONV_POOL_CASES`` and both stages on the
+   0.5-degree grid (180x720, column blocks), each with the plan and grid
+   it launched; at each flagship stage samples 0..2 of B=64 equal a B=3
+   call bit for bit, and other plans (the other ring depth, warp build,
+   column split, tile shape and weight layout) give the chosen plan's
+   result bit for bit, the ring's other depth timed beside it);
 4. the golden ConvLSTM flagship rollout of ``tests/fixtures/golden.npz``
    (8x16 grid, 3 steps) reproduced in fp32 through the kernels;
 5. the main path at full width: synthetic 36x144 dataset -> SeriesSampler
    (+insolation) -> DLWPNeuralNet(ConvLSTM flagship, random weights from a
    seed) -> TimeSeriesEstimator.predict(32) at B=64, with fp32 and bf16
    gates; launch counts prove the kernels ran, and 4 samples are held
-   against the same predict on the CPU (plain versions);
+   against the same predict on the CPU (plain versions); the rollout's
+   device time by kernel (``torch.profiler``), idle share and the
+   conv-pool kernel's share;
 6. timings with CUDA events (median of repeats after warm-up): each kernel
    and its plain version, and the rollout rate in grid points per second
-   (B * steps * 36 * 144 / elapsed);
+   (B * steps * 36 * 144 / elapsed); for ``fused_conv_pool`` at each
+   stage also its device time (``torch.profiler``) against its 3xTF32 and
+   fp32 bounds, and the yardstick of cuDNN's ``F.conv2d`` alone (TF32
+   off) on the input padded once, without the pool, bias and tanh;
 7. the barotropic step kernel against its plain version on the card (psi
    form with and without the hemisphere sign correction, vorticity form):
    T24 on 37x72 for 20 steps and T72 on 73x144 for 40 steps, relative max
@@ -113,6 +125,17 @@ HALO_CONVS = (
     ("tower conv 5", (B, 64, NLAT, NLON), 32, 3, 2),
     ("tower conv 6", (B, 32, NLAT, NLON), TD * C, 5, 1),
 )
+# fused_conv_pool (B, C, H, W, O, dilation): the flagship's encoder stages
+# (the main path's shapes), then odd cases: d 1/2/3, C 3/5/11/24/32, O
+# 7/37/64/65, W 10/16/18/72/144, H 4/8/10; then both stages on the
+# 0.5-degree grid (180x720), 5 column blocks a row.
+CONV_POOL_CASES = ((B, 24, NLAT, NLON, 32, 2),
+                   (B, 32, NLAT // 2, NLON // 2, 64, 1),
+                   (3, 5, 10, 18, 7, 3), (3, 11, 10, 18, 37, 1),
+                   (2, 3, 8, 16, 65, 2), (4, 32, 8, 72, 7, 1),
+                   (2, 24, 10, 144, 64, 3), (5, 11, 8, 16, 37, 2),
+                   (2, 5, 4, 10, 7, 3), (2, 24, 180, 720, 32, 2),
+                   (2, 32, 90, 360, 64, 1))
 OVERLAP_CONVS = (
     ("convlstm recurrent", (B, 12, NLAT, NLON), 48),
     ("tower conv 2", (B, 32, NLAT // 2, NLON // 2), 64),
@@ -157,38 +180,83 @@ def bound_ms(nbytes, flops, peak=PEAK_FP32_FLOPS):
                                        else "operations")
 
 
+def plan_text(plan):
+    return (f"warp {plan.mo}x1 x {plan.ncg} column tiles x {plan.n_cb} "
+            f"column blocks, tile {plan.bb}x{plan.rb}, {plan.warps} warps, "
+            f"{plan.stages} stages ({plan.smem} B, "
+            f"{'resident' if plan.resident else 'streamed'} weights), "
+            f"{plan.n_og} o-groups, {plan.tiles} tiles")
+
+
 def check_kernels(torch, dev):
+    import torch.nn.functional as F
+
     from dlwp_torch.kernels import (
         fused_conv_pool, fused_conv_pool_plain, lstm_gates, lstm_gates_plain,
     )
+    from dlwp_torch.kernels.fused_conv_pool import _launch, _variants
+    from dlwp_torch.ops.padding import pad_latlon
 
     g = torch.Generator(device=dev).manual_seed(0)
     errs = {"fused_conv_pool": 0.0, "lstm_gates": 0.0}
     timing = {"fused_conv_pool": [], "lstm_gates": []}
-    # (B, C, H, W, O, dilation): flagship stages 1 and 2, then an odd case.
-    for shape, flagship in [((B, 24, NLAT, NLON, 32, 2), True),
-                            ((B, 32, NLAT // 2, NLON // 2, 64, 1), True),
-                            ((3, 5, 10, 18, 7, 3), False)]:
+    for shape in CONV_POOL_CASES:
         b, c, h, w, o, d = shape
+        flagship = b == B
         x = torch.randn(b, c, h, w, device=dev, generator=g)
         k = torch.randn(o, c, 3, 3, device=dev, generator=g) / (9 * c) ** 0.5
         bias = 0.1 * torch.randn(o, device=dev, generator=g)
         y = fused_conv_pool(x, k, bias, d)
+        plan, grid = fused_conv_pool.last_launch
         torch.cuda.synchronize()
         err = (y - fused_conv_pool_plain(x, k, bias, d)).abs().max().item()
-        log(f"check fused_conv_pool {shape}: max|kernel-plain| = {err:.3e}")
+        log(f"check fused_conv_pool {shape}: max|kernel-plain| = {err:.3e}; "
+            f"{plan_text(plan)}, grid {grid}")
         if not err <= TOL_F32:
             raise AssertionError(f"fused_conv_pool {shape}: {err} > {TOL_F32}")
         errs["fused_conv_pool"] = max(errs["fused_conv_pool"], err)
-        if flagship:
-            nbytes = 4 * (x.numel() + k.numel() + o + y.numel())
-            flops = 2 * b * o * h * w * c * 9
-            timing["fused_conv_pool"].append(dict(
-                shape=list(shape),
-                ms=timed_ms(lambda: fused_conv_pool(x, k, bias, d)),
-                plain_ms=timed_ms(lambda: fused_conv_pool_plain(x, k, bias, d)),
-                bytes=nbytes, flops=flops,
-            ))
+        if not flagship:
+            continue
+        # A sample's result depends neither on the batch nor on the plan.
+        small = fused_conv_pool(x[:3].contiguous(), k, bias, d)
+        torch.cuda.synchronize()
+        if not torch.equal(small, y[:3]):
+            raise AssertionError(f"fused_conv_pool {shape}: B=3 differs "
+                                 f"from B={b}")
+        variants = _variants(plan, *shape)
+        for other in variants:
+            if not torch.equal(_launch(x, k, bias, d, other), y):
+                raise AssertionError(f"fused_conv_pool {shape}: plan "
+                                     f"{other} differs from {plan}")
+        log(f"check fused_conv_pool {shape}: {len(variants)} other plans "
+            f"bit-equal ({', '.join(plan_text(p) for p in variants)})")
+        ring = variants[0]  # the chosen plan with the other ring depth
+        ring_ms = device_ms_per_call(
+            torch, lambda: _launch(x, k, bias, d, ring))
+        # The yardstick: cuDNN's conv alone (TF32 off), without the pool,
+        # bias and tanh, on the input padded once outside the timer.
+        xp = pad_latlon(x, (d, d), (d, d))
+
+        def library():
+            return F.conv2d(xp, k, dilation=d)
+
+        def kernel():
+            return fused_conv_pool(x, k, bias, d)
+
+        timing["fused_conv_pool"].append(dict(
+            shape=list(shape),
+            library_device_ms=device_ms_per_call(torch, library),
+            device_ms=device_ms_per_call(torch, kernel),
+            other_ring=dict(stages=ring.stages, smem=ring.smem,
+                            device_ms=ring_ms),
+            ms=timed_ms(kernel),
+            plain_ms=timed_ms(lambda: fused_conv_pool_plain(x, k, bias, d)),
+            library_ms=timed_ms(library),
+            library_note="cuDNN conv alone, without pool/bias/tanh",
+            bytes=4 * (x.numel() + k.numel() + o + y.numel()),
+            flops=2 * b * o * h * w * c * 9,
+            plan=plan._asdict(), grid=grid,
+        ))
     # (B, F, H, W): the flagship ConvLSTM (F=12 at 36x144), then odd.
     for shape, flagship in [((B, 12, NLAT, NLON), True),
                             ((3, 5, 7, 9), False)]:
@@ -325,8 +393,22 @@ def run_main_path(torch, dev):
         results[tag] = {"elapsed_s": elapsed, "grid_points_per_s": gps}
         log(f"rollout {tag}: {elapsed * 1e3:.2f} ms per predict({STEPS}) "
             f"at B={B} -> {gps / 1e6:.2f} Mgp/s")
-        results[tag]["device_ms_per_step"] = profile_steps(
-            torch, est, x0, days, ms, tag)
+        names = {}
+        device = results[tag]["device_ms_per_step"] = profile_steps(
+            torch, est, x0, days, ms, tag, names=names)
+        pool = [(t, n) for k, (t, n) in names.items() if "conv_pool" in k]
+        pool_ms = sum(t for t, _ in pool)
+        results[tag]["conv_pool_device_ms_per_step"] = pool_ms
+        results[tag]["conv_pool_share"] = pool_ms / device
+        results[tag]["conv_pool_device_ms_per_launch"] = (
+            pool_ms / max(sum(n for _, n in pool), 1))
+        results[tag]["idle_share"] = 1 - device / (elapsed * 1e3 / STEPS)
+        log(f"rollout {tag}: device {device:.3f} ms a step of "
+            f"{elapsed * 1e3 / STEPS:.3f} ms (idle "
+            f"{100 * results[tag]['idle_share']:.1f}%); conv_pool_kernel "
+            f"{pool_ms:.4f} ms a step ({100 * pool_ms / device:.1f}%), "
+            f"{results[tag]['conv_pool_device_ms_per_launch']:.4f} ms a "
+            f"launch")
     return counts["fp32"], results
 
 
@@ -1023,17 +1105,20 @@ def device_ms_per_call(torch, fn, calls=10):
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(e.device_time_total for e in prof.key_averages()
-                if getattr(e, "device_time_total", 0) > 0
-                and e.device_type.name == "CUDA")
-    if total <= 0:
-        raise AssertionError("the profiler saw no device time")
-    return total / 1e3 / calls
+    # A profiler session around a hand kernel, the first of its process,
+    # has come back without device time; it is repeated before failing.
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(e.device_time_total for e in prof.key_averages()
+                    if getattr(e, "device_time_total", 0) > 0
+                    and e.device_type.name == "CUDA")
+        if total > 0:
+            return total / 1e3 / calls
+    raise AssertionError("the profiler saw no device time")
 
 
 def main() -> int:
@@ -1059,9 +1144,17 @@ def main() -> int:
         f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     log(f"kernel build: {_build.build():.1f} s for {_build.sources()}")
     for name in _build.sources():
+        spills, entry = [], ""
         for line in _build.build_log(name).splitlines():
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1] if "'" in line else line
             if "registers" in line or "spill" in line:
-                log(f"  {name}: {line.strip()}")
+                log(f"  {name} {entry[:48]}: {line.strip()}")
+            if "spill" in line and not line.strip().startswith(
+                    "0 bytes stack frame, 0 bytes spill stores, 0 bytes "
+                    "spill loads"):
+                spills.append(f"{entry}: {line.strip()}")
+        log(f"  {name}: spills {spills or 'none'}")
 
     errs, timing = check_kernels(torch, dev)
     errs.update(check_parallel_kernels(torch, dev))
@@ -1086,11 +1179,34 @@ def main() -> int:
         rows = [r for r in timing[name] if r.get("gate_dtype") is None]
         for r in timing[name]:
             r["bound_ms"], r["bound_by"] = bound_ms(r["bytes"], r["flops"])
+            extra = ""
+            if name == "fused_conv_pool":
+                # The kernel's own arithmetic: three TF32 tensor-core
+                # products per multiply-add. bound_fp32_ms: fp32 FMA.
+                r["bound_fp32_ms"] = r["bound_ms"]
+                r["bound_ms"], r["bound_by"] = bound_ms(
+                    r["bytes"], 3 * r["flops"], PEAK_TF32_FLOPS)
+                p = r["plan"]
+                extra = (
+                    f"; device {r['device_ms']:.4f} ms: "
+                    f"{100 * r['bound_ms'] / r['device_ms']:.1f}% of the "
+                    f"3xTF32 bound, {100 * r['bound_fp32_ms'] / r['device_ms']:.1f}"
+                    f"% of the fp32 bound {r['bound_fp32_ms']:.4f} ms; "
+                    f"{r['library_note']} {r['library_ms']:.4f} ms (device "
+                    f"{r['library_device_ms']:.4f}), kernel/cuDNN device "
+                    f"{r['device_ms'] / r['library_device_ms']:.2f}x; warp "
+                    f"{p['mo']}x1 x {p['ncg']} column tiles x {p['n_cb']} "
+                    f"column blocks, tile {p['bb']}x{p['rb']}, "
+                    f"{p['warps']} warps, {p['stages']} stages "
+                    f"({p['smem']} B), {p['tiles']} tiles, grid {r['grid']}; "
+                    f"the same plan with {r['other_ring']['stages']} stages "
+                    f"({r['other_ring']['smem']} B): device "
+                    f"{r['other_ring']['device_ms']:.4f} ms")
             log(f"timing {name} {r['shape']} gate_dtype="
                 f"{r.get('gate_dtype')}: kernel {r['ms']:.4f} ms, plain "
                 f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
-                f"({r['bound_by']})")
-        kernels.append({
+                f"({r['bound_by']}){extra}")
+        entry = {
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": main_launches[name],
             "max_abs_err": errs[name],
@@ -1100,7 +1216,16 @@ def main() -> int:
             "bound_by": rows[0]["bound_by"],
             "library_ms": None,
             "per_shape": timing[name],
-        })
+        }
+        if name == "fused_conv_pool":
+            # Mean per launch of the two stages, one launch each a step.
+            for key in ("library_ms", "bound_fp32_ms", "device_ms",
+                        "library_device_ms"):
+                entry[key] = float(np.mean([r[key] for r in rows]))
+            entry["library_note"] = rows[0]["library_note"]
+            entry["device_ms_per_launch_on_path"] = (
+                rollout["fp32"]["conv_pool_device_ms_per_launch"])
+        kernels.append(entry)
     rows = list(baro_timing.values())
     kernels.append({
         "name": "barotropic_step", "route": "cuda",

@@ -85,12 +85,12 @@
 
 #include <cstdint>
 
+#include "tf32_mma.cuh"
+
 namespace {
 
 constexpr int MAX_SHARDS = 64;
-constexpr int CS = 8;      // input channels per slab (the k8 depth)
 constexpr int LM = 4;      // left margin of a staged row, in floats
-constexpr int WR = 76;     // staged weight row: 72 values of one o, padded
 constexpr int MW = 2;      // M fragments per warp
 constexpr int MAX_NTW = 4;  // n8 tiles per warp: 2 x 32 sums in registers
 constexpr int MAX_WARPS = 10;  // a block; two fit an SM at <= 102 registers
@@ -149,27 +149,6 @@ __device__ __forceinline__ Tile decode(const Params& p, int t) {
   return tl;
 }
 
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
-               "l"(src));
-}
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
 // Stage the input rows of slab c0 of tile tl: xs [bl][r][cc][rs] (row r =
 // input row h0 - 1 + r, interior at column LM, wrap columns at LM - 1 and
 // LM + W).
@@ -213,61 +192,6 @@ __device__ void stage_x(float* xs, const Params& p, const Tile& tl, int c0) {
       if (++r == p.rb + 2) r = 0, ++bl;
     }
   }
-}
-
-// Stage the weights of slab c0 for o-group og: ws [o - 64 og][WR], the
-// slab's 8 channels x 9 taps of output channel o.
-__device__ void stage_w(float* ws, const Params& p, int og, int c0) {
-  const int nrow_o = p.ws_floats / WR;
-  if (p.vec_w) {  // C % 4 == 0: a row's cn * 9 values are aligned quads
-    const int nq = min(CS, p.C - c0) * 9 / 4;
-    for (int i = threadIdx.x; i < nrow_o * 18; i += blockDim.x) {
-      const int ol = i / 18, q = i % 18;
-      const int o = og * p.og_width + ol;
-      float* dst = ws + ol * WR + 4 * q;
-      if (o < p.O && q < nq) {
-        cp_async16(dst, p.k + ((size_t)o * p.C + c0) * 9 + 4 * q);
-      } else {
-        *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
-      }
-    }
-  } else {
-    for (int i = threadIdx.x; i < nrow_o * 72; i += blockDim.x) {
-      const int ol = i / 72, j = i % 72;
-      const int o = og * p.og_width + ol;
-      float* dst = ws + ol * WR + j;
-      if (o < p.O && c0 + j / 9 < p.C) {
-        cp_async4(dst, p.k + ((size_t)o * p.C + c0) * 9 + j);
-      } else {
-        *dst = 0.f;
-      }
-    }
-  }
-}
-
-// v = hi + lo: hi is v rounded to TF32 (to nearest, ties away, as
-// cvt.rna.tf32.f32 does), lo the exact rest, which the tensor core reads
-// as TF32 by dropping its low 13 bits.
-__device__ __forceinline__ void split(float v, uint32_t& hi, uint32_t& lo) {
-  hi = (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
-  lo = __float_as_uint(v - __uint_as_float(hi));
-}
-
-// m16n8k4: the last slab when it holds 4 channels or fewer.
-__device__ __forceinline__ void mma4(float (&d)[4], const uint32_t (&a)[4],
-                                     uint32_t b0) {
-  asm("mma.sync.aligned.m16n8k4.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5}, {%6}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(b0));
-}
-
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // Fragment f of the tile is output row rl of sample bl, columns
@@ -388,7 +312,8 @@ __device__ void run(const Params& p) {
   __syncthreads();
   if (p.resident) {  // in the first unit's copy group
     for (int k = 0; k < p.nslab; ++k)
-      stage_w(wring + k * p.ws_floats, p, 0, k * CS);
+      stage_w(wring + k * p.ws_floats, p.k, p.O, p.C, 0,
+              p.ws_floats / WR, k * CS, p.vec_w);
   }
 
   const int units =
@@ -399,7 +324,9 @@ __device__ void run(const Params& p) {
     if (pf_u++ < units) {
       stage_x(smem + pf_buf * p.xs_floats, p, pf_tile, pf_k * CS);
       if (!p.resident) {
-        stage_w(wring + pf_buf * p.ws_floats, p, pf_tile.og, pf_k * CS);
+        stage_w(wring + pf_buf * p.ws_floats, p.k, p.O, p.C,
+                pf_tile.og * p.og_width, p.ws_floats / WR, pf_k * CS,
+                p.vec_w);
       }
       if (++pf_k == p.nslab) {
         pf_k = 0;

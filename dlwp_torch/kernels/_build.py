@@ -3,8 +3,9 @@
 Each ``dlwp_torch/csrc/<name>.cu`` exposes a plain C interface and is
 compiled on its own by ``nvcc`` into a shared library under
 ``dlwp_torch/kernels/_build/`` (listed in ``.gitignore``), then loaded with
-``ctypes``. The library name carries a hash of the source and the flags,
-so an edited source is rebuilt and a current one is reused. Sources build
+``ctypes``. The library name carries a hash of the source, the shared
+headers (``csrc/*.cuh``) and the flags, so an edited source or header is
+rebuilt and a current one is reused. Sources build
 in parallel: one ``nvcc`` process each, all started together.
 
 Nothing here runs at import time; the CPU-only test environment imports
@@ -47,7 +48,12 @@ def sources() -> list[str]:
 
 
 def library_path(name: str) -> Path:
+    """The library of ``csrc/<name>.cu``, named by a hash of that source,
+    every shared header (``csrc/*.cuh``) and the flags."""
     digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode())
+        digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 

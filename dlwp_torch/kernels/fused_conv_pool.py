@@ -2,22 +2,31 @@
 
 Port of ``dlwp_tpu.ops.fused_stages.fused_conv_pool``, the encoder stages
 of the flagship tower. :func:`fused_conv_pool` launches the CUDA kernel for
-a CUDA tensor and takes the plain PyTorch version,
-:func:`fused_conv_pool_plain`, for a CPU tensor. ``fused_conv_pool.launches``
-counts kernel launches.
+a CUDA tensor, with the tiling of :func:`_plan`, and takes the plain
+PyTorch version, :func:`fused_conv_pool_plain`, for a CPU tensor.
+``fused_conv_pool.launches`` counts kernel launches;
+``fused_conv_pool.last_launch`` holds the plan and grid of the last one.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
 from dlwp_torch.kernels import _build
+from dlwp_torch.kernels._tiling import (
+    MAX_GRID,
+    MAX_SMEM,
+    N_SM,
+    TWO_PER_SM,
+    ring,
+    sm_count,
+)
 from dlwp_torch.ops.conv import cyclic_conv2d
 from dlwp_torch.ops.pooling import max_pool2d
-
-_MAX_SMEM = 227 * 1024
 
 
 def fused_conv_pool_plain(x, kernel, bias=None, dilation: int = 2):
@@ -30,13 +39,161 @@ def fused_conv_pool_plain(x, kernel, bias=None, dilation: int = 2):
     return torch.tanh(y)
 
 
+# Tile constants of csrc/fused_conv_pool.cu.
+_CS, _WR, _MAX_WARPS = 8, 76, 18
+_OG = (64, 32)  # output channels an o-group may have
+_MO = (2, 1)  # m16 o-fragments a warp may own: the kernel's builds
+# The kernel's registers (at most 96 a thread: 18 warps over the SM's four
+# register partitions) let two blocks share an SM only at 10 warps or fewer.
+_TWO_BLOCK_WARPS = 10
+MAX_DILATION = 8  # the left margin of a staged row is at most 8 floats
+
+
+class Plan(NamedTuple):
+    """One launch's tiling (see csrc/fused_conv_pool.cu): tiles of ``bb``
+    samples x ``rb`` pooled rows x a column block of ``8 ncg`` columns
+    (``n_cb`` blocks a row) x an o-group of ``nm`` m16 fragments of output
+    channels (``n_og`` groups); ``warps`` warps, each of ``mo``
+    o-fragments x one n8 column tile x the 2 rows of a pool window; staged
+    rows of ``rs`` floats with a left margin of ``lm``; a ring of
+    ``stages`` buffers of input rows, and of weights unless the weights of
+    every slab are ``resident``, ``smem`` bytes in all; ``tiles`` tiles,
+    o-group fastest, then column block, then row group."""
+    bb: int
+    rb: int
+    warps: int
+    stages: int
+    rs: int
+    lm: int
+    nm: int
+    mo: int
+    n_og: int
+    ncg: int
+    n_cb: int
+    smem: int
+    tiles: int
+    n_rg: int
+    resident: bool
+
+
+def _row_stride(lm, width, d):
+    """Floats per staged row: margin, ``width`` columns and the right wrap
+    columns, a multiple of 4 that is 8 or 24 mod 32, so the B fragment
+    loads (4 channels x 8 columns a warp) hit 32 banks."""
+    rs = -(-(lm + width + d) // 4) * 4
+    while rs % 32 not in (8, 24):
+        rs += 4
+    return rs
+
+
+def _candidates(B, C, H, W, O, d):
+    """Every tiling of at most ``_MAX_WARPS`` warps whose ring fits shared
+    memory, with its share of masked outputs (samples, rows, columns and
+    output channels computed and not stored). A column block is the
+    narrowest of its count: ``ncg`` column tiles cover the row in
+    ``n_cb`` blocks, and no fewer tiles do."""
+    lm = -(-d // 4) * 4
+    H2, ntile, nslab = H // 2, -(-W // 8), -(-C // _CS)
+    for nm in sorted({-(-min(O, og) // 16) for og in _OG}):
+        n_og = -(-O // (16 * nm))
+        for mo in _MO:
+            if nm % mo:
+                continue
+            nos = nm // mo
+            for ncg in range(1, min(ntile, _MAX_WARPS // nos) + 1):
+                n_cb = -(-ntile // ncg)
+                if -(-ntile // n_cb) != ncg:
+                    continue
+                rs = _row_stride(lm, 8 * ncg, d)
+                for rb in range(1, min(H2, _MAX_WARPS // (ncg * nos)) + 1):
+                    n_rg = -(-H2 // rb)
+                    for bb in range(1, B + 1):
+                        warps = bb * rb * ncg * nos
+                        if warps > _MAX_WARPS:
+                            break
+                        layout = ring(
+                            4 * bb * (2 * rb + 2 * d) * _CS * rs,
+                            4 * nm * 16 * _WR, nslab, n_og == 1,
+                            MAX_SMEM if warps > _TWO_BLOCK_WARPS
+                            else TWO_PER_SM)
+                        if layout is None:
+                            break
+                        groups = -(-B // bb)
+                        done = (groups * bb * n_rg * rb * n_cb * ncg * 8
+                                * n_og * nm * 16)
+                        yield (Plan(bb, rb, warps, layout[0], rs, lm, nm, mo,
+                                    n_og, ncg, n_cb, layout[1],
+                                    groups * n_rg * n_cb * n_og, n_rg,
+                                    layout[2]),
+                               1 - B * H2 * W * O / done)
+
+
+@functools.cache  # a launch's plan depends on its shapes alone
+def _plan(B, C, H, W, O, d, n_sm=N_SM) -> Plan:
+    """The tiling of one launch. Among the candidates: enough tiles for two
+    per SM and enough warps for 16 per SM where the work has them (else as
+    many as it has), masked outputs at most 1/8 where possible; then the
+    fewest o-groups and column blocks (fewest input loads), the most
+    o-fragments a warp (fewest fragment loads an mma), the fewest masked
+    outputs."""
+    if H < 2 or W < 2 or H % 2 or W % 2:
+        raise ValueError(f"fused_conv_pool: H and W must be even, got "
+                         f"{H}x{W}")
+    if not 1 <= d <= min(MAX_DILATION, W - 1):
+        raise ValueError(f"fused_conv_pool: dilation {d} outside 1.."
+                         f"{min(MAX_DILATION, W - 1)} (at most "
+                         f"{MAX_DILATION}, below W={W})")
+    cands = list(_candidates(B, C, H, W, O, d))
+    want_tiles = min(2 * n_sm, max(p.tiles for p, _ in cands))
+    ok = [(p, w) for p, w in cands if p.tiles >= want_tiles]
+    want_warps = min(16 * n_sm, max(p.tiles * p.warps for p, _ in ok))
+    ok = [(p, w) for p, w in ok if p.tiles * p.warps >= want_warps]
+    ok = [(p, w) for p, w in ok if w <= 0.125] or ok
+    plan = max(ok, key=lambda pw: (-pw[0].n_og, -pw[0].n_cb, pw[0].mo,
+                                   -pw[1]))[0]
+    if plan.tiles * -(-C // _CS) > MAX_GRID:
+        raise ValueError(f"fused_conv_pool: ({B}, {C}, {H}, {W}) -> {O} "
+                         f"needs {plan.tiles} tiles of {-(-C // _CS)} slabs, "
+                         f"more than {MAX_GRID}")
+    return plan
+
+
+def _tile(plan: Plan, B, H, t):
+    """Tile ``t`` of a plan, as the kernel decodes it: (first sample,
+    samples, first pooled row, pooled rows, first column, o-group)."""
+    q, og = divmod(t, plan.n_og)
+    q, cb = divmod(q, plan.n_cb)
+    hp0 = (q % plan.n_rg) * plan.rb
+    b0 = (q // plan.n_rg) * plan.bb
+    return (b0, min(plan.bb, B - b0), hp0, min(plan.rb, H // 2 - hp0),
+            8 * plan.ncg * cb, og)
+
+
+def _variants(plan: Plan, B, C, H, W, O, d):
+    """Other launches of the same work, for the card's checks that a
+    result does not depend on the plan: ``plan`` with the other ring depth,
+    then one candidate for each warp build, column split, tile shape,
+    weight layout and o-grouping."""
+    x_bytes = 4 * plan.bb * (2 * plan.rb + 2 * d) * _CS * plan.rs
+    step = x_bytes + (0 if plan.resident else 4 * plan.nm * 16 * _WR)
+    stages = 5 - plan.stages  # 3 <-> 2
+    out = {plan._replace(stages=stages,
+                         smem=plan.smem + (stages - plan.stages) * step): 0}
+    seen = set()
+    for p, _ in _candidates(B, C, H, W, O, d):
+        key = (p.mo, p.n_cb > 1, p.bb * p.rb > 1, p.resident, p.n_og)
+        if key not in seen and p != plan:
+            seen.add(key)
+            out[p] = 0
+    return list(out)
+
+
+@functools.cache
 def _lib():
     lib = _build.load("fused_conv_pool")
-    fn = lib.dlwp_fused_conv_pool
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    lib.dlwp_fused_conv_pool_smem_bytes.argtypes = [ctypes.c_int]
-    lib.dlwp_fused_conv_pool_smem_bytes.restype = ctypes.c_int
+    lib.dlwp_fused_conv_pool.argtypes = (
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 3)
+    lib.dlwp_fused_conv_pool.restype = ctypes.c_int
     return lib
 
 
@@ -66,25 +223,37 @@ def fused_conv_pool(x, kernel, bias=None, dilation: int = 2):
             raise ValueError(f"fused_conv_pool: {name} must be contiguous")
     if bias.shape != (O,):
         raise ValueError(f"fused_conv_pool: bias shape {tuple(bias.shape)}")
-    if not 1 <= dilation < W:
-        raise ValueError(f"fused_conv_pool: dilation {dilation} out of range")
-    lib = _lib()
-    if lib.dlwp_fused_conv_pool_smem_bytes(dilation) > _MAX_SMEM:
-        raise ValueError(f"fused_conv_pool: dilation {dilation} too large")
-    if B * -(-O // 32) > 65535 or H // 2 > 65535:
-        raise ValueError(f"fused_conv_pool: grid too large for {x.shape}")
+    return _launch(x, kernel, bias, dilation,
+                   _plan(B, C, H, W, O, dilation, sm_count(x.device)))
+
+
+def _launch(x, kernel, bias, d, plan: Plan):
+    """One launch of the kernel with ``plan`` on checked tensors. The card
+    tests also pass other candidates of ``_candidates``: a sample's result
+    does not depend on the plan."""
+    B, C, H, W = x.shape
+    O = kernel.shape[0]
+    vec_x = W % 4 == 0 and x.data_ptr() % 16 == 0
+    vec_w = C % 4 == 0 and kernel.data_ptr() % 16 == 0
+    fields = (plan.bb, plan.rb, plan.warps, plan.stages, plan.rs, plan.lm,
+              plan.nm, plan.mo, plan.n_og, plan.ncg, plan.n_cb, int(vec_x),
+              int(vec_w), plan.smem, plan.tiles, int(plan.resident))
     y = torch.empty((B, O, H // 2, W // 2), device=x.device,
                     dtype=torch.float32)
+    grid = ctypes.c_int(0)
+    lib = _lib()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.dlwp_fused_conv_pool(
             x.data_ptr(), kernel.data_ptr(), bias.data_ptr(), y.data_ptr(),
-            B, C, H, W, O, dilation, stream,
+            B, C, H, W, O, d, (ctypes.c_int * len(fields))(*fields),
+            stream, ctypes.byref(grid),
         )
     if err:
         raise RuntimeError(f"fused_conv_pool launch failed: CUDA error {err}")
     fused_conv_pool.launches += 1
+    fused_conv_pool.last_launch = (plan, grid.value)
     return y
 
-
 fused_conv_pool.launches = 0
+fused_conv_pool.last_launch = None

@@ -24,6 +24,14 @@ import torch
 import torch.nn.functional as F
 
 from dlwp_torch.kernels import _build
+from dlwp_torch.kernels._tiling import (
+    MAX_GRID,
+    MAX_SMEM,
+    N_SM,
+    TWO_PER_SM,
+    ring,
+    sm_count,
+)
 from dlwp_torch.kernels.halo_exchange import (
     check_shards,
     device_groups,
@@ -65,10 +73,6 @@ def _check(shards, kernel, name):
 _CS, _LM, _WR, _MW, _MAX_WARPS = 8, 4, 76, 2, 10
 _OG = (64, 32)  # output channels an o-group may have
 _MAX_NTW = 4  # n8 tiles a warp: its fp32 sums and chains fit the registers
-_MAX_SMEM = 227 * 1024  # a block's shared memory on Hopper
-_TWO_PER_SM = 113 * 1024  # two blocks of this fit on one SM
-_MAX_GRID = 2 ** 31 - 1
-_N_SM = 132  # H100 SXM; the wrapper reads the card's own count
 
 
 class Plan(NamedTuple):
@@ -112,20 +116,6 @@ def _sample_groups(B, chunk, bb):
     return full * -(-chunk // bb) + (-(-last // bb) if last else 0)
 
 
-def _ring(x_bytes, w_bytes, nslab, keep_weights):
-    """(stages, shared-memory bytes, resident) of the first layout that
-    lets two blocks share an SM: weights of every slab resident (where
-    ``keep_weights``) with 3 or 2 stages of input rows, else 3 or 2 stages
-    of both; else 2 stages of both if one block fits; else None."""
-    for resident in (True, False) if keep_weights else (False,):
-        for stages in (3, 2):
-            smem = stages * x_bytes + (nslab if resident else stages) * w_bytes
-            if smem <= _TWO_PER_SM:
-                return stages, smem, resident
-    smem = 2 * (x_bytes + w_bytes)
-    return (2, smem, False) if smem <= _MAX_SMEM else None
-
-
 def _candidates(B, C, H, W, O, chunk, n_shards):
     """Every tiling of at most ``_MAX_WARPS`` warps whose ring fits shared
     memory, with its share of masked (sample, row) slots."""
@@ -144,21 +134,21 @@ def _candidates(B, C, H, W, O, chunk, n_shards):
                 if warps > _MAX_WARPS:
                     break
                 # Weights stay only where a block walks several tiles of
-                # one o-group.
-                ring = _ring(4 * bb * (rb + 2) * _CS * rs,
-                             4 * nt * 8 * _WR, -(-C // _CS),
-                             persistent and n_og == 1)
-                if ring is None:
+                # one o-group; two blocks an SM.
+                layout = ring(4 * bb * (rb + 2) * _CS * rs,
+                              4 * nt * 8 * _WR, -(-C // _CS),
+                              persistent and n_og == 1, TWO_PER_SM)
+                if layout is None:
                     break
                 groups = _sample_groups(B, chunk, bb)
-                yield (Plan(bb, rb, warps, ring[0], rs, nt, ntw, n_og,
-                            ring[1], groups * n_og * n_shards * n_rg,
-                            chunk, nfrag, n_rg, ring[2]),
+                yield (Plan(bb, rb, warps, layout[0], rs, nt, ntw, n_og,
+                            layout[1], groups * n_og * n_shards * n_rg,
+                            chunk, nfrag, n_rg, layout[2]),
                        1 - B * H / (groups * bb * n_rg * rb))
 
 
 @functools.cache  # a launch's plan depends on its shapes alone
-def _plan(B, C, H, W, O, chunk, n_shards, n_sm=_N_SM) -> Plan:
+def _plan(B, C, H, W, O, chunk, n_shards, n_sm=N_SM) -> Plan:
     """The tiling of one launch; ``chunk`` None is the single-shot form
     (one chunk of B). Among the candidates: enough tiles for two per SM
     and enough warps for 16 per SM where the work has them (else as many
@@ -205,11 +195,6 @@ def _lib():
     return lib
 
 
-@functools.cache
-def _sm_count(dev):
-    return torch.cuda.get_device_properties(dev).multi_processor_count
-
-
 def _launch(shards, kernel, chunk, name):
     """One launch per card; ``chunk`` None selects ``dlwp_overlap_conv``."""
     first = shards[0][0]
@@ -225,8 +210,8 @@ def _launch(shards, kernel, chunk, name):
         if n > lib.dlwp_overlap_conv_max_shards():
             raise ValueError(f"{name}: {n} shards on {dev}, more than "
                              f"{lib.dlwp_overlap_conv_max_shards()}")
-        plan = _plan(B, C, H, W, O, chunk, n, _sm_count(dev))
-        if plan.tiles > _MAX_GRID or max(B * C, B * O) * H * W >= 2 ** 31:
+        plan = _plan(B, C, H, W, O, chunk, n, sm_count(dev))
+        if plan.tiles > MAX_GRID or max(B * C, B * O) * H * W >= 2 ** 31:
             raise ValueError(f"{name}: {n} shards of {tuple(first.shape)} "
                              "are too large")
         k = kernel.to(device=dev, dtype=torch.float32).contiguous()

@@ -9,7 +9,8 @@ Each kernel is held against its plain PyTorch version on the same inputs
 (fp32 1e-5: only the summation order differs; bf16 gates 5e-2, a few bf16
 rounding steps near 1; the barotropic step 1e-5 relative in height after
 20 steps, the JAX package's bar for its Pallas step; the halo exchange bit
-for bit; the two overlap convs bit for bit with each other), the fused
+for bit; the two overlap convs bit for bit with each other; a conv-pool
+sample bit for bit whatever the batch), the fused
 flagship on the card against the same model on the
 CPU, and the lat-band sharded flagship on two virtual shards of the card
 against the unsharded one.
@@ -89,6 +90,70 @@ def test_kernels_match_plain_on_card(dev):
     assert launch_counts() == {"fused_conv_pool": 3, "lstm_gates": 4,
                                "barotropic_step": 0, "halo_exchange": 0,
                                "overlap_conv": 0, "overlap_conv_db": 0}
+
+
+# (B, C, H, W, O, dilation): the flagship's encoder stages at B=64, then
+# odd cases: d 1/2/3, C 3/5/11/24/32, O 7/37/64/65, W 10/16/18/72/144, H
+# 4/8/10; then the two stages on the 0.5-degree grid (180x720), 5 column
+# blocks a row.
+CONV_POOL_CASES = [(64, 24, 36, 144, 32, 2), (64, 32, 18, 72, 64, 1),
+                   (3, 5, 10, 18, 7, 3), (3, 11, 10, 18, 37, 1),
+                   (2, 3, 8, 16, 65, 2), (4, 32, 8, 72, 7, 1),
+                   (2, 24, 10, 144, 64, 3), (5, 11, 8, 16, 37, 2),
+                   (2, 5, 4, 10, 7, 3), (2, 24, 180, 720, 32, 2),
+                   (2, 32, 90, 360, 64, 1)]
+
+
+@pytest.mark.parametrize("case", CONV_POOL_CASES,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_conv_pool_matches_plain_on_card(dev, case):
+    """The tensor-core conv-pool against its plain version (1e-5: 3xTF32
+    products and the summation order), with the plan it launched."""
+    from dlwp_torch.kernels.fused_conv_pool import _plan
+
+    B, C, H, W, O, d = case
+    x, k, b = (torch.from_numpy(a).to(dev) for a in _conv_pool_operands(
+        sum(case), B, C, H, W, O))
+    got = fused_conv_pool(x, k, b, d)
+    torch.testing.assert_close(got, fused_conv_pool_plain(x, k, b, d),
+                               rtol=0, atol=1e-5)
+    plan, grid = fused_conv_pool.last_launch
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert plan == _plan(B, C, H, W, O, d, sms)
+    assert 1 <= grid <= plan.tiles
+
+
+@pytest.mark.parametrize("stage", CONV_POOL_CASES[:2], ids=["stage1", "stage2"])
+def test_conv_pool_sample_does_not_depend_on_batch(dev, stage):
+    """Samples 0..2 of a B=64 call equal a B=3 call of the same samples bit
+    for bit (another plan, another grid, the same sums)."""
+    _, C, H, W, O, d = stage
+    x, k, b = (torch.from_numpy(a).to(dev) for a in _conv_pool_operands(
+        5, 64, C, H, W, O))
+    full = fused_conv_pool(x, k, b, d)
+    big = fused_conv_pool.last_launch
+    small = fused_conv_pool(x[:3].contiguous(), k, b, d)
+    assert fused_conv_pool.last_launch != big
+    assert torch.equal(full[:3], small)
+
+
+@pytest.mark.parametrize("stage", CONV_POOL_CASES[:2], ids=["stage1", "stage2"])
+def test_conv_pool_does_not_depend_on_plan(dev, stage):
+    """Other warp builds, column blocks, tile shapes and ring depths give
+    the chosen plan's result bit for bit."""
+    from dlwp_torch.kernels.fused_conv_pool import _launch, _variants
+
+    B, C, H, W, O, d = stage
+    x, k, b = (torch.from_numpy(a).to(dev) for a in _conv_pool_operands(
+        7, B, C, H, W, O))
+    want = fused_conv_pool(x, k, b, d)
+    plan, _ = fused_conv_pool.last_launch
+    others = _variants(plan, *stage)
+    assert {p.mo for p in others} == {1, 2}
+    assert any(p.n_cb > 1 for p in others)
+    assert {p.stages for p in others} != {plan.stages}
+    for other in others:
+        assert torch.equal(_launch(x, k, b, d, other), want), other
 
 
 def test_flagship_on_card_matches_cpu(dev):

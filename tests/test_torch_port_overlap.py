@@ -22,7 +22,8 @@ import itertools
 import pytest
 import torch
 
-from dlwp_torch.kernels.overlap_conv import _MAX_SMEM, _plan, _tile
+from dlwp_torch.kernels._tiling import MAX_SMEM as _MAX_SMEM
+from dlwp_torch.kernels.overlap_conv import _plan, _tile
 
 # (B, C, H of a shard, W, O, chunk, shards on the card); chunk None is
 # the single-shot form. The flagship's launches on the lat=2 mesh of one
