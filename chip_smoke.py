@@ -31,6 +31,12 @@ Phases, each raising on failure:
    stage also its device time (``torch.profiler``) against its 3xTF32 and
    fp32 bounds, and the yardstick of cuDNN's ``F.conv2d`` alone (TF32
    off) on the input padded once, without the pool, bias and tanh;
+   then the layers' routing on the card: a float64 predict(2) through the
+   compositions (no kernel launch) against the CPU, a ConvLSTM2D with
+   'relu' (plain gate chain) against the CPU, the gates' gradient (kernel
+   forward, plain VJP) against autograd through the plain version and a
+   ConvLSTM2D's against the plain gate chain, and fused_conv_pool refusing
+   an operand that requires grad;
 7. the barotropic step kernel against its plain version on the card (psi
    form with and without the hemisphere sign correction, vorticity form):
    T24 on 37x72 for 20 steps and T72 on 73x144 for 40 steps, relative max
@@ -46,8 +52,11 @@ Phases, each raising on failure:
    times, T42, plain engine) on the card against the CPU;
 9. barotropic timings (CUDA events, median of 3 after warm-up): ms per step
    as the two-point slope of 500 and 2000 steps, for the kernel, its plain
-   version and the plain engine, beside the bound per step, and the kernel
-   alone at T24 on 37x72;
+   version and the plain engine, beside the bound per step; the kernel's
+   sync probe (its two grid syncs a step alone, same grid and shared
+   memory) on its grid and on 37, 73 and 132 blocks; the stages of a step
+   from block 0's clock64() stamps (the kernel's timing build); the kernel
+   and its probe at T24 on 37x72; registers and spills of both forms;
 10. the lat-band kernels (``halo_exchange``, ``overlap_conv``,
     ``overlap_conv_db``) against their plain versions on meshes of virtual
     shards of the one card (lat 1, 2, 4 and data 2 x lat 2), at every
@@ -74,6 +83,8 @@ Phases, each raising on failure:
     ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without printing a result when no CUDA device is present.
+``--only PHASE[,PHASE]`` runs the named phases alone (after the build),
+without the result lines, to iterate on one part on the card.
 """
 
 from __future__ import annotations
@@ -96,6 +107,7 @@ B, STEPS, NLAT, NLON, C, TD = 64, 32, 36, 144, 2, 2
 TOL_F32 = 1e-5  # kernel vs plain, fp32: only the summation order differs
 TOL_BF16 = 5e-2  # bf16 gates: one bf16 rounding step near 1.0 is 7.8e-3
 TOL_GOLDEN = 1e-4  # fp32 through 3 steps vs the float64 golden values
+TOL_F64 = 1e-10  # float64 on the card vs the CPU: summation order only
 # Main path vs the CPU run (plain versions, same weights). Step 1 differs
 # only by fp32 summation order (cuDNN vs CPU convs), so it is held tightly;
 # over 32 autoregressive steps those differences compound, so the
@@ -110,6 +122,9 @@ TOL_BARO = {24: 1e-5, 72: 1e-4}
 # RMS of the final spectral vorticity after 288 steps.
 TOL_BARO_RRMS = 1e-3
 BARO_SNAPS, BARO_EVERY, BARO_SLOPE_N = 24, 12, 500
+# Block counts the barotropic sync probe is also timed on: the row pairs of
+# T72 (37), the columns (73) and one block an SM (132).
+SYNC_PROBE_BLOCKS = (37, 73, 132)
 # The spatial-parallel path: two lat bands of the one card, as the JAX
 # recurrent dry run shards its ConvLSTM input (__graft_entry__.py:201).
 SHARD_SPEC = ("data", None, None, "lat", None)
@@ -412,6 +427,126 @@ def run_main_path(torch, dev):
     return counts["fp32"], results
 
 
+def check_routing(torch, dev):
+    """The layers' routing on the card: a float64 flagship predict(2) runs
+    the compositions (no kernel launch) and matches the CPU; a ConvLSTM2D
+    with 'relu' runs the plain gate chain and matches the CPU; the gates'
+    gradient (the kernel's forward, the plain version's VJP) equals
+    autograd through the plain version on the card, and a ConvLSTM2D's
+    gradient through the kernel matches the same layer's through the plain
+    gate chain; fused_conv_pool refuses operands that require grad.
+    Returns the largest differences."""
+    from unittest import mock
+
+    import dlwp_torch.models.layers as layers_module
+    from dlwp_torch import TimeSeriesEstimator
+    from dlwp_torch.kernels import (
+        fused_conv_pool, launch_counts, lstm_gates, lstm_gates_plain,
+        reset_launch_counts,
+    )
+    from dlwp_torch.models.cnn import SequentialModel
+    from dlwp_torch.models.layers import ConvLSTM2D
+
+    out = {}
+    card, sampler = flagship_stack(dev)
+    card.init(sampler.generate(np.arange(1))[0], seed=0)
+    cpu, cpu_sampler = flagship_stack("cpu")
+    tree = params_tree(card)
+    for net in (card, cpu):
+        net.load_flax_params(tree, dtype=torch.float64)
+    reset_launch_counts()
+    got = TimeSeriesEstimator(card, sampler).predict(
+        2, samples=np.arange(4)).values
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    want = TimeSeriesEstimator(cpu, cpu_sampler).predict(
+        2, samples=np.arange(4)).values
+    out["float64_predict_max_abs"] = float(np.abs(got - want).max())
+    log(f"routing: float64 predict(2) at 36x144, 4 samples, on the card: "
+        f"{got.dtype} {got.shape}, launches {counts}; max |card - CPU| "
+        f"{out['float64_predict_max_abs']:.3e}")
+    if got.dtype != np.float64 or counts != expected_counts():
+        raise AssertionError(f"float64 predict: {got.dtype}, {counts}")
+    if not out["float64_predict_max_abs"] <= TOL_F64:
+        raise AssertionError(f"float64 predict: {out}")
+
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(4, TD, C + 1, NLAT, NLON, generator=g)
+    layers = {}
+    for name in ("cpu", dev):
+        layers[name] = SequentialModel(
+            [ConvLSTM2D(12, 3, dilation=2, activation="relu")], device=name)
+        layers[name].init(x, seed=4)
+    reset_launch_counts()
+    with torch.inference_mode():
+        got = layers[dev](x.to(dev)).cpu()
+        want = layers["cpu"](x)
+    counts = launch_counts()
+    out["relu_convlstm_max_abs"] = (got - want).abs().max().item()
+    log(f"routing: ConvLSTM2D(12, activation='relu') on (4, 2, 3, 36, 144) "
+        f"on the card: launches {counts}; max |card - CPU| "
+        f"{out['relu_convlstm_max_abs']:.3e}")
+    if counts != expected_counts() or not (
+            out["relu_convlstm_max_abs"] <= TOL_F32):
+        raise AssertionError(f"relu ConvLSTM2D: {counts}, {out}")
+
+    # The gates at the flagship's shape: the kernel's forward and the
+    # plain VJP against autograd through the plain version, same inputs.
+    gd = torch.Generator(device=dev).manual_seed(5)
+    ops = [torch.randn(shape, device=dev, generator=gd) for shape in (
+        (B, 48, NLAT, NLON), (B, 48, NLAT, NLON), (B, 12, NLAT, NLON))]
+    cot = [torch.randn(B, 12, NLAT, NLON, device=dev, generator=gd)
+           for _ in range(2)]
+    grads = []
+    for fn in (lstm_gates, lstm_gates_plain):
+        leaves = [t.clone().requires_grad_(True) for t in ops]
+        torch.autograd.backward(fn(*leaves, "tanh", "hard_sigmoid"), cot)
+        grads.append([t.grad for t in leaves])
+    out["gates_grad_max_abs"] = max(
+        (a - b).abs().max().item() for a, b in zip(*grads))
+    # A ConvLSTM2D's gradient through the kernel against the same layer on
+    # the card with the plain gate chain (the convs are the same cuDNN
+    # calls on both sides).
+    w = torch.randn(2, TD, 12, NLAT, NLON, generator=g).to(dev)
+    layer = layers[dev].layers[0]
+    layer.activation = "tanh"
+    names = ("input_kernel", "recurrent_kernel", "bias")
+    start = [getattr(layer, n).detach() for n in names]
+    layer_grads = []
+    for gates in (lstm_gates, lstm_gates_plain):
+        for n, t in zip(names, start):
+            setattr(layer, n, torch.nn.Parameter(t.clone()))
+        xt = x[:2].to(dev).requires_grad_(True)
+        reset_launch_counts()
+        with mock.patch.object(layers_module, "lstm_gates", gates):
+            (layer(xt) * w).sum().backward()
+        if launch_counts()["lstm_gates"] != (1 if gates is lstm_gates else 0):
+            raise AssertionError(f"ConvLSTM2D gradient: {launch_counts()}")
+        layer_grads.append([getattr(layer, n).grad for n in names]
+                           + [xt.grad])
+    out["convlstm_grad_rel"] = max(
+        ((a - b).abs().max() / b.abs().max()).item()
+        for a, b in zip(*layer_grads))
+    log(f"routing: lstm_gates gradient at (64, 48, 36, 144) vs autograd "
+        f"through the plain version on the card: max abs "
+        f"{out['gates_grad_max_abs']:.3e}; ConvLSTM2D(12) gradient on (2, 2, "
+        f"3, 36, 144), kernel forward and plain VJP vs the plain gate chain: "
+        f"relative {out['convlstm_grad_rel']:.3e}")
+    if not (out["gates_grad_max_abs"] <= TOL_F32
+            and out["convlstm_grad_rel"] <= TOL_F32):
+        raise AssertionError(f"gate gradients: {out}")
+    k = torch.randn(7, 5, 3, 3, device=dev, requires_grad=True)
+    try:
+        fused_conv_pool(torch.randn(2, 5, 8, 16, device=dev), k, None, 1)
+    except NotImplementedError as e:
+        log(f"routing: fused_conv_pool refuses a kernel that requires grad: "
+            f"{e}")
+    else:
+        raise AssertionError("fused_conv_pool took an operand that "
+                             "requires grad")
+    return out
+
+
 def params_tree(dlwp):
     """The model's weights as a flax-style tree of numpy arrays."""
     return {"params": {
@@ -666,12 +801,74 @@ def run_example_flow(torch, dev):
             "rel_rms_vs_cpu": rrms}
 
 
+def slope_ms(fn, reps=3):
+    """ms per step of ``fn(k)``: the two-point slope of BARO_SLOPE_N and
+    4x as many steps (CUDA events, median of ``reps`` after warm-up)."""
+    n = BARO_SLOPE_N
+    t1 = timed_ms(lambda: fn(n), reps=reps, inner=1, warmup=1)
+    t4 = timed_ms(lambda: fn(4 * n), reps=reps, inner=1, warmup=1)
+    return (t4 - t1) / (3 * n)
+
+
+def ptxas_resources(name):
+    """{entry: {registers, spill_stores, spill_loads, stack}} from the
+    ``-Xptxas -v`` report kept beside the library of ``csrc/<name>.cu``."""
+    import re
+
+    from dlwp_torch.kernels import _build
+
+    out, entry = {}, None
+    for line in _build.build_log(name).splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+            out[entry] = {}
+        elif entry and "spill stores" in line:
+            nums = [int(v) for v in re.findall(r"(\d+) bytes", line)]
+            out[entry].update(stack=nums[0], spill_stores=nums[1],
+                              spill_loads=nums[2])
+        elif entry and "registers" in line:
+            out[entry]["registers"] = int(
+                re.search(r"Used (\d+) registers", line).group(1))
+    return out
+
+
+# Stages of a kernel step between block 0's clock stamps (STAMPS of them,
+# kernels/barotropic_step.py): (name, from stamp, to stamp); "sync 1"
+# runs from stamp 11 to the next step's stamp 0.
+BARO_STAGES = (
+    ("B load modes", 0, 1), ("B inverse DFT", 1, 2),
+    ("B sums, products", 2, 3), ("B forward DFT", 3, 4),
+    ("B sums, store", 4, 5), ("sync 2", 5, 6), ("C load", 6, 7),
+    ("C analysis", 7, 8), ("C sums, step", 8, 9), ("A sums", 9, 10),
+    ("A combine, store", 10, 11))
+
+
+def stage_split(torch, launch, ms_per_step, n=64):
+    """us a step in each stage of the kernel, from block 0's clock64()
+    stamps over ``n`` steps of the timing build (steps 4..n-2), scaled so
+    that a step's cycles take ``ms_per_step``."""
+    from dlwp_torch.kernels.barotropic_step import STAMPS
+
+    clocks = torch.zeros(n, STAMPS, dtype=torch.int64, device="cuda")
+    launch(n, clocks)
+    torch.cuda.synchronize()
+    c = clocks.cpu().numpy().astype(np.float64)[4:n - 1]
+    cyc = {name: float(np.mean(c[:, b] - c[:, a]))
+           for name, a, b in BARO_STAGES}
+    cyc["sync 1"] = float(np.mean(c[1:, 0] - c[:-1, 11]))
+    per_step = float(np.mean(c[1:, 0] - c[:-1, 0]))
+    return {k: 1e3 * ms_per_step * v / per_step for k, v in cyc.items()}
+
+
 def time_barotropic(torch, dev):
     """ms per step (two-point slope of BARO_SLOPE_N and 4x as many steps)
-    of the kernel, its plain version and the plain engine, per form."""
+    of the kernel, its plain version and the plain engine, per form; the
+    kernel's sync probe on the kernel's grid and on other block counts;
+    the same at T24 on 37x72; the kernel's registers and spills."""
     from dlwp_torch.kernels import barotropic_step, barotropic_step_plain
+    from dlwp_torch.kernels.barotropic_step import FORMS, _launch, sync_probe
 
-    n = BARO_SLOPE_N
+    resources = ptxas_resources("barotropic_step")
     rows = {}
     for form in ("psi", "vrt"):
         m = baro_model(form, 73, 144, 72, dev, step_impl="kernel")
@@ -679,6 +876,7 @@ def time_barotropic(torch, dev):
         s0 = m.from_z(bench_height(m.grid))
         parts = state_parts(s0)
         tabs = m._kernel_tables
+        M, J, L = 73, 73, 144
 
         def kernel(k):
             return barotropic_step(m._kernel_form, tabs, *parts, 0, k, m.dt,
@@ -691,24 +889,33 @@ def time_barotropic(torch, dev):
         def plain_engine(k):
             return plain.run(s0, k)
 
-        row = {}
-        for name, fn, reps in (("ms", kernel, 3), ("plain_ms", plain_version, 3),
-                               ("plain_engine_ms", plain_engine, 3)):
-            t1 = timed_ms(lambda: fn(n), reps=reps, inner=1, warmup=1)
-            t4 = timed_ms(lambda: fn(4 * n), reps=reps, inner=1, warmup=1)
-            row[name] = (t4 - t1) / (3 * n)
+        row = {name: slope_ms(fn) for name, fn in (
+            ("ms", kernel), ("plain_ms", plain_version),
+            ("plain_engine_ms", plain_engine))}
+        row["grid_blocks"] = barotropic_step.grid_blocks
+        # The sync probe: the kernel's two grid syncs a step alone, on the
+        # same grid with the same shared memory; kernel - probe = phases.
+        row["sync_ms"] = slope_ms(lambda k: sync_probe(form, M, J, L, k))
+        row["phase_ms"] = row["ms"] - row["sync_ms"]
+        row["sync_ms_by_blocks"] = {
+            b: slope_ms(lambda k: sync_probe(form, M, J, L, k, b))
+            for b in SYNC_PROBE_BLOCKS}
+        row["stage_us"] = stage_split(torch, lambda k, clk: _launch(
+            m._kernel_form, tabs, parts, 0, k, m.dt, m.robert_coefficient,
+            clocks=clk), row["ms"])
+        row["phase_us"] = {ph: sum(v for k, v in row["stage_us"].items()
+                                   if k.startswith(ph))
+                           for ph in ("A ", "B ", "C ", "sync ")}
         row["launch_ms_12_steps"] = timed_ms(lambda: kernel(BARO_EVERY),
                                              reps=5, inner=20, warmup=3)
-        M, J, L = 73, 73, 144
         nbytes, flops = baro_work(form, M, J, L, BARO_EVERY)
         # Per step at the main path's launch of BARO_EVERY steps.
         row["bound_ms"], row["bound_by"] = bound_ms(nbytes / BARO_EVERY,
                                                     flops / BARO_EVERY)
         row["bytes_per_launch"], row["flops_per_step"] = (
             nbytes, flops // BARO_EVERY)
-        row["grid_blocks"] = barotropic_step.grid_blocks
-        # The same kernel at T24 on 37x72 (37 blocks, ~11x less work a
-        # step): what does not shrink with the work is the fixed cost.
+        # The same kernel at T24 on 37x72 (~11x less work a step): what
+        # does not shrink with the work is the fixed cost.
         small = baro_model(form, 37, 72, 24, dev, step_impl="kernel")
         sp = state_parts(small.from_z(bench_height(small.grid)))
 
@@ -717,15 +924,33 @@ def time_barotropic(torch, dev):
                                    *sp, 0, k, small.dt,
                                    small.robert_coefficient)
 
-        t1 = timed_ms(lambda: kernel_t24(n), reps=3, inner=1, warmup=1)
-        t4 = timed_ms(lambda: kernel_t24(4 * n), reps=3, inner=1, warmup=1)
-        row["ms_T24"] = (t4 - t1) / (3 * n)
+        row["ms_T24"] = slope_ms(kernel_t24)
+        row["grid_blocks_T24"] = barotropic_step.grid_blocks
+        row["sync_ms_T24"] = slope_ms(
+            lambda k: sync_probe(form, 25, 37, 72, k))
+        row["ptxas"] = {e: r for e, r in resources.items()
+                        if f"barotropic_kernelILi{FORMS[form]}E" in e}
         log(f"timing barotropic_step {form} T72 73x144, ms per step: kernel "
-            f"{row['ms']:.5f} ({1e3 / row['ms']:.0f} steps/s), plain version "
-            f"{row['plain_ms']:.5f}, plain engine {row['plain_engine_ms']:.5f}"
-            f", bound {row['bound_ms']:.6f} ({row['bound_by']}); one "
-            f"{BARO_EVERY}-step launch {row['launch_ms_12_steps']:.4f} ms; "
-            f"kernel at T24 on 37x72 {row['ms_T24']:.5f}")
+            f"{row['ms']:.5f} ({1e3 / row['ms']:.0f} steps/s, "
+            f"{row['grid_blocks']} blocks), of which the sync probe "
+            f"{row['sync_ms']:.5f} ({100 * row['sync_ms'] / row['ms']:.1f}%) "
+            f"and the phases {row['phase_ms']:.5f}; sync probe by blocks "
+            + ", ".join(f"{b}: {t:.5f}" for b, t in
+                        row["sync_ms_by_blocks"].items())
+            + f"; plain version {row['plain_ms']:.5f}, plain engine "
+            f"{row['plain_engine_ms']:.5f}, bound {row['bound_ms']:.6f} "
+            f"({row['bound_by']}, {100 * row['bound_ms'] / row['ms']:.2f}% "
+            f"of it); one {BARO_EVERY}-step launch "
+            f"{row['launch_ms_12_steps']:.4f} ms")
+        log(f"timing barotropic_step {form} T24 37x72, ms per step: kernel "
+            f"{row['ms_T24']:.5f} ({row['grid_blocks_T24']} blocks), sync "
+            f"probe {row['sync_ms_T24']:.5f}")
+        log(f"barotropic_step {form} T72 stages, us a step (block 0's "
+            f"clocks): " + ", ".join(f"{k} {v:.3f}" for k, v in
+                                     row["stage_us"].items())
+            + "; by phase " + ", ".join(f"{k.strip()} {v:.3f}" for k, v in
+                                        row["phase_us"].items()))
+        log(f"barotropic_step {form} -Xptxas -v: {row['ptxas']}")
         rows[form] = row
     return rows
 
@@ -1121,9 +1346,29 @@ def device_ms_per_call(torch, fn, calls=10):
     raise AssertionError("the profiler saw no device time")
 
 
-def main() -> int:
+# Phases that run alone with --only, to iterate on one part on the card:
+# name -> (function of (torch, dev)).
+ONLY = {
+    "routing": check_routing,
+    "barotropic_kernel": check_barotropic_kernel,
+    "barotropic_timing": time_barotropic,
+}
+
+
+def main(argv=None) -> int:
+    import argparse
+
     import torch
 
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument(
+        "--only", default="",
+        help="comma-separated phases to run alone, without the result lines "
+             f"({', '.join(ONLY)}); default: every phase")
+    only = [p for p in parser.parse_args(argv).only.split(",") if p]
+    unknown = sorted(set(only) - set(ONLY))
+    if unknown:
+        parser.error(f"unknown phases {unknown}")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
@@ -1155,11 +1400,16 @@ def main() -> int:
                     "spill loads"):
                 spills.append(f"{entry}: {line.strip()}")
         log(f"  {name}: spills {spills or 'none'}")
+    if only:
+        for name in only:
+            log(json.dumps({name: ONLY[name](torch, dev)}, default=str))
+        return 0
 
     errs, timing = check_kernels(torch, dev)
     errs.update(check_parallel_kernels(torch, dev))
     check_golden(torch, dev, root)
     main_launches, rollout = run_main_path(torch, dev)
+    routing = check_routing(torch, dev)
     sharded_launches, per_step, sharded = run_sharded_path(torch, dev)
     par_timing = time_parallel_kernels(torch, dev)
     baro_err = check_barotropic_kernel(torch, dev)
@@ -1282,7 +1532,8 @@ def main() -> int:
                         "library_device_ms"):
                 entry[key] = float(np.mean([r[key] for r in rows]))
         kernels.append(entry)
-    log(json.dumps({"rollout": rollout, "sharded_path": sharded,
+    log(json.dumps({"rollout": rollout, "routing": routing,
+                    "sharded_path": sharded,
                     "sharded_launches": sharded_launches,
                     "launches_per_step": per_step,
                     "barotropic_path": baro_path,

@@ -15,7 +15,11 @@ Robert-filtered leapfrog with every table composed on the host:
   (dtype-rounded) tables, exactly as the JAX package composes them, then
   cast to float32 on the model's device;
 - longitude transforms are real DFT products; the forward-Euler first step
-  fires only at global step 0 (``step0`` threads the state's counter).
+  fires only at global step 0 (``step0`` threads the state's counter);
+- the builders return a
+  :class:`~dlwp_torch.kernels.barotropic_step.StepTables`: the tables with
+  the kernel's packing of them (row pairs, n >= m, twiddles), made here
+  once.
 """
 
 from __future__ import annotations
@@ -24,7 +28,7 @@ import numpy as np
 import torch
 
 from dlwp_torch.barotropic.model import BarotropicState, advance_time
-from dlwp_torch.kernels.barotropic_step import barotropic_step
+from dlwp_torch.kernels.barotropic_step import StepTables, barotropic_step
 from dlwp_torch.spectral.transforms import dft_tables, to_numpy
 
 
@@ -52,7 +56,7 @@ def _common_tables(model) -> dict:
 
 def build_psi_step_tables(model) -> dict:
     """Float64 host composition of the psi-form tables, as float32 tensors
-    on the model's device."""
+    on the model's device, with their kernel packing."""
     sh = model.sh
     a = float(model.grid.radius)
     M = sh.truncation + 1
@@ -68,12 +72,12 @@ def build_psi_step_tables(model) -> dict:
         A = np.einsum("mnk,mkj->mnj", _f64(model._sign_op), A)
     tabs["A"] = A
     tabs["invF"] = _f64(model.inv_z_vrt_factor)
-    return _on_device(model, tabs)
+    return StepTables("psi", _on_device(model, tabs))
 
 
 def build_vrt_step_tables(model) -> dict:
     """Float64 host composition of the vorticity-form tables, as float32
-    tensors on the model's device.
+    tensors on the model's device, with their kernel packing.
 
     The plain tendency's psi round trip is folded away: vorticity
     synthesizes directly through P (lap * inv_lap = 1 on n > 0 and the
@@ -94,7 +98,7 @@ def build_vrt_step_tables(model) -> dict:
     tabs["Au"] = lap[:, :, None] * _f64(sh.AuPsi)
     tabs["Av"] = lap[:, :, None] * _f64(sh.AvPsi)
     tabs["f_row"] = np.asarray(model.grid.coriolis, np.float64)[None, :]
-    return _on_device(model, tabs)
+    return StepTables("vrt", _on_device(model, tabs))
 
 
 def run_fused(model, state, n_steps: int):

@@ -19,355 +19,587 @@
 // kernel needed Precision.HIGHEST; bf16 passes grew to 0.23 relative error
 // in 40 steps).
 //
-// Bound on an H100 SXM (67 TFLOP/s fp32, 3.35 TB/s): per step about
-// 10*M*J*N multiply-adds of Legendre contractions (about half of them on
-// structural zeros, n < m) plus 6-7 DFT products of L*2M*J multiply-adds:
-// 19.4 MFLOP at T72 on 73x144 for either form counting only the n >= m
-// pairs (about 23 MFLOP dense), 0.29 us a step. A launch reads 5-8 MB of
-// tables (L2-resident after the first step) and 85 KB of state, about
-// 2 us. A run of hundreds of steps is bound by operations; this first
-// version is paced by its two grid-wide barriers a step and by the latency
-// of its small per-block reductions, not by arithmetic.
+// Bound on an H100 SXM (67 TFLOP/s fp32, 3.35 TB/s): 19.4 MFLOP a step at
+// T72 on 73x144 for either form, counting the Legendre contractions over
+// n >= m only and the DFTs as dense products, 0.29 us a step; a launch
+// reads 5-8 MB of tables, about 2 us. A run of hundreds of steps is bound
+// by operations. On an NVIDIA H100 80GB HBM3 at 700 W, a first version
+// that re-read every table from L2 each step (~17-20 MB) and reduced each
+// output across a warp took 20.4 us a step, of which its two grid syncs
+// (the sync probe below) took 2.2 us; this one takes 7.0 (psi) and 7.5
+// (vrt) us, the same 2.2 us of syncs included, and is bound by shared
+// memory's bandwidth in every phase (chip_smoke.py, time_barotropic).
 //
-// Design: one persistent cooperative launch with max(M, J) blocks (fewer
-// if the card cannot hold that many at once; blocks then loop over rows).
+// Design: one persistent cooperative launch of max(P, J) blocks, P =
+// ceil(M/2) row pairs (one block an SM, every block resident).
+//   Block b < P owns the wavenumbers m1 = b and m2 = M-1-b (the middle row
+//   of odd M alone). Their n >= m entries number M+1 whatever b, so every
+//   pair does the same work, and its slices of the Legendre tables
+//   (kernels/barotropic_step.py pack_tables: NT slabs of (M+1) x J) are
+//   copied into shared memory once per launch by 16-byte cp.async and never
+//   read from L2 again. Its rows of the state stay in shared memory across
+//   steps. Block P + b, where the grid has one, helps pair b: it holds the
+//   same tables and state and runs phase C alike, and takes half of phase
+//   A's latitudes.
 // Per step:
-//   phase A (block m): synthesise every mode row of wavenumber m into the
-//     global scratch `syn` (fields, 2M, J);
+//   phase A (pair blocks): synthesise the pair's mode rows into the global
+//     exchange buffer `syn` (J, M, 2 NF), each output summed over n >= m
+//     in kSplit chunks, with irfft's weights of its mode applied;
 //   grid sync;
-//   phase B (block j): for latitude column j, the inverse DFT to all L
-//     longitudes, the grid products, and the forward DFT back to the modes
-//     of column j, into the global scratch `fwd` (fields, M, J); all in
-//     shared memory, no sync between the three;
+//   phase B (block j, every block): column j through the inverse DFT, the
+//     grid products and the forward DFT into `fwd` (M, J, 2 NP), all in
+//     shared memory. The DFTs read a matrix of (cos, sin)(2 pi m l / L)
+//     that each block builds at launch from one twiddle table, indexed at
+//     (m l) mod L, and pair l with L - l, whose twiddles are equal (cos) or
+//     opposite (sin), which halves both DFTs;
 //   grid sync;
-//   phase C (block m): analyse row m, damp and step it; the same block then
-//     runs the next step's phase A on row m, so a step needs two grid syncs.
-// The state lives in the output buffers; each row is read and written only
-// by the block that owns it. Every contraction puts one warp on one output
-// with the lanes along the contracted axis (coalesced reads of the tables,
-// which stay in global memory, i.e. L2) and a shuffle reduction: no
-// atomics, so a launch is deterministic and run(run(s, 7), 13) equals
-// run(s, 20) bit for bit. The DFT matrices are read as composed on the host
-// (dinv, dfwd_re, dfwd_im), not rebuilt from a cos/sin table.
-// Cross-block scratch is read with __ldcg (L2, not the SM's L1) after each
-// grid sync.
+//   phase C (pair blocks): analyse the pair's rows (n >= m; the tendency of
+//     n < m is 0, as the tables are), damp and step them; the same block
+//     then runs the next step's phase A.
+// Every output is owned by one thread and summed in a fixed order: each
+// contraction is kSplit partial sums over consecutive chunks, added in
+// chunk order. No atomics and no shuffles, so a launch is deterministic and
+// run(run(s, 7), 13) equals run(s, 20) bit for bit. The exchange buffers
+// are read with __ldcg (L2, not the SM's L1) after each grid sync. The
+// partial sums are stored column-major (store_cols): a warp's accesses
+// fall in distinct banks, as shared memory's bandwidth, not the FMAs,
+// bounds every phase.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+#include "tf32_mma.cuh"  // cp_async16, cp_async_commit, cp_async_wait
 
 namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kThreads = 512;
-constexpr int kWarps = kThreads / 32;
+constexpr int kSplit = 6;    // chunks of a contraction summed in order
+constexpr int kStamps = 12;  // stage clocks a step (stamp())
 constexpr int kPsi = 0;
 constexpr int kVrt = 1;
 
-struct Params {
-  const float* in[4];   // vr, vi, pr, pi (M, M)
-  float* out[4];        // the state across steps, then the result
-  float* syn;           // (SYN, 2M, J) synthesised mode rows
-  float* fwd;           // (FWD, M, J) forward-DFT outputs
-  const float* dinv;    // (L, 2M)
-  const float* dfwd_re; // (M, L)
-  const float* dfwd_im; // (M, L)
-  const float* damp;    // (M, M)
-  const float* dden;    // (M, M)
-  // psi: Gm (M,J,M), Ha (M,J,M), A (M,M,J), invF (M,M)
-  // vrt: P, Hv, Gv (M,J,M), Au, Av (M,M,J), f_row (J)
-  const float* tab[6];
-  int M, J, L, step0, n_steps;
-  float dt, r;
+// NS synthesis and NA analysis tables; NF synthesised fields and NP grid
+// products (complex); NQ analysis sums an output; NX floats of a packed
+// state entry (psi: psr, psi, vr, vi; vrt: vr, vi).
+template <int FORM>
+struct Form;
+template <>
+struct Form<kPsi> {
+  static constexpr int NS = 2, NA = 1, NF = 4, NP = 1, NQ = 2, NX = 4;
+};
+template <>
+struct Form<kVrt> {
+  static constexpr int NS = 3, NA = 2, NF = 3, NP = 2, NQ = 4, NX = 2;
 };
 
-template <int K>
-__device__ __forceinline__ void warp_sum(float (&v)[K]) {
-#pragma unroll
-  for (int k = 0; k < K; ++k)
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1)
-      v[k] += __shfl_xor_sync(0xffffffffu, v[k], o);
+struct Params {
+  const float* in[4];  // vr, vi, pr, pi (M, M)
+  float* out[4];       // the result
+  float* syn;          // (J, M, 2 NF) synthesised modes, weighted
+  float* fwd;          // (M, J, 2 NP) forward-DFT outputs
+  const float* tab;    // (P, NS + NA, slab) packed Legendre tables
+  const float* tw;     // (L, 4): cos, sin, cos/L, -sin/L of 2 pi k/L
+  const float* wts;    // (2, M): irfft's weights of re and im parts
+  const float* damp;   // (M, M)
+  const float* dden;   // (M, M)
+  const float* extra;  // psi: invF (M, M); vrt: f_row (J)
+  int M, J, L, step0, n_steps;
+  float dt, r;
+  long long* clocks;  // null, or (n_steps, kStamps) stage clocks of block 0
+};
+
+__host__ __device__ inline int round4(int n) { return (n + 3) / 4 * 4; }
+
+// Offsets (floats) of the shared-memory regions; kernels/barotropic_step.py
+// layout() mirrors it.
+struct Layout {
+  int slab, nlp, tab, twm, wts, st, rowc, frow, xs, work, total;
+};
+
+__host__ __device__ inline Layout layout(int form, int M, int J, int L) {
+  const bool psi = form == kPsi;
+  const int NS = psi ? 2 : 3, NT = psi ? 3 : 5, NF = psi ? 4 : 3;
+  const int NP = psi ? 1 : 2, NQ = psi ? 2 : 4, NX = psi ? 4 : 2;
+  const int K1 = M + 1, nl = L / 2 + 1;
+  Layout y;
+  y.slab = round4(K1 * J);
+  y.nlp = nl | 1;  // odd rows of the twiddle matrix: no bank conflicts
+  y.tab = 0;
+  y.twm = y.tab + NT * y.slab;
+  y.wts = y.twm + round4(2 * M * y.nlp);
+  y.st = y.wts + round4(2 * M);
+  y.rowc = y.st + 8 * M;            // (vr, vi, pr, pi) of 2 rows of M
+  y.frow = y.rowc + round4(6 * M);  // damp, dden, invF of 2 rows
+  y.xs = y.frow + round4(J);  // x of the pair's entries: 4 floats each
+  y.work = y.xs + 4 * K1;
+  const int a = kSplit * J * 2 * NS * NX;
+  const int b = round4(2 * NF * M) + round4(kSplit * nl * 2 * NF) +
+                round4(NP * nl * 2) + kSplit * M * 2 * NP;
+  const int c = round4(2 * J * 2 * NP) + kSplit * K1 * NQ;
+  int w = a > b ? a : b;
+  w = w > c ? w : c;
+  y.total = y.work + w;
+  return y;
 }
 
-__device__ __forceinline__ int lane_id() { return threadIdx.x & 31; }
-__device__ __forceinline__ int warp_id() { return threadIdx.x >> 5; }
+// Stage clocks: thread 0 of block 0 stamps clock64() at the end of each
+// stage of a step into clk[k] (clk is null but in the timing build).
+template <bool ON>
+__device__ __forceinline__ void stamp(long long* clk, int k) {
+  if constexpr (ON)
+    if (clk != nullptr && threadIdx.x == 0) clk[k] = clock64();
+}
 
-// Phase A: mode rows of wavenumber m into syn[(f*2M + k)*J + j], k < M the
-// real parts and k >= M the imaginary parts.
+// The 2 NF floats of a mode row (re, im of each field), from shared memory
+// in vector loads: psi 2 x 16 bytes, vrt 3 x 8 bytes.
 template <int FORM>
-__device__ void synthesise(const Params& p, int m, float* sh) {
-  const int M = p.M, N = p.M, J = p.J;
-  const float* vr = p.out[0] + m * N;
-  const float* vi = p.out[1] + m * N;
-  // psi: x = [psr, psi, vr, vi]; vrt: x = [vr, vi].
-  for (int n = threadIdx.x; n < N; n += blockDim.x) {
-    if (FORM == kPsi) {
-      const float f = p.tab[3][m * N + n];
-      sh[n] = vr[n] * f;
-      sh[N + n] = vi[n] * f;
-      sh[2 * N + n] = vr[n];
-      sh[3 * N + n] = vi[n];
-    } else {
-      sh[n] = vr[n];
-      sh[N + n] = vi[n];
+__device__ __forceinline__ void load_row(const float* src, float* v) {
+  if constexpr (FORM == kPsi) {
+    const float4 a = reinterpret_cast<const float4*>(src)[0];
+    const float4 b = reinterpret_cast<const float4*>(src)[1];
+    v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w;
+    v[4] = b.x, v[5] = b.y, v[6] = b.z, v[7] = b.w;
+  } else {
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      const float2 a = reinterpret_cast<const float2*>(src)[i];
+      v[2 * i] = a.x, v[2 * i + 1] = a.y;
+    }
+  }
+}
+
+template <int FORM>
+__device__ __forceinline__ void store_row(float* dst, const float* v) {
+  if constexpr (FORM == kPsi) {
+    reinterpret_cast<float4*>(dst)[0] = make_float4(v[0], v[1], v[2], v[3]);
+    reinterpret_cast<float4*>(dst)[1] = make_float4(v[4], v[5], v[6], v[7]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+      reinterpret_cast<float2*>(dst)[i] = make_float2(v[2 * i], v[2 * i + 1]);
+  }
+}
+
+// Partial sums are stored column-major, element x of a thread's partial at
+// base[x stride] with consecutive threads at consecutive base: a warp's
+// accesses then fall in distinct banks.
+template <int N>
+__device__ __forceinline__ void store_cols(float* base, int stride,
+                                           const float* v) {
+#pragma unroll
+  for (int x = 0; x < N; ++x) base[x * stride] = v[x];
+}
+
+template <int N>
+__device__ __forceinline__ void add_cols(const float* base, int stride,
+                                         float* v) {
+#pragma unroll
+  for (int x = 0; x < N; ++x) v[x] += base[x * stride];
+}
+
+// x of state entry i, the pair's entry k: psi (vr invF, vi invF, vr, vi),
+// vrt (vr, vi); what phase A reads.
+template <int FORM>
+__device__ __forceinline__ void put_x(float* sh, const Layout& y, int M,
+                                      int i, int k, float vr, float vi) {
+  if constexpr (FORM == kPsi) {
+    const float f = sh[y.rowc + 4 * M + i];
+    reinterpret_cast<float4*>(sh + y.xs)[k] =
+        make_float4(vr * f, vi * f, vr, vi);
+  } else {
+    reinterpret_cast<float2*>(sh + y.xs)[k] = make_float2(vr, vi);
+  }
+}
+
+// Phase A: the pair's mode rows at latitudes ja <= j < jb into
+// syn[(j M + m) 2NF + 2f + (re, im)]. A thread takes one latitude, every
+// synthesis table (so each entry's x is read once for NS outputs) and
+// chunk s of kSplit of the pair's entries; output (j, row) sums its chunks
+// in order.
+template <int FORM, bool CLK>
+__device__ void synthesise(const Params& p, const Layout& y, float* sh,
+                           int m1, int m2, int ja, int jb, long long* clk) {
+  using F = Form<FORM>;
+  constexpr int TX = F::NS * F::NX;  // floats of a (j, row) partial
+  const int M = p.M, J = p.J, K1 = M + 1, c1 = M - m1, nj = jb - ja;
+  const int nrow = m2 != m1 ? 2 : 1, kend = nrow == 2 ? K1 : c1;
+  const int ch = (kend + kSplit - 1) / kSplit;
+  const float* xs = sh + y.xs;  // written by put_x()
+  float* pa = sh + y.work;  // (kSplit, NS NX, 2 rows, J) partial sums
+  for (int task = threadIdx.x; task < kSplit * nj; task += kThreads) {
+    const int s = task / nj, j = ja + task - s * nj;
+    const int ka = s * ch, kb = min(kend, ka + ch);
+    for (int r = 0; r < 2; ++r) {
+      float a[TX];
+#pragma unroll
+      for (int x = 0; x < TX; ++x) a[x] = 0.f;
+      const int k0 = r ? max(ka, c1) : ka, k1 = r ? kb : min(kb, c1);
+      const float* T = sh + y.tab + k0 * J + j;  // table t at T[t slab]
+      for (int k = k0; k < k1; ++k, T += J) {
+        float x[F::NX];
+        if constexpr (FORM == kPsi) {
+          const float4 v = reinterpret_cast<const float4*>(xs)[k];
+          x[0] = v.x, x[1] = v.y, x[2] = v.z, x[3] = v.w;
+        } else {
+          const float2 v = reinterpret_cast<const float2*>(xs)[k];
+          x[0] = v.x, x[1] = v.y;
+        }
+#pragma unroll
+        for (int t = 0; t < F::NS; ++t) {
+          const float g = T[t * y.slab];
+#pragma unroll
+          for (int c = 0; c < F::NX; ++c) a[t * F::NX + c] += g * x[c];
+        }
+      }
+      store_cols<TX>(pa + (s * TX * 2 + r) * J + j, 2 * J, a);
     }
   }
   __syncthreads();
-  const int lane = lane_id();
-  auto put = [&](int f, float re, float im, int j) {
-    p.syn[(f * 2 * M + m) * J + j] = re;
-    p.syn[(f * 2 * M + M + m) * J + j] = im;
-  };
-  for (int j = warp_id(); j < J; j += kWarps) {
-    const size_t row = ((size_t)m * J + j) * N;
-    if (FORM == kPsi) {
-      const float* gm = p.tab[0] + row;
-      const float* ha = p.tab[1] + row;
-      float a[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-      for (int n = lane; n < N; n += 32) {
-        const float g = gm[n], h = ha[n];
-        const float psr = sh[n], psi = sh[N + n];
-        const float xr = sh[2 * N + n], xi = sh[3 * N + n];
-        a[0] += g * psi;
-        a[1] += g * psr;
-        a[2] += g * xi;
-        a[3] += g * xr;
-        a[4] += h * psr;
-        a[5] += h * psi;
-        a[6] += h * xr;
-        a[7] += h * xi;
-      }
-      warp_sum(a);
-      if (lane == 0) {
-        put(0, -a[0], a[1], j);  // dpsi/dx = i * Gm-syn(psi)
-        put(1, -a[2], a[3], j);  // dzeta/dx
-        put(2, a[4], a[5], j);   // dpsi/dy = Ha-syn(psi)
-        put(3, a[6], a[7], j);   // dzeta/dy
-      }
+  stamp<CLK>(clk, 10);
+  const float* wre = sh + y.wts;
+  const float* wim = wre + M;
+  for (int task = threadIdx.x; task < nrow * nj; task += kThreads) {
+    const int r = task / nj, j = ja + task - r * nj, m = r ? m2 : m1;
+    float a[TX] = {};
+    for (int s = 0; s < kSplit; ++s)
+      add_cols<TX>(pa + (s * TX * 2 + r) * J + j, 2 * J, a);
+    const float wr = wre[m], wi = wim[m];
+    float v[2 * F::NF];
+    if constexpr (FORM == kPsi) {
+      // a: Gm . (psr, psi, vr, vi), then Ha . the same. dpsi/dx = i
+      // Gm-syn(psi), dzeta/dx = i Gm-syn(zeta), dpsi/dy and dzeta/dy =
+      // Ha-syn.
+      const float o[8] = {-a[1], a[0], -a[3], a[2], a[4], a[5], a[6], a[7]};
+#pragma unroll
+      for (int i = 0; i < 8; ++i) v[i] = o[i] * (i % 2 ? wi : wr);
     } else {
-      const float* pp = p.tab[0] + row;
-      const float* hv = p.tab[1] + row;
-      const float* gv = p.tab[2] + row;
-      float a[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-      for (int n = lane; n < N; n += 32) {
-        const float xr = sh[n], xi = sh[N + n];
-        const float q = pp[n], h = hv[n], g = gv[n];
-        a[0] += q * xr;
-        a[1] += q * xi;
-        a[2] += h * xr;
-        a[3] += h * xi;
-        a[4] += g * xi;
-        a[5] += g * xr;
-      }
-      warp_sum(a);
-      if (lane == 0) {
-        put(0, a[0], a[1], j);    // vorticity
-        put(1, -a[2], -a[3], j);  // u
-        put(2, -a[4], a[5], j);   // v = i * Gv-syn
-      }
+      // a: P, Hv, Gv . (vr, vi). vorticity = P-syn, u = -Hv-syn, v = i
+      // Gv-syn.
+      const float o[6] = {a[0], a[1], -a[2], -a[3], -a[5], a[4]};
+#pragma unroll
+      for (int i = 0; i < 6; ++i) v[i] = o[i] * (i % 2 ? wi : wr);
     }
+    store_row<FORM>(p.syn + ((size_t)j * M + m) * (2 * F::NF), v);
   }
-  __syncthreads();
+  if constexpr (CLK) {
+    __syncthreads();
+    stamp<CLK>(clk, 11);
+  }
 }
 
 // Phase B: column j through the inverse DFT, the grid products and the
-// forward DFT, into fwd[(q*M + m)*J + j].
-template <int FORM>
-__device__ void column(const Params& p, int j, float* sh) {
-  constexpr int NF = FORM == kPsi ? 4 : 3;  // synthesised fields
-  constexpr int NP = FORM == kPsi ? 1 : 2;  // grid products
-  const int M = p.M, J = p.J, L = p.L, K = 2 * p.M;
-  float* modes = sh;          // (NF, 2M)
-  float* prod = sh + NF * K;  // (NP, L)
-  for (int i = threadIdx.x; i < NF * K; i += blockDim.x)
-    modes[i] = __ldcg(p.syn + (size_t)i * J + j);
+// forward DFT, into fwd[(m J + j) 2NP + 2q + (re, im)]. The twiddles come
+// from the block's matrix twm[m nlp + l] = (cos, sin)(2 pi m l / L), which
+// a warp reads in consecutive entries (inverse: l) or with an odd stride
+// (forward: m): both without bank conflicts.
+template <int FORM, bool CLK>
+__device__ void column(const Params& p, const Layout& y, float* sh, int j,
+                       float inv_l, long long* clk) {
+  using F = Form<FORM>;
+  constexpr int W = 2 * F::NF;  // floats of a mode row
+  const int M = p.M, J = p.J, L = p.L, nl = L / 2 + 1, nlp = y.nlp;
+  float* md = sh + y.work;                   // (M, W)
+  float* pb = md + round4(W * M);            // (kSplit, W, nl)
+  float* pf = pb + round4(kSplit * nl * W);  // (NP, nl, sum|diff)
+  float* pc = pf + round4(F::NP * nl * 2);   // (kSplit, 2NP, M)
+  const float2* twm = reinterpret_cast<const float2*>(sh + y.twm);
+  const float2* src =
+      reinterpret_cast<const float2*>(p.syn + (size_t)j * M * W);
+  for (int i = threadIdx.x; i < M * W / 2; i += kThreads)
+    reinterpret_cast<float2*>(md)[i] = __ldcg(src + i);
   __syncthreads();
-  const int lane = lane_id();
-  for (int l = warp_id(); l < L; l += kWarps) {
-    const float* d = p.dinv + (size_t)l * K;
-    float g[NF];
+  stamp<CLK>(clk, 1);
+  // Inverse DFT, chunk s of the modes, at longitudes l0 = g and l1 = g +
+  // ceil(nl/2): C = sum re' cos, S = sum im' sin; the grid is C + S at l
+  // and C - S at L - l.
+  const int G2 = (nl + 1) / 2, chm = (M + kSplit - 1) / kSplit;
+  for (int task = threadIdx.x; task < kSplit * G2; task += kThreads) {
+    const int s = task / G2, l0 = task - s * G2, l1 = l0 + G2;
+    const int l1c = l1 < nl ? l1 : nl - 1;  // a valid address, unused
+    const int ma = s * chm, mb = min(M, ma + chm);
+    float c0[W], c1[W];  // (C, S) of each field at l0 and l1
 #pragma unroll
-    for (int f = 0; f < NF; ++f) g[f] = 0.f;
-    for (int k = lane; k < K; k += 32) {
-      const float dk = d[k];
+    for (int i = 0; i < W; ++i) c0[i] = c1[i] = 0.f;
+    for (int m = ma; m < mb; ++m) {
+      const float2 t0 = twm[m * nlp + l0], t1 = twm[m * nlp + l1c];
+      float v[W];
+      load_row<FORM>(md + m * W, v);
 #pragma unroll
-      for (int f = 0; f < NF; ++f) g[f] += dk * modes[f * K + k];
-    }
-    warp_sum(g);
-    if (lane == 0) {
-      if (FORM == kPsi) {
-        prod[l] = g[0] * g[3] - g[2] * g[1];  // Jacobian
-      } else {
-        const float av = p.tab[5][j] + g[0];  // absolute vorticity
-        prod[l] = -av * g[2];                 // d(u)/dt = -(f + zeta) v
-        prod[L + l] = av * g[1];              // d(v)/dt = (f + zeta) u
+      for (int f = 0; f < F::NF; ++f) {
+        c0[2 * f] += v[2 * f] * t0.x;
+        c0[2 * f + 1] += v[2 * f + 1] * t0.y;
+        c1[2 * f] += v[2 * f] * t1.x;
+        c1[2 * f + 1] += v[2 * f + 1] * t1.y;
       }
+    }
+    store_cols<W>(pb + s * W * nl + l0, nl, c0);
+    if (l1 < nl) store_cols<W>(pb + s * W * nl + l1, nl, c1);
+  }
+  __syncthreads();
+  stamp<CLK>(clk, 2);
+  // Sum the chunks, form the grid values at l and L - l, their products,
+  // and the sums and differences the forward DFT pairs.
+  for (int l = threadIdx.x; l < nl; l += kThreads) {
+    float cs[W] = {};
+    for (int s = 0; s < kSplit; ++s)
+      add_cols<W>(pb + s * W * nl + l, nl, cs);
+    float a[F::NF], c[F::NF];  // the grid at l and at L - l
+#pragma unroll
+    for (int f = 0; f < F::NF; ++f) {
+      a[f] = cs[2 * f] + cs[2 * f + 1];
+      c[f] = cs[2 * f] - cs[2 * f + 1];
+    }
+    const bool paired = l > 0 && 2 * l != L;
+    float pa[F::NP], pl[F::NP];
+    if constexpr (FORM == kPsi) {  // Jacobian dpdx dvdy - dpdy dvdx
+      pa[0] = a[0] * a[3] - a[2] * a[1];
+      pl[0] = c[0] * c[3] - c[2] * c[1];
+    } else {  // d(u)/dt = -(f + zeta) v, d(v)/dt = (f + zeta) u
+      const float f0 = sh[y.frow + j];
+      const float va = f0 + a[0], vc = f0 + c[0];
+      pa[0] = -va * a[2];
+      pa[1] = va * a[1];
+      pl[0] = -vc * c[2];
+      pl[1] = vc * c[1];
+    }
+#pragma unroll
+    for (int q = 0; q < F::NP; ++q)
+      reinterpret_cast<float2*>(pf)[q * nl + l] =
+          paired ? make_float2(pa[q] + pl[q], pa[q] - pl[q])
+                 : make_float2(pa[q], pa[q]);
+  }
+  __syncthreads();
+  stamp<CLK>(clk, 3);
+  // Forward DFT, chunk s of the longitude pairs: R = sum cos (p(l) +
+  // p(L-l)), I = sum sin (p(l) - p(L-l)); then / L and -/ L.
+  const int chl = (nl + kSplit - 1) / kSplit;
+  for (int task = threadIdx.x; task < kSplit * M; task += kThreads) {
+    const int s = task / M, m = task - s * M;
+    const int la = s * chl, lb = min(nl, la + chl);
+    float R[F::NP], I[F::NP];
+#pragma unroll
+    for (int q = 0; q < F::NP; ++q) R[q] = I[q] = 0.f;
+    for (int l = la; l < lb; ++l) {
+      const float2 t = twm[m * nlp + l];
+#pragma unroll
+      for (int q = 0; q < F::NP; ++q) {
+        const float2 v = reinterpret_cast<const float2*>(pf)[q * nl + l];
+        R[q] += t.x * v.x;
+        I[q] += t.y * v.y;
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < F::NP; ++q) {
+      pc[(s * 2 * F::NP + 2 * q) * M + m] = R[q];
+      pc[(s * 2 * F::NP + 2 * q + 1) * M + m] = I[q];
     }
   }
   __syncthreads();
-  for (int m = warp_id(); m < M; m += kWarps) {
-    const float* fr = p.dfwd_re + (size_t)m * L;
-    const float* fi = p.dfwd_im + (size_t)m * L;
-    float s[2 * NP];
+  stamp<CLK>(clk, 4);
+  for (int m = threadIdx.x; m < M; m += kThreads) {
+    float v[2 * F::NP] = {};
+    for (int s = 0; s < kSplit; ++s)
+      add_cols<2 * F::NP>(pc + s * 2 * F::NP * M + m, M, v);
+    float2* o = reinterpret_cast<float2*>(p.fwd + ((size_t)m * J + j) * 2 *
+                                                      F::NP);
 #pragma unroll
-    for (int q = 0; q < 2 * NP; ++q) s[q] = 0.f;
-    for (int l = lane; l < L; l += 32) {
-      const float cr = fr[l], ci = fi[l];
-#pragma unroll
-      for (int q = 0; q < NP; ++q) {
-        s[2 * q] += cr * prod[q * L + l];
-        s[2 * q + 1] += ci * prod[q * L + l];
-      }
-    }
-    warp_sum(s);
-    if (lane == 0) {
-#pragma unroll
-      for (int q = 0; q < 2 * NP; ++q) p.fwd[((size_t)q * M + m) * J + j] = s[q];
-    }
+    for (int q = 0; q < F::NP; ++q)
+      o[q] = make_float2(v[2 * q] * inv_l, -v[2 * q + 1] * inv_l);
   }
-  __syncthreads();
+  __syncthreads();  // md and pb are the next column's
+  stamp<CLK>(clk, 5);
 }
 
-// Phase C: analyse row m, damp it and take the time step.
-template <int FORM>
-__device__ void analyse_and_step(const Params& p, int m, bool first,
-                                 float* sh) {
-  constexpr int NQ = FORM == kPsi ? 2 : 4;
-  const int M = p.M, N = p.M, J = p.J;
-  for (int i = threadIdx.x; i < NQ * J; i += blockDim.x) {
-    const int q = i / J, j = i - q * J;
-    sh[i] = __ldcg(p.fwd + ((size_t)q * M + m) * J + j);
+// Phase C: analyse the pair's rows, damp them and take the time step.
+template <int FORM, bool CLK>
+__device__ void analyse_and_step(const Params& p, const Layout& y, float* sh,
+                                 int m1, int m2, bool first, long long* clk) {
+  using F = Form<FORM>;
+  constexpr int Q = 2 * F::NP;  // floats of fwd a (m, j)
+  const int M = p.M, J = p.J, K1 = M + 1, c1 = M - m1;
+  const int nrow = m2 != m1 ? 2 : 1, kend = m2 != m1 ? K1 : c1;
+  float* fc = sh + y.work;            // (rows, J, Q)
+  float* pc = fc + round4(2 * J * Q);  // (kSplit, NQ, kend)
+  // One vector load a (row, j), all issued at once: one L2 round trip.
+  for (int i = threadIdx.x; i < nrow * J; i += kThreads) {
+    const float* src = p.fwd + ((size_t)(i < J ? m1 : m2) * J + i % J) * Q;
+    if constexpr (FORM == kPsi)
+      reinterpret_cast<float2*>(fc)[i] =
+          __ldcg(reinterpret_cast<const float2*>(src));
+    else
+      reinterpret_cast<float4*>(fc)[i] =
+          __ldcg(reinterpret_cast<const float4*>(src));
   }
   __syncthreads();
-  const int lane = lane_id();
-  for (int n = warp_id(); n < N; n += kWarps) {
-    const size_t row = ((size_t)m * N + n) * J;
-    float tr, ti;
-    if (FORM == kPsi) {
-      const float* a = p.tab[2] + row;
-      float s[2] = {0.f, 0.f};
-      for (int j = lane; j < J; j += 32) {
-        s[0] += a[j] * sh[j];
-        s[1] += a[j] * sh[J + j];
+  stamp<CLK>(clk, 7);
+  const float* ana = sh + y.tab + F::NS * y.slab;  // [j K1 + k]
+  const int chj = (J + kSplit - 1) / kSplit;
+  for (int task = threadIdx.x; task < kSplit * kend; task += kThreads) {
+    const int s = task / kend, k = task - s * kend;
+    const float* f = fc + (k < c1 ? 0 : J * Q);
+    const int ja = s * chj, jb = min(J, ja + chj);
+    float acc[F::NQ];
+#pragma unroll
+    for (int i = 0; i < F::NQ; ++i) acc[i] = 0.f;
+    for (int j = ja; j < jb; ++j) {
+      if constexpr (FORM == kPsi) {
+        const float a = ana[j * K1 + k];
+        const float2 v = reinterpret_cast<const float2*>(f)[j];
+        acc[0] += a * v.x;
+        acc[1] += a * v.y;
+      } else {  // f rows: fu_r, fu_i, fv_r, fv_i
+        const float au = ana[j * K1 + k], av = ana[y.slab + j * K1 + k];
+        const float4 v = reinterpret_cast<const float4*>(f)[j];
+        acc[0] += au * v.x;
+        acc[1] += av * v.w;
+        acc[2] += au * v.y;
+        acc[3] += av * v.z;
       }
-      warp_sum(s);
-      tr = s[0];
-      ti = s[1];
+    }
+    store_cols<F::NQ>(pc + s * F::NQ * kend + k, kend, acc);
+  }
+  __syncthreads();
+  stamp<CLK>(clk, 8);
+  float* st = sh + y.st;
+  const float* damp = sh + y.rowc;
+  const float* dden = damp + 2 * M;
+  for (int i = threadIdx.x; i < nrow * M; i += kThreads) {
+    const int r = i / M, n = i - r * M, m = r ? m2 : m1;
+    float tr = 0.f, ti = 0.f;  // the tables are zero for n < m
+    if (n >= m) {
+      const int k = r ? c1 + n - m2 : n - m1;
+      float v[F::NQ] = {};
+      for (int s = 0; s < kSplit; ++s)
+        add_cols<F::NQ>(pc + s * F::NQ * kend + k, kend, v);
+      if constexpr (FORM == kPsi) {
+        tr = v[0];
+        ti = v[1];
+      } else {
+        tr = v[0] - v[1];
+        ti = v[2] + v[3];
+      }
+    }
+    float4 x = reinterpret_cast<float4*>(st)[i];  // vr, vi, pr, pi
+    // Implicit hyperdiffusion against the lagged state.
+    const float dzr = (tr - damp[i] * x.z) * dden[i];
+    const float dzi = (ti - damp[i] * x.w) * dden[i];
+    const float rr = p.r;
+    if (first) {
+      const float nr = x.x + p.dt * dzr, ni = x.y + p.dt * dzi;
+      x = make_float4(nr, ni, x.x + rr * (nr - x.x), x.y + rr * (ni - x.y));
     } else {
-      // sh rows: fu_r, fu_i, fv_r, fv_i.
-      const float* au = p.tab[3] + row;
-      const float* av = p.tab[4] + row;
-      float s[4] = {0.f, 0.f, 0.f, 0.f};
-      for (int j = lane; j < J; j += 32) {
-        s[0] += au[j] * sh[j];
-        s[1] += av[j] * sh[3 * J + j];
-        s[2] += au[j] * sh[J + j];
-        s[3] += av[j] * sh[2 * J + j];
-      }
-      warp_sum(s);
-      tr = s[0] - s[1];
-      ti = s[2] + s[3];
+      const float two_dt = 2.f * p.dt;
+      const float nr = x.z + two_dt * dzr, ni = x.w + two_dt * dzi;
+      x = make_float4(nr, ni, x.x + rr * (x.z - 2.f * x.x) + rr * nr,
+                      x.y + rr * (x.w - 2.f * x.y) + rr * ni);
     }
-    if (lane == 0) {
-      const int i = m * N + n;
-      const float vr = p.out[0][i], vi = p.out[1][i];
-      const float pr = p.out[2][i], pi = p.out[3][i];
-      const float damp = p.damp[i], dden = p.dden[i];
-      // Implicit hyperdiffusion against the lagged state.
-      const float dzr = (tr - damp * pr) * dden;
-      const float dzi = (ti - damp * pi) * dden;
-      const float r = p.r;
-      if (first) {
-        const float nr = vr + p.dt * dzr, ni = vi + p.dt * dzi;
-        p.out[0][i] = nr;
-        p.out[1][i] = ni;
-        p.out[2][i] = vr + r * (nr - vr);
-        p.out[3][i] = vi + r * (ni - vi);
-      } else {
-        const float two_dt = 2.f * p.dt;
-        const float nr = pr + two_dt * dzr, ni = pi + two_dt * dzi;
-        p.out[0][i] = nr;
-        p.out[1][i] = ni;
-        p.out[2][i] = vr + r * (pr - 2.f * vr) + r * nr;
-        p.out[3][i] = vi + r * (pi - 2.f * vi) + r * ni;
-      }
-    }
+    reinterpret_cast<float4*>(st)[i] = x;
+    if (n >= m)
+      put_x<FORM>(sh, y, M, i, r ? c1 + n - m2 : n - m1, x.x, x.y);
   }
   __syncthreads();
+  stamp<CLK>(clk, 9);
 }
 
-template <int FORM>
-__global__ void __launch_bounds__(kThreads)
+template <int FORM, bool CLK>
+__global__ void __launch_bounds__(kThreads, 1)
 barotropic_kernel(Params p) {
-  extern __shared__ float sh[];
+  using F = Form<FORM>;
+  extern __shared__ __align__(16) float sh[];
   cg::grid_group grid = cg::this_grid();
-  const int M = p.M;
-  for (int m = blockIdx.x; m < M; m += gridDim.x)
-    for (int n = threadIdx.x; n < M; n += blockDim.x)
+  const int M = p.M, L = p.L;
+  const Layout y = layout(FORM, M, p.J, L);
+  // Block b < P owns pair b; block P + b, where the grid has it, helps a
+  // pair of two rows: both hold the pair's tables and state and run phase
+  // C alike (the same sums, so the same state), and phase A splits the
+  // latitudes between them. Only the owner writes the result.
+  const int b = blockIdx.x, P = (M + 1) / 2;
+  const bool owner = b < P;
+  const int m1 = owner ? b : b - P, m2 = M - 1 - m1;
+  const int nrow = m2 != m1 ? 2 : 1;
+  const bool pair = owner || (b < 2 * P && nrow == 2);
+  const bool helped = nrow == 2 && m1 + P < (int)gridDim.x;
+  const int jh = (p.J + 1) / 2;
+  const int ja = owner ? 0 : jh, jb = owner && helped ? jh : p.J;
+  if (pair) {
+    const int n = (F::NS + F::NA) * y.slab;
+    const float* src = p.tab + (size_t)m1 * n;
+    for (int i = 4 * threadIdx.x; i < n; i += 4 * kThreads)
+      cp_async16(sh + y.tab + i, src + i);
+    cp_async_commit();
+    for (int i = threadIdx.x; i < nrow * M; i += kThreads) {
+      const int r = i / M, n = i % M, m = r ? m2 : m1, g = m * M + n;
 #pragma unroll
-      for (int c = 0; c < 4; ++c) p.out[c][m * M + n] = p.in[c][m * M + n];
+      for (int c = 0; c < 4; ++c) sh[y.st + 4 * i + c] = p.in[c][g];
+      sh[y.rowc + i] = p.damp[g];
+      sh[y.rowc + 2 * M + i] = p.dden[g];
+      if constexpr (FORM == kPsi) sh[y.rowc + 4 * M + i] = p.extra[g];
+      if (n >= m)
+        put_x<FORM>(sh, y, M, i, r ? M - m1 + n - m2 : n - m1, p.in[0][g],
+                    p.in[1][g]);
+    }
+    for (int i = threadIdx.x; i < 2 * M; i += kThreads)
+      sh[y.wts + i] = p.wts[i];
+  }
+  // The twiddle matrix from the table: (cos, sin) at (m l) mod L.
+  const int nl = L / 2 + 1;
+  for (int i = threadIdx.x; i < M * nl; i += kThreads) {
+    const int m = i / nl, l = i - m * nl;
+    const float4 t = reinterpret_cast<const float4*>(p.tw)[(m * l) % L];
+    reinterpret_cast<float2*>(sh + y.twm)[m * y.nlp + l] =
+        make_float2(t.x, t.y);
+  }
+  const float inv_l = p.tw[2];  // 1/L, the table's cos(0)/L
+  if constexpr (FORM == kVrt)
+    for (int j = threadIdx.x; j < p.J; j += kThreads)
+      sh[y.frow + j] = p.extra[j];
+  cp_async_wait<0>();
   __syncthreads();
-  if (p.n_steps == 0) return;
-  for (int m = blockIdx.x; m < M; m += gridDim.x) synthesise<FORM>(p, m, sh);
+  long long* clk = nullptr;
+  if (pair && p.n_steps > 0)
+    synthesise<FORM, CLK>(p, y, sh, m1, m2, ja, jb, clk);
   for (int i = 0; i < p.n_steps; ++i) {
+    if (CLK && b == 0) clk = p.clocks + (size_t)i * kStamps;
     grid.sync();
-    for (int j = blockIdx.x; j < p.J; j += gridDim.x) column<FORM>(p, j, sh);
+    stamp<CLK>(clk, 0);
+    for (int j = b; j < p.J; j += gridDim.x)
+      column<FORM, CLK>(p, y, sh, j, inv_l, clk);
     grid.sync();
-    const bool first = p.step0 + i == 0;
-    for (int m = blockIdx.x; m < M; m += gridDim.x) {
-      analyse_and_step<FORM>(p, m, first, sh);
-      if (i + 1 < p.n_steps) synthesise<FORM>(p, m, sh);
+    stamp<CLK>(clk, 6);
+    if (pair) {
+      analyse_and_step<FORM, CLK>(p, y, sh, m1, m2, p.step0 + i == 0, clk);
+      if (i + 1 < p.n_steps)
+        synthesise<FORM, CLK>(p, y, sh, m1, m2, ja, jb, clk);
     }
   }
+  if (owner)
+    for (int i = threadIdx.x; i < nrow * M; i += kThreads) {
+      const int g = (i < M ? m1 : m2) * M + i % M;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) p.out[c][g] = sh[y.st + 4 * i + c];
+    }
 }
 
-size_t shared_bytes(int form, int M, int J, int L) {
-  const size_t a = (size_t)4 * M;
-  const size_t b = form == kPsi ? (size_t)4 * 2 * M + L
-                                : (size_t)3 * 2 * M + 2 * (size_t)L;
-  const size_t c = (size_t)(form == kPsi ? 2 : 4) * J;
-  size_t most = a > b ? a : b;
-  most = most > c ? most : c;
-  return most * sizeof(float);
-}
-
-}  // namespace
-
-// ptrs: vr, vi, pr, pi (in); vr, vi, pr, pi (out); syn; fwd; dinv,
-// dfwd_re, dfwd_im, damp, dden; then the form's tables (psi: Gm, Ha, A,
-// invF; vrt: P, Hv, Gv, Au, Av, f_row). Launches on `stream`, writes the
-// grid size to *blocks_out and returns the CUDA error (0 = ok).
-extern "C" int dlwp_barotropic_step(int form, void* const* ptrs, int M,
-                                    int J, int L, int step0, int n_steps,
-                                    float dt, float r, int* blocks_out,
-                                    void* stream) {
-  Params p;
-  for (int c = 0; c < 4; ++c) {
-    p.in[c] = static_cast<const float*>(ptrs[c]);
-    p.out[c] = static_cast<float*>(ptrs[4 + c]);
+// The sync probe: the kernel's loop of two grid-wide barriers a step and
+// nothing else, launched with the same grid and shared-memory request, so
+// that (kernel - probe) per step is the time of the phases.
+__global__ void __launch_bounds__(kThreads) sync_probe(int n_steps) {
+  cg::grid_group grid = cg::this_grid();
+  for (int i = 0; i < n_steps; ++i) {
+    grid.sync();
+    grid.sync();
   }
-  p.syn = static_cast<float*>(ptrs[8]);
-  p.fwd = static_cast<float*>(ptrs[9]);
-  p.dinv = static_cast<const float*>(ptrs[10]);
-  p.dfwd_re = static_cast<const float*>(ptrs[11]);
-  p.dfwd_im = static_cast<const float*>(ptrs[12]);
-  p.damp = static_cast<const float*>(ptrs[13]);
-  p.dden = static_cast<const float*>(ptrs[14]);
-  const int n_tab = form == kPsi ? 4 : 6;
-  for (int t = 0; t < 6; ++t)
-    p.tab[t] = t < n_tab ? static_cast<const float*>(ptrs[15 + t]) : nullptr;
-  p.M = M;
-  p.J = J;
-  p.L = L;
-  p.step0 = step0;
-  p.n_steps = n_steps;
-  p.dt = dt;
-  p.r = r;
+}
 
-  const void* fn = form == kPsi ? (const void*)barotropic_kernel<kPsi>
-                                : (const void*)barotropic_kernel<kVrt>;
-  const size_t smem = shared_bytes(form, M, J, L);
+// One cooperative launch of `fn` with the kernel's shared-memory request
+// and grid: max(P, J) blocks, or `blocks` if > 0, cut to what the card
+// holds at once (every block of a cooperative launch must be resident),
+// and refused below the P row-pair blocks.
+int launch(const void* fn, void** args, int form, int M, int J, int L,
+           int blocks, int* blocks_out, void* stream) {
+  const size_t smem = (size_t)layout(form, M, J, L).total * sizeof(float);
   cudaError_t err = cudaSuccess;
   if (smem > 48 * 1024) {
     err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -381,15 +613,66 @@ extern "C" int dlwp_barotropic_step(int form, void* const* ptrs, int M,
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, kThreads,
                                                       smem);
   if (err != cudaSuccess) return (int)err;
-  // Every block of a cooperative launch must be resident at once.
-  const int want = M > J ? M : J;
+  const int pairs = (M + 1) / 2;
+  const int want = blocks > 0 ? blocks : (pairs > J ? pairs : J);
   const int fit = per_sm * sms;
-  if (fit < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
-  const int blocks = want < fit ? want : fit;
-  *blocks_out = blocks;
-  void* args[] = {&p};
-  err = cudaLaunchCooperativeKernel(fn, dim3(blocks), dim3(kThreads), args,
-                                    smem, (cudaStream_t)stream);
+  if (fit < pairs) return (int)cudaErrorCooperativeLaunchTooLarge;
+  if (want < pairs) return (int)cudaErrorInvalidValue;
+  *blocks_out = want < fit ? want : fit;
+  err = cudaLaunchCooperativeKernel(fn, dim3(*blocks_out), dim3(kThreads),
+                                    args, smem, (cudaStream_t)stream);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// ptrs: vr, vi, pr, pi (in); vr, vi, pr, pi (out); syn; fwd; tab, tw,
+// wts, damp, dden; then invF (psi) or f_row (vrt). Launches on `stream`,
+// with `clocks` (null, or n_steps x kStamps) the build that stamps block
+// 0's stages; writes the grid size to *blocks_out and returns the CUDA
+// error (0 = ok).
+extern "C" int dlwp_barotropic_step(int form, void* const* ptrs, int M,
+                                    int J, int L, int step0, int n_steps,
+                                    float dt, float r, long long* clocks,
+                                    int* blocks_out, void* stream) {
+  Params p;
+  for (int c = 0; c < 4; ++c) {
+    p.in[c] = static_cast<const float*>(ptrs[c]);
+    p.out[c] = static_cast<float*>(ptrs[4 + c]);
+  }
+  p.syn = static_cast<float*>(ptrs[8]);
+  p.fwd = static_cast<float*>(ptrs[9]);
+  p.tab = static_cast<const float*>(ptrs[10]);
+  p.tw = static_cast<const float*>(ptrs[11]);
+  p.wts = static_cast<const float*>(ptrs[12]);
+  p.damp = static_cast<const float*>(ptrs[13]);
+  p.dden = static_cast<const float*>(ptrs[14]);
+  p.extra = static_cast<const float*>(ptrs[15]);
+  p.M = M;
+  p.J = J;
+  p.L = L;
+  p.step0 = step0;
+  p.n_steps = n_steps;
+  p.dt = dt;
+  p.r = r;
+  p.clocks = clocks;
+  const void* fn =
+      form == kPsi ? (clocks ? (const void*)barotropic_kernel<kPsi, true>
+                             : (const void*)barotropic_kernel<kPsi, false>)
+                   : (clocks ? (const void*)barotropic_kernel<kVrt, true>
+                             : (const void*)barotropic_kernel<kVrt, false>);
+  void* args[] = {&p};
+  return launch(fn, args, form, M, J, L, 0, blocks_out, stream);
+}
+
+// The sync probe of the kernel of `form` at these sizes: n_steps x two grid
+// syncs on the kernel's grid (blocks = 0) or on `blocks` blocks, with the
+// kernel's shared-memory request. Writes the grid size to *blocks_out.
+extern "C" int dlwp_barotropic_sync_probe(int form, int M, int J, int L,
+                                          int n_steps, int blocks,
+                                          int* blocks_out, void* stream) {
+  void* args[] = {&n_steps};
+  return launch((const void*)sync_probe, args, form, M, J, L, blocks,
+                blocks_out, stream);
 }

@@ -1,7 +1,7 @@
 // Device helpers shared by the tensor-core kernels (overlap_conv.cu,
-// fused_conv_pool.cu): cp.async copies into shared memory, the 3xTF32
-// operand split, the mma.sync TF32 products and the staging of a slab's
-// weights, sm_90a.
+// fused_conv_pool.cu): cp.async copies into shared memory (also used by
+// barotropic_step.cu), the 3xTF32 operand split, the mma.sync TF32
+// products and the staging of a slab's weights, sm_90a.
 //
 // Each .cu file includes this header and is its own shared library, so the
 // helpers live in an anonymous namespace, a private copy per library.

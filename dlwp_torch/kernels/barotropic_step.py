@@ -17,27 +17,157 @@ J latitudes and L longitudes:
 - ``psi``: ``Gm``, ``Ha`` (M, J, M); ``A`` (M, M, J); ``invF`` (M, M);
 - ``vrt``: ``P``, ``Hv``, ``Gv`` (M, J, M); ``Au``, ``Av`` (M, M, J);
   ``f_row`` (1, J).
+
+The kernel reads the Legendre tables in the packed layout of
+:func:`pack_tables`, made once per table set (``fused_step`` makes it when
+it builds the tables, as a :class:`StepTables`), and the DFTs from one
+twiddle table:
+
+- Row pairs. Block ``b < P = ceil(M/2)`` owns the wavenumbers
+  ``m1 = b`` and ``m2 = M-1-b`` (the middle row of odd M alone). The
+  tables are zero for n < m, so the pair's n >= m entries number
+  ``c1 + c2 = (M - m1) + (m1 + 1) = M + 1``: entry ``k < c1`` is
+  ``(m1, m1 + k)``, entry ``k >= c1`` is ``(m2, m2 + k - c1)`` (zero
+  padding after the middle row). :func:`pair_entries` lists them.
+- ``tab`` (P, NT, SLAB) float32, SLAB = (M+1)*J rounded up to 4 floats:
+  each pair's NT slabs are one contiguous run that a block copies into
+  shared memory once per launch. The synthesis tables (psi ``Gm, Ha``;
+  vrt ``P, Hv, Gv``) come first, each slab ``[k, j] = T[m_k, j, n_k]``
+  (j fastest); then the analysis tables (psi ``A``; vrt ``Au, Av``), each
+  slab ``[j, k] = T[m_k, n_k, j]`` (k fastest).
+- ``tw`` (L, 4) float32: ``cos, sin`` of 2*pi*k/L and the same over L,
+  ``cos/L, -sin/L``. Each block builds from it, at launch, its matrix of
+  (cos, sin) of 2*pi*m*l/L, entry k = (m*l) mod L, for both DFTs, and
+  scales the forward sums by the table's 1/L.
+- ``wts`` (2, M) float32: irfft's multiplicities of the real and the
+  imaginary parts (:func:`dlwp_torch.spectral.transforms.dft_weights`,
+  the weights of ``dinv``), which the kernel applies to each
+  synthesised mode.
+
+With ``damp``, ``dden`` and ``invF`` (M, M) or ``f_row`` (J) as they are,
+these are the whole of what the kernel reads: it never reads ``dinv``,
+``dfwd_*`` or the natural-layout Legendre tables.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
+import numpy as np
 import torch
 
 from dlwp_torch.kernels import _build
+from dlwp_torch.kernels._tiling import MAX_SMEM
+from dlwp_torch.spectral.transforms import dft_weights
 
 FORMS = {"psi": 0, "vrt": 1}
-COMMON_TABLES = ("dinv", "dfwd_re", "dfwd_im", "damp", "dden")
-# Per-form tables, in the order the kernel's parameter block takes them.
-FORM_TABLES = {
-    "psi": ("Gm", "Ha", "A", "invF"),
-    "vrt": ("P", "Hv", "Gv", "Au", "Av", "f_row"),
-}
-# Scratch rows of the kernel: synthesized fields (each 2M mode rows of J)
-# and forward-DFT outputs (each M rows of J).
-SYN_FIELDS = {"psi": 4, "vrt": 3}
-FWD_FIELDS = {"psi": 2, "vrt": 4}
+# Shared-memory layout and partial sums of csrc/barotropic_step.cu: each
+# output of the synthesis, the DFTs and the analysis is the in-order sum
+# of SPLIT partial sums over consecutive chunks of its contraction
+# (kSplit).
+SPLIT = 6
+# Stage clocks a step of the timing build (kStamps), in the order block 0
+# stamps them: after the first grid sync, the five stages of phase B, the
+# second grid sync, the three of phase C, the two of the next phase A.
+STAMPS = 12
+SYN_TABLES = {"psi": ("Gm", "Ha"), "vrt": ("P", "Hv", "Gv")}
+ANA_TABLES = {"psi": ("A",), "vrt": ("Au", "Av")}
+# Complex fields of phase B: synthesised (NF) and grid products (NP).
+NF = {"psi": 4, "vrt": 3}
+NP = {"psi": 1, "vrt": 2}
+
+
+def _round4(n: int) -> int:
+    return -(-n // 4) * 4
+
+
+def pair_entries(M: int, b: int):
+    """``(m, n)`` of the M+1 packed entries of row pair ``b``, and
+    ``c1``, the entry count of its first row; padding entries (after the
+    middle row of odd M) are ``(-1, -1)``."""
+    m1, m2 = b, M - 1 - b
+    c1 = M - m1
+    entries = [(m1, m1 + k) for k in range(c1)]
+    if m2 != m1:
+        entries += [(m2, m2 + k) for k in range(M - m2)]
+    return entries + [(-1, -1)] * (M + 1 - len(entries)), c1
+
+
+def layout(form: str, M: int, J: int, L: int) -> dict:
+    """Offsets (floats) of the kernel's shared-memory regions, the row of
+    its twiddle matrix (``nlp``) and its total bytes, as ``layout()`` in
+    the source computes them."""
+    K1, nl, nf, npp = M + 1, L // 2 + 1, NF[form], NP[form]
+    ns, nx = len(SYN_TABLES[form]), 4 if form == "psi" else 2
+    nt = ns + len(ANA_TABLES[form])
+    nq = 2 if form == "psi" else 4
+    slab, nlp = _round4(K1 * J), nl | 1
+    sizes = [("tab", nt * slab), ("twm", _round4(2 * M * nlp)),
+             ("wts", _round4(2 * M)), ("st", 8 * M), ("rowc", _round4(6 * M)),
+             ("frow", _round4(J)), ("xs", 4 * K1)]
+    work_a = SPLIT * J * 2 * ns * nx
+    work_b = (_round4(2 * nf * M) + _round4(SPLIT * nl * 2 * nf)
+              + _round4(npp * nl * 2) + SPLIT * M * 2 * npp)
+    work_c = _round4(2 * J * 2 * npp) + SPLIT * K1 * nq
+    sizes.append(("work", max(work_a, work_b, work_c)))
+    out, o = {"slab": slab, "nlp": nlp}, 0
+    for name, n in sizes:
+        out[name] = o
+        o += n
+    out["bytes"] = 4 * o
+    return out
+
+
+def pack_tables(form: str, tables) -> dict:
+    """The kernel's packed tables (module docstring) from the natural ones,
+    on their device and in their dtype: ``tab``, ``tw``, ``wts``. Raises if
+    a Legendre table has a nonzero at n < m, which the kernel skips."""
+    syn, ana = SYN_TABLES[form], ANA_TABLES[form]
+    first = tables[syn[0]]
+    M, J = first.shape[0], first.shape[1]
+    L = tables["dinv"].shape[0]
+    dev = first.device
+    below = torch.tril(torch.ones(M, M, dtype=torch.bool, device=dev), -1)
+    for name in syn + ana:
+        t = tables[name]
+        zero = below[:, None, :] if name in syn else below[:, :, None]
+        if torch.any((t != 0) & zero):
+            raise ValueError(f"barotropic_step {form}: table {name} is not "
+                             f"zero for n < m; the kernel skips those")
+    P = (M + 1) // 2
+    pairs = [pair_entries(M, b)[0] for b in range(P)]
+    mk = torch.tensor([[max(m, 0) for m, _ in e] for e in pairs], device=dev)
+    nk = torch.tensor([[max(n, 0) for _, n in e] for e in pairs], device=dev)
+    valid = torch.tensor([[m >= 0 for m, _ in e] for e in pairs],
+                         device=dev)[:, :, None]
+    slabs = [torch.where(valid, tables[n][mk, :, nk], 0.0).flatten(1)
+             for n in syn]  # (P, (M+1)*J), j fastest
+    slabs += [torch.where(valid, tables[n][mk, nk, :], 0.0)
+              .transpose(1, 2).flatten(1) for n in ana]  # k fastest
+    slab = _round4((M + 1) * J)
+    tab = torch.zeros(P, len(slabs), slab, dtype=first.dtype, device=dev)
+    for i, v in enumerate(slabs):
+        tab[:, i, :v.shape[1]] = v
+    k = np.arange(L, dtype=np.float64)
+    ang = 2.0 * np.pi * k / L
+    tw = np.stack([np.cos(ang), np.sin(ang), np.cos(ang) / L,
+                   -np.sin(ang) / L], axis=1)
+    wts = np.stack(dft_weights(L, M))
+    return {"tab": tab,
+            "tw": torch.tensor(tw, dtype=first.dtype, device=dev),
+            "wts": torch.tensor(wts, dtype=first.dtype, device=dev)}
+
+
+class StepTables(dict):
+    """The fused step's tables, a dict as :func:`barotropic_step_plain`
+    takes them, with ``packed``: their :func:`pack_tables`, made once when
+    the tables are built. Treat it as read-only: ``packed`` is not
+    remade."""
+
+    def __init__(self, form: str, tables: dict):
+        super().__init__(tables)
+        self.packed = pack_tables(form, self)
 
 
 def table_shapes(form: str, M: int, J: int, L: int) -> dict:
@@ -51,14 +181,16 @@ def table_shapes(form: str, M: int, J: int, L: int) -> dict:
     return shapes
 
 
-def _check(form, tables, state):
+def _check(form, tables, state, dtypes=(torch.float32,)):
     if form not in FORMS:
         raise ValueError(f"form must be one of {sorted(FORMS)}, got {form!r}")
     M = state[0].shape[-1]
     for name, t in zip(("vr", "vi", "pr", "pi"), state):
-        if t.shape != (M, M) or t.dtype != torch.float32:
+        if (t.shape != (M, M) or t.dtype not in dtypes
+                or t.dtype != state[0].dtype):
             raise ValueError(f"barotropic_step: {name} must be ({M}, {M}) "
-                             f"float32, got {tuple(t.shape)} {t.dtype}")
+                             f"{' or '.join(map(str, dtypes))} like vr, got "
+                             f"{tuple(t.shape)} {t.dtype}")
     L = tables["dinv"].shape[0]
     J = (tables["Gm"] if form == "psi" else tables["P"]).shape[1]
     want = table_shapes(form, M, J, L)
@@ -76,8 +208,10 @@ def barotropic_step_plain(form, tables, vr, vi, pr, pi, step0: int,
                           n_steps: int, dt: float, r: float):
     """The fused step's arithmetic in PyTorch ops: the kernel's real-pair,
     table-composed tendency, implicit damping and leapfrog/Robert update
-    (Euler where ``step0 + i == 0``). Returns ``(vr, vi, pr, pi)``."""
-    _check(form, tables, (vr, vi, pr, pi))
+    (Euler where ``step0 + i == 0``). Returns ``(vr, vi, pr, pi)``. The
+    state may also be float64 (with tables of its dtype), to check the
+    kernel's indexing without float32 rounding."""
+    _check(form, tables, (vr, vi, pr, pi), (torch.float32, torch.float64))
     t = tables
 
     def con(tab, x):
@@ -137,53 +271,101 @@ def _lib():
     lib = _build.load("barotropic_step")
     fn = lib.dlwp_barotropic_step
     fn.argtypes = ([ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 5
-                   + [ctypes.c_float] * 2 + [ctypes.c_void_p] * 2)
+                   + [ctypes.c_float] * 2 + [ctypes.c_void_p] * 3)
     fn.restype = ctypes.c_int
+    probe = lib.dlwp_barotropic_sync_probe
+    probe.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2
+    probe.restype = ctypes.c_int
     return lib
+
+
+@functools.cache  # a pure function of four ints; only passes are cached
+def _fits(form, M, J, L):
+    smem = layout(form, M, J, L)["bytes"]
+    if smem > MAX_SMEM:
+        raise ValueError(
+            f"barotropic_step {form}: T{M - 1} on {J} latitudes needs "
+            f"{smem} B of shared memory a block, more than Hopper's "
+            f"{MAX_SMEM}; run step_impl='plain'")
+
+
+def sync_probe(form, M: int, J: int, L: int, n_steps: int, blocks: int = 0,
+               device="cuda"):
+    """Launch the kernel's sync probe: ``n_steps`` x the two grid-wide
+    barriers of a step and nothing else, on the kernel's grid for these
+    sizes (or on ``blocks`` blocks) with its shared-memory request; the
+    kernel's time less the probe's is the time of its phases. Returns the
+    grid size. Not a launch of the kernel: ``launches`` does not count it."""
+    _fits(form, M, J, L)
+    blocks_out = ctypes.c_int(0)
+    lib = _lib()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.dlwp_barotropic_sync_probe(FORMS[form], M, J, L, n_steps,
+                                             blocks, ctypes.byref(blocks_out),
+                                             stream)
+    if err:
+        raise RuntimeError(f"barotropic sync probe failed: CUDA error {err}")
+    return blocks_out.value
 
 
 def barotropic_step(form, tables, vr, vi, pr, pi, step0: int, n_steps: int,
                     dt: float, r: float):
     """``n_steps`` fused steps from global step ``step0``; returns the new
-    ``(vr, vi, pr, pi)``. One cooperative kernel launch on CUDA tensors."""
+    ``(vr, vi, pr, pi)``. One cooperative kernel launch on CUDA tensors,
+    reading ``tables.packed`` where ``tables`` is a :class:`StepTables`
+    (else packing them first)."""
     if vr.device.type == "cpu":
         return barotropic_step_plain(form, tables, vr, vi, pr, pi, step0,
                                      n_steps, dt, r)
     if vr.device.type != "cuda":
         raise ValueError(f"barotropic_step: unsupported device {vr.device}")
-    M, J, L = _check(form, tables, (vr, vi, pr, pi))
+    return _launch(form, tables, (vr, vi, pr, pi), step0, n_steps, dt, r)
+
+
+def _launch(form, tables, state, step0, n_steps, dt, r, clocks=None):
+    """One launch on checked CUDA operands, on max(row pairs, latitudes)
+    blocks. ``clocks``, an int64 (n_steps, STAMPS) tensor on the card, runs
+    the timing build, which also stamps block 0's ``clock64()`` at the end
+    of each stage of each step into it."""
+    M, J, L = _check(form, tables, state)
     step0, n_steps = int(step0), int(n_steps)
     if step0 < 0 or n_steps < 0 or step0 + n_steps >= 2**31:
         raise ValueError(f"barotropic_step: bad step0={step0}, "
                          f"n_steps={n_steps}")
-    names = COMMON_TABLES + FORM_TABLES[form]
-    inputs = [vr, vi, pr, pi] + [tables[k] for k in names]
+    _fits(form, M, J, L)
+    packed = getattr(tables, "packed", None) or pack_tables(form, tables)
+    extra = tables["invF" if form == "psi" else "f_row"]
+    dev = state[0].device
+    inputs = list(state) + [packed["tab"], packed["tw"], packed["wts"],
+                            tables["damp"], tables["dden"], extra]
     for t in inputs:
-        if (t.device != vr.device or t.dtype != torch.float32
+        if (t.device != dev or t.dtype != torch.float32
                 or not t.is_contiguous()):
             raise ValueError("barotropic_step: every operand must be a "
-                             f"contiguous float32 tensor on {vr.device}")
-    outs = [torch.empty_like(vr) for _ in range(4)]
-    syn = torch.empty(SYN_FIELDS[form] * 2 * M * J, dtype=torch.float32,
-                      device=vr.device)
-    fwd = torch.empty(FWD_FIELDS[form] * M * J, dtype=torch.float32,
-                      device=vr.device)
+                             f"contiguous float32 tensor on {dev}")
+    outs = [torch.empty_like(state[0]) for _ in range(4)]
+    # Exchange buffers: synthesised mode rows (J, M, 2 NF) and forward-DFT
+    # outputs (M, J, 2 NP).
+    syn = torch.empty(J * M * 2 * NF[form], dtype=torch.float32, device=dev)
+    fwd = torch.empty(M * J * 2 * NP[form], dtype=torch.float32, device=dev)
     # Pointer block in the order of struct Params in the source.
     ptrs = [t.data_ptr() for t in inputs[:4] + outs + [syn, fwd]
             + inputs[4:]]
     block = (ctypes.c_void_p * len(ptrs))(*ptrs)
-    blocks = ctypes.c_int(0)
+    grid = ctypes.c_int(0)
     lib = _lib()
-    with torch.cuda.device(vr.device):
+    with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.dlwp_barotropic_step(
             FORMS[form], block, M, J, L, step0, n_steps, dt, r,
-            ctypes.byref(blocks), stream,
+            None if clocks is None else clocks.data_ptr(),
+            ctypes.byref(grid), stream,
         )
     if err:
         raise RuntimeError(f"barotropic_step launch failed: CUDA error {err}")
     barotropic_step.launches += 1
-    barotropic_step.grid_blocks = blocks.value
+    barotropic_step.grid_blocks = grid.value
     return tuple(outs)
 
 

@@ -211,6 +211,12 @@ def fused_conv_pool(x, kernel, bias=None, dilation: int = 2):
         return fused_conv_pool_plain(x, kernel, bias, dilation)
     if x.device.type != "cuda":
         raise ValueError(f"fused_conv_pool: unsupported device {x.device}")
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (x, kernel, bias)):
+        raise NotImplementedError(
+            "fused_conv_pool's kernel is forward only; its backward comes "
+            "with the training slice (ROADMAP.md section 1, item 1): run "
+            "under torch.no_grad() or with operands that need no gradient")
     if bias is None:
         bias = x.new_zeros(O)
     for name, t in (("x", x), ("kernel", kernel), ("bias", bias)):

@@ -1,9 +1,13 @@
 """ConvLSTM gate chain in one pass (kernel ``csrc/lstm_gates.cu``).
 
-Port of ``dlwp_tpu.ops.lstm_gates.fused_lstm_gates`` (forward).
+Port of ``dlwp_tpu.ops.lstm_gates.fused_lstm_gates``.
 :func:`lstm_gates` launches the CUDA kernel for CUDA tensors and takes the
 plain PyTorch version, :func:`lstm_gates_plain`, for CPU tensors.
 ``lstm_gates.launches`` counts kernel launches.
+
+It is differentiable as the JAX ``custom_vjp`` is: the backward recomputes
+the gate chain through :func:`lstm_gates_plain` and takes that version's
+vector-Jacobian product (the JAX backward is not a Pallas kernel either).
 """
 
 from __future__ import annotations
@@ -50,11 +54,11 @@ def _gate_dtype(gate_dtype):
     return gd
 
 
-def lstm_gates_plain(zx, zh, c, activation="tanh",
-                     recurrent_activation="hard_sigmoid", gate_dtype=None):
-    """``(h', c')`` with the op order and rounding points of the JAX
-    ``lstm_gates_reference``; ``zx`` carries the bias."""
-    act, r_act = _act(activation), _act(recurrent_activation)
+def gate_chain(zx, zh, c, act, r_act, gate_dtype=None):
+    """``(h', c')`` for activation callables ``act`` and ``r_act``, with
+    the op order and rounding points of the JAX ``lstm_gates_reference``;
+    ``zx`` carries the bias. ``ConvLSTM2D`` runs it for activations the
+    kernel does not have."""
     gd = _gate_dtype(gate_dtype)
     z = zx + zh
     if gd is not None:
@@ -68,6 +72,14 @@ def lstm_gates_plain(zx, zh, c, activation="tanh",
     return h_new, c_new
 
 
+def lstm_gates_plain(zx, zh, c, activation="tanh",
+                     recurrent_activation="hard_sigmoid", gate_dtype=None):
+    """The kernel's plain version: :func:`gate_chain` for the activations
+    the kernel has (raises on any other name)."""
+    return gate_chain(zx, zh, c, _act(activation), _act(recurrent_activation),
+                      gate_dtype)
+
+
 def _lib():
     lib = _build.load("lstm_gates")
     fn = lib.dlwp_lstm_gates
@@ -79,32 +91,8 @@ def _lib():
     return lib
 
 
-def lstm_gates(zx, zh, c, activation="tanh",
-               recurrent_activation="hard_sigmoid", gate_dtype=None):
-    """zx, zh (B, 4F, H, W) and carry c (B, F, H, W) -> (h', c')."""
-    B, C4, H, W = zx.shape
-    if C4 % 4 or zh.shape != zx.shape or c.shape != (B, C4 // 4, H, W):
-        raise ValueError(
-            f"lstm_gates shapes: zx {tuple(zx.shape)}, zh {tuple(zh.shape)}, "
-            f"c {tuple(c.shape)}"
-        )
-    if zx.device.type == "cpu":
-        return lstm_gates_plain(zx, zh, c, activation, recurrent_activation,
-                                gate_dtype)
-    if zx.device.type != "cuda":
-        raise ValueError(f"lstm_gates: unsupported device {zx.device}")
-    _act(activation), _act(recurrent_activation)  # raise on unknown names
-    a_code = ACT_CODES[activation]
-    r_code = ACT_CODES[recurrent_activation]
-    use_bf16 = int(_gate_dtype(gate_dtype) is not None)
-    for name, t in (("zx", zx), ("zh", zh), ("c", c)):
-        if t.device != zx.device or t.dtype != torch.float32:
-            raise ValueError(
-                f"lstm_gates: {name} must be float32 on {zx.device}, got "
-                f"{t.dtype} on {t.device}"
-            )
-        if not t.is_contiguous():
-            raise ValueError(f"lstm_gates: {name} must be contiguous")
+def _launch(zx, zh, c, activation, recurrent_activation, gate_dtype):
+    """One kernel launch on checked CUDA tensors."""
     h_out = torch.empty_like(c)
     c_out = torch.empty_like(c)
     lib = _lib()
@@ -112,13 +100,77 @@ def lstm_gates(zx, zh, c, activation="tanh",
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.dlwp_lstm_gates(
             zx.data_ptr(), zh.data_ptr(), c.data_ptr(), h_out.data_ptr(),
-            c_out.data_ptr(), c.numel(), (C4 // 4) * H * W, a_code, r_code,
-            use_bf16, stream,
+            c_out.data_ptr(), c.numel(), c[0].numel(),
+            ACT_CODES[activation], ACT_CODES[recurrent_activation],
+            int(_gate_dtype(gate_dtype) is not None), stream,
         )
     if err:
         raise RuntimeError(f"lstm_gates launch failed: CUDA error {err}")
     lstm_gates.launches += 1
     return h_out, c_out
+
+
+def _forward(zx, zh, c, *acts):
+    """The kernel on CUDA, the plain version on the CPU."""
+    if zx.device.type == "cpu":
+        return lstm_gates_plain(zx, zh, c, *acts)
+    return _launch(zx, zh, c, *acts)
+
+
+class _Gates(torch.autograd.Function):
+    """Forward: :func:`_forward`. Backward: the plain version's VJP,
+    recomputed from the saved operands."""
+
+    @staticmethod
+    def forward(ctx, zx, zh, c, activation, recurrent_activation, gate_dtype):
+        ctx.save_for_backward(zx, zh, c)
+        ctx.acts = (activation, recurrent_activation, gate_dtype)
+        return _forward(zx, zh, c, *ctx.acts)
+
+    @staticmethod
+    def backward(ctx, grad_h, grad_c):
+        operands = [t.detach().requires_grad_(need) for t, need in
+                    zip(ctx.saved_tensors, ctx.needs_input_grad[:3])]
+        wrt = [t for t in operands if t.requires_grad]
+        grads = iter(())
+        if wrt:
+            with torch.enable_grad():
+                h, c_new = lstm_gates_plain(*operands, *ctx.acts)
+                grads = iter(torch.autograd.grad((h, c_new), wrt,
+                                                 (grad_h, grad_c)))
+        return tuple(next(grads) if t.requires_grad else None
+                     for t in operands) + (None, None, None)
+
+
+def lstm_gates(zx, zh, c, activation="tanh",
+               recurrent_activation="hard_sigmoid", gate_dtype=None):
+    """zx, zh (B, 4F, H, W) and carry c (B, F, H, W) -> (h', c');
+    differentiable in zx, zh and c."""
+    B, C4, H, W = zx.shape
+    if C4 % 4 or zh.shape != zx.shape or c.shape != (B, C4 // 4, H, W):
+        raise ValueError(
+            f"lstm_gates shapes: zx {tuple(zx.shape)}, zh {tuple(zh.shape)}, "
+            f"c {tuple(c.shape)}"
+        )
+    # Unknown activation names and gate dtypes raise here.
+    _act(activation), _act(recurrent_activation), _gate_dtype(gate_dtype)
+    if zx.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"lstm_gates: unsupported device {zx.device}")
+    if zx.device.type == "cuda":
+        for name, t in (("zx", zx), ("zh", zh), ("c", c)):
+            if t.device != zx.device or t.dtype != torch.float32:
+                raise ValueError(
+                    f"lstm_gates: {name} must be float32 on {zx.device}, got "
+                    f"{t.dtype} on {t.device}"
+                )
+            if not t.is_contiguous():
+                raise ValueError(f"lstm_gates: {name} must be contiguous")
+    acts = (activation, recurrent_activation, gate_dtype)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (zx, zh, c)):
+        return _Gates.apply(zx, zh, c, *acts)
+    # No gradient to record: the same forward without the Function's host
+    # work, which a short launch would feel.
+    return _forward(zx, zh, c, *acts)
 
 
 lstm_gates.launches = 0

@@ -20,7 +20,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from dlwp_torch.kernels import fused_conv_pool, lstm_gates
-from dlwp_torch.kernels.lstm_gates import hard_sigmoid
+from dlwp_torch.kernels.fused_conv_pool import MAX_DILATION
+from dlwp_torch.kernels.lstm_gates import ACT_CODES, gate_chain, hard_sigmoid
 from dlwp_torch.ops.conv import conv_after_upsample2, cyclic_conv2d
 from dlwp_torch.ops.pooling import max_pool2d, upsample2d
 
@@ -168,28 +169,38 @@ class CyclicConv2D(_ConvBase):
 class FusedConvPool2D(_ConvBase):
     """CyclicConv2D(3x3) + activation + MaxPool2D(2) (``layers.py:410``).
 
-    3x3 tanh stages on even grids go through the ``fused_conv_pool`` kernel
-    (its plain version on the CPU); any other configuration runs the
-    composition conv -> bias -> activation -> pool.
+    What :meth:`uses_kernel` admits goes through ``fused_conv_pool`` (its
+    kernel on the card, its plain version on the CPU); any other case runs
+    the composition conv -> bias -> activation -> pool, as the JAX layer
+    composes the ops outside its float32 Pallas branch.
     """
 
     def __init__(self, features, kernel_size=3, dilation=1,
                  activation="tanh", use_bias=True):
         super().__init__(features, kernel_size, dilation, activation, use_bias)
 
-    def forward(self, x):
-        self._require_built()
+    def uses_kernel(self, x) -> bool:
+        """A 3x3 tanh stage on an even float32 grid, at a dilation the
+        kernel takes (1..``MAX_DILATION``, below the width)."""
         d = self.dilation
-        if (
+        return (
             self.kernel_size == (3, 3)
             and d[0] == d[1]
+            and 1 <= d[0] <= min(MAX_DILATION, x.shape[-1] - 1)
             and self.activation == "tanh"
             and x.dim() == 4
             and x.shape[-1] % 2 == 0
             and x.shape[-2] % 2 == 0
-        ):
-            return fused_conv_pool(x, self.kernel, self.bias, dilation=d[0])
-        y = self._finish(cyclic_conv2d(x, self.kernel, dilation=d))
+            and all(t.dtype == torch.float32
+                    for t in (x, self.kernel, self.bias) if t is not None)
+        )
+
+    def forward(self, x):
+        self._require_built()
+        if self.uses_kernel(x):
+            return fused_conv_pool(x, self.kernel, self.bias,
+                                   dilation=self.dilation[0])
+        y = self._finish(cyclic_conv2d(x, self.kernel, dilation=self.dilation))
         return max_pool2d(y, (2, 2))
 
 
@@ -220,9 +231,12 @@ class ConvLSTM2D(ParamLayer):
     """Convolutional LSTM over (B, T, C, H, W) (``layers.py:190``).
 
     Keras semantics: gates use ``recurrent_activation`` (default Keras
-    hard_sigmoid), candidate and output use ``activation``. Both convs wrap
+    hard_sigmoid), candidate and output use ``activation``; either may be a
+    name of :func:`get_activation` or a callable. Both convs wrap
     longitude. Per step: the input conv (dilation d) plus bias, the
-    recurrent conv (dilation 1), then the ``lstm_gates`` kernel. The first
+    recurrent conv (dilation 1), then the gate chain: the ``lstm_gates``
+    kernel where :meth:`uses_kernel` admits the step, else the same chain
+    in plain PyTorch ops with :func:`get_activation`. The first
     step starts from h = c = 0, so its recurrent conv and forget branch
     vanish and it runs as three plain ops. ``gate_dtype`` bf16 computes the
     gate chain in bf16 with the carry kept in the input dtype.
@@ -239,9 +253,8 @@ class ConvLSTM2D(ParamLayer):
                  return_sequences=True, lat_mode="zero", gate_dtype=None,
                  spatial=None):
         super().__init__()
-        if not (isinstance(activation, str)
-                and isinstance(recurrent_activation, str)):
-            raise ValueError("ConvLSTM2D takes activations by name")
+        # Unknown names raise here, as in get_activation.
+        get_activation(activation), get_activation(recurrent_activation)
         self.features = features
         self.kernel_size = pair(kernel_size)
         self.dilation = pair(dilation)
@@ -274,6 +287,16 @@ class ConvLSTM2D(ParamLayer):
     def in_channels(self, x):
         return x.shape[2]
 
+    def uses_kernel(self, zx, zh, c) -> bool:
+        """Whether a step t >= 1 goes to ``lstm_gates`` (its kernel on the
+        card, its plain version on the CPU): activations the kernel has,
+        by name, and float32 ``zx``, ``zh`` and ``c``."""
+        return (
+            all(isinstance(a, str) and a in ACT_CODES
+                for a in (self.activation, self.recurrent_activation))
+            and all(t.dtype == torch.float32 for t in (zx, zh, c))
+        )
+
     def forward(self, x):
         self._require_built()
         B, T, C, H, W = x.shape
@@ -298,8 +321,11 @@ class ConvLSTM2D(ParamLayer):
         hs = [h]
         for t in range(1, T):
             zh = conv(h, self.recurrent_kernel)
-            h, c = lstm_gates(zx[t], zh, c, self.activation,
-                              self.recurrent_activation, gd)
+            if self.uses_kernel(zx[t], zh, c):
+                h, c = lstm_gates(zx[t], zh, c, self.activation,
+                                  self.recurrent_activation, gd)
+            else:
+                h, c = gate_chain(zx[t], zh, c, act, r_act, gd)
             hs.append(h)
         if self.return_sequences:
             return torch.stack(hs, dim=1)

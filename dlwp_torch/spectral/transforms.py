@@ -46,6 +46,30 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().numpy()
 
 
+def dft_weights(nlon: int, n_modes: int) -> tuple[np.ndarray, np.ndarray]:
+    """The multiplicities of the one-sided modes in irfft's Hermitian-input
+    convention, float64 (M,): ``c_re`` (1 for m = 0 and the Nyquist mode,
+    else 2) on the real parts and ``c_im`` (0 there, else -2) on the
+    imaginary parts; :func:`dft_tables` weights its inverse rows with
+    them."""
+    L, M = int(nlon), int(n_modes)
+    if M > L // 2 + 1:
+        # The FFT path fails loudly here (shape mismatch); the matmul
+        # tables would silently alias m >= nlon//2+1 onto lower modes.
+        raise ValueError(
+            f"n_modes={M} exceeds the one-sided spectrum of nlon={L} "
+            f"({L // 2 + 1} modes)"
+        )
+    c_re = np.full(M, 2.0)
+    c_re[0] = 1.0
+    c_im = np.full(M, -2.0)
+    c_im[0] = 0.0
+    if M - 1 == L // 2 and L % 2 == 0:
+        c_re[M - 1] = 1.0
+        c_im[M - 1] = 0.0
+    return c_re, c_im
+
+
 def dft_tables(nlon: int, n_modes: int) -> tuple[np.ndarray, np.ndarray]:
     """Real DFT matrices implementing rfft/irfft for one-sided modes.
 
@@ -56,27 +80,14 @@ def dft_tables(nlon: int, n_modes: int) -> tuple[np.ndarray, np.ndarray]:
       ``rfft(field)/L`` truncated to M modes.
     - ``dft_inv`` (2M, nlon) with multiplicity-weighted rows under
       irfft's Hermitian-input convention (imaginary parts of the m = 0
-      and Nyquist modes are dropped, as irfft does):
+      and Nyquist modes are dropped, as irfft does, :func:`dft_weights`):
       ``stack([re, im]) . dft_inv`` reconstructs the grid.
     """
+    c_re, c_im = dft_weights(nlon, n_modes)
     L, M = int(nlon), int(n_modes)
-    if M > L // 2 + 1:
-        # The FFT path fails loudly here (shape mismatch); the matmul
-        # tables would silently alias m >= nlon//2+1 onto lower modes.
-        raise ValueError(
-            f"n_modes={M} exceeds the one-sided spectrum of nlon={L} "
-            f"({L // 2 + 1} modes)"
-        )
     m_vals = np.arange(M, dtype=np.float64)
     ang = 2.0 * np.pi * np.outer(np.arange(L), m_vals) / L  # (L, M)
     dft_fwd = np.concatenate([np.cos(ang) / L, -np.sin(ang) / L], axis=1)
-    c_re = np.full(M, 2.0)
-    c_re[0] = 1.0
-    c_im = np.full(M, -2.0)
-    c_im[0] = 0.0
-    if M - 1 == L // 2 and L % 2 == 0:
-        c_re[M - 1] = 1.0
-        c_im[M - 1] = 0.0
     dft_inv = np.concatenate(
         [c_re[:, None] * np.cos(ang).T, c_im[:, None] * np.sin(ang).T],
         axis=0,

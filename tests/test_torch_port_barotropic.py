@@ -32,6 +32,18 @@ from dlwp_torch.barotropic.fused_step import (
     build_vrt_step_tables,
 )
 from dlwp_torch.kernels import barotropic_step, barotropic_step_plain, launch_counts
+from dlwp_torch.spectral import dft_tables
+from dlwp_torch.kernels.barotropic_step import (
+    ANA_TABLES,
+    NF,
+    NP,
+    SPLIT,
+    SYN_TABLES,
+    _fits,
+    layout,
+    pack_tables,
+    pair_entries,
+)
 
 torch.set_num_threads(2)
 GOLDEN = os.path.join(os.path.dirname(__file__), "fixtures", "golden.npz")
@@ -285,3 +297,238 @@ def test_wrapper_checks_operands():
     with pytest.raises(ValueError):
         barotropic_step("vrt", m._kernel_tables, *parts[:3],
                         parts[3].double(), *args)
+
+
+def _chunks(n):
+    """The kernel's kSplit chunks of a contraction of length ``n``."""
+    ch = -(-n // SPLIT)
+    return [range(s * ch, min(n, (s + 1) * ch)) for s in range(SPLIT)]
+
+
+def _emulate_kernel(form, tables, packed, state, step0, n_steps, dt, r):
+    """The redesigned kernel's indexing and summation order in numpy float64:
+    row pairs (m, M-1-m) over the packed n >= m entries (in ``a_split``
+    chunks of the pair's entries), per-output sequential sums over
+    ``_chunks`` added in chunk order, twiddles at (m*l) mod L with the
+    pairs l, L-l, the weights applied to each synthesised mode, the forward
+    sums scaled by 1/L at the end. Vectorised only over outputs, never over
+    a sum."""
+    tab, tw, wts = (packed[k].numpy() for k in ("tab", "tw", "wts"))
+    damp, dden = tables["damp"].numpy(), tables["dden"].numpy()
+    vr, vi, pr, pi = (s.numpy().copy() for s in state)
+    M = vr.shape[0]
+    L = tables["dinv"].shape[0]
+    J = tables[SYN_TABLES[form][0]].shape[1]
+    K1, nl, P = M + 1, L // 2 + 1, (M + 1) // 2
+    ns, nf, npp = len(SYN_TABLES[form]), NF[form], NP[form]
+    slab = K1 * J
+    ls, ms = np.arange(nl), np.arange(M)
+    paired = (ls > 0) & (2 * ls != L)
+
+    def rows(b):
+        entries, c1 = pair_entries(M, b)
+        segs = [(0, c1, b)]
+        if M - 1 - b != b:
+            segs.append((c1, K1, M - 1 - b))
+        return entries, segs
+
+    def synthesise():
+        syn = np.zeros((J, M, 2 * nf))
+        sa = SPLIT
+        for b in range(P):
+            entries, segs = rows(b)
+            if form == "psi":
+                inv = tables["invF"].numpy()
+                xs = np.array([[vr[m, n] * inv[m, n], vi[m, n] * inv[m, n],
+                                vr[m, n], vi[m, n]] if m >= 0 else [0.0] * 4
+                               for m, n in entries])
+            else:
+                xs = np.array([[vr[m, n], vi[m, n]] if m >= 0 else [0.0] * 2
+                               for m, n in entries])
+            kend = segs[-1][1]
+            ch = -(-kend // sa)
+            for t in range(ns):
+                T = tab[b, t, :slab].reshape(K1, J)
+                for k0, k1, m in segs:
+                    # Chunk s of the pair's entries, this row's part of it.
+                    parts = []
+                    for s in range(sa):
+                        a = np.zeros((J, xs.shape[1]))
+                        for k in range(max(k0, s * ch),
+                                       min(k1, (s + 1) * ch)):
+                            a = a + T[k][:, None] * xs[k][None, :]
+                        parts.append(a)
+                    a = parts[0]
+                    for part in parts[1:]:
+                        a = a + part
+                    if form == "psi":
+                        f = ([-a[:, 1], a[:, 0], -a[:, 3], a[:, 2]] if t == 0
+                             else [a[:, 0], a[:, 1], a[:, 2], a[:, 3]])
+                    else:
+                        f = [[a[:, 0], a[:, 1]], [-a[:, 0], -a[:, 1]],
+                             [-a[:, 1], a[:, 0]]][t]
+                    base = 4 * t if form == "psi" else 2 * t
+                    for i, v in enumerate(f):
+                        syn[:, m, base + i] = v * wts[i % 2, m]
+        return syn
+
+    def columns(syn):
+        # Inverse DFT partials (j, s, l, field, C|S), then their sum.
+        part = np.zeros((J, SPLIT, nl, nf, 2))
+        for s, chunk in enumerate(_chunks(M)):
+            for m in chunk:
+                idx = (m * ls) % L
+                for f in range(nf):
+                    part[:, s, :, f, 0] += syn[:, m, 2 * f, None] * tw[idx, 0]
+                    part[:, s, :, f, 1] += (syn[:, m, 2 * f + 1, None]
+                                            * tw[idx, 1])
+        cs = part[:, 0]
+        for s in range(1, SPLIT):
+            cs = cs + part[:, s]
+        g_l, g_r = cs[..., 0] + cs[..., 1], cs[..., 0] - cs[..., 1]
+        if form == "psi":
+            prods = [[g[..., 0] * g[..., 3] - g[..., 2] * g[..., 1]]
+                     for g in (g_l, g_r)]
+        else:
+            f_row = tables["f_row"].numpy()[0][:, None]
+            prods = [[-(f_row + g[..., 0]) * g[..., 2],
+                      (f_row + g[..., 0]) * g[..., 1]] for g in (g_l, g_r)]
+        psum = [np.where(paired, a + c, a) for a, c in zip(*prods)]
+        pdif = [np.where(paired, a - c, a) for a, c in zip(*prods)]
+        fpart = np.zeros((J, SPLIT, M, npp, 2))
+        for s, chunk in enumerate(_chunks(nl)):
+            for l in chunk:
+                idx = (ms * l) % L
+                for q in range(npp):
+                    fpart[:, s, :, q, 0] += tw[idx, 0] * psum[q][:, l, None]
+                    fpart[:, s, :, q, 1] += tw[idx, 1] * pdif[q][:, l, None]
+        out = fpart[:, 0]
+        for s in range(1, SPLIT):
+            out = out + fpart[:, s]
+        # cos/L and -sin/L: the sums scaled by the table's 1/L.
+        out = out * np.array([tw[0, 2], -tw[0, 2]])
+        return out.transpose(1, 0, 2, 3)  # (M, J, NP, 2)
+
+    def analyse_and_step(fwd, first):
+        for b in range(P):
+            entries, segs = rows(b)
+            kend = segs[-1][1]
+            A = tab[b, ns:, :K1 * J].reshape(-1, J, K1)
+            row_of = np.array([0 if k < segs[0][1] else 1
+                               for k in range(kend)])
+            fc = np.stack([fwd[m].reshape(J, -1) for _, _, m in segs])
+            part = np.zeros((SPLIT, kend, 2 if form == "psi" else 4))
+            for s, chunk in enumerate(_chunks(J)):
+                for j in chunk:
+                    v = fc[row_of, j]  # (kend, 2 NP)
+                    a = A[:, j, :kend]
+                    if form == "psi":
+                        part[s] += a[0][:, None] * v
+                    else:
+                        part[s] += np.stack([a[0] * v[:, 0], a[1] * v[:, 3],
+                                             a[0] * v[:, 1], a[1] * v[:, 2]],
+                                            axis=1)
+            tot = part[0]
+            for s in range(1, SPLIT):
+                tot = tot + part[s]
+            if form == "psi":
+                tend = tot
+            else:
+                tend = np.stack([tot[:, 0] - tot[:, 1], tot[:, 2] + tot[:, 3]],
+                                axis=1)
+            for r_, (k0, k1, m) in enumerate(segs):
+                tr, ti = np.zeros(M), np.zeros(M)
+                tr[m:], ti[m:] = tend[k0:k1, 0], tend[k0:k1, 1]
+                dzr = (tr - damp[m] * pr[m]) * dden[m]
+                dzi = (ti - damp[m] * pi[m]) * dden[m]
+                if first:
+                    nr, ni = vr[m] + dt * dzr, vi[m] + dt * dzi
+                    pr[m], pi[m] = vr[m] + r * (nr - vr[m]), vi[m] + r * (
+                        ni - vi[m])
+                else:
+                    nr, ni = pr[m] + 2 * dt * dzr, pi[m] + 2 * dt * dzi
+                    pr[m] = vr[m] + r * (pr[m] - 2 * vr[m]) + r * nr
+                    pi[m] = vi[m] + r * (pi[m] - 2 * vi[m]) + r * ni
+                vr[m], vi[m] = nr, ni
+
+    for i in range(n_steps):
+        analyse_and_step(columns(synthesise()), step0 + i == 0)
+    return vr, vi, pr, pi
+
+
+@pytest.mark.parametrize("variant", KERNEL_FORMS, ids=_ids)
+def test_kernel_emulation_matches_plain_float64(variant):
+    """The packed layout, row pairs, n >= m skipping, twiddles and summation
+    order of csrc/barotropic_step.cu, emulated in float64, reproduce the
+    plain version on the same (float32-rounded) tables to 1e-12."""
+    cls, kw = variant
+    m = getattr(port_baro, cls)(LatLonGrid.regular(NLAT, NLON), T, dt=1800.0,
+                                damping_coefficient=5e-6, step_impl="kernel",
+                                device="cpu", **kw)
+    # The Legendre tables as the card holds them (float32-rounded); the DFT
+    # matrices in float64, as the kernel's twiddles are computed.
+    tabs = {k: v.double() for k, v in m._kernel_tables.items()}
+    fwd, inv = dft_tables(NLON, T + 1)
+    tabs.update(dinv=torch.from_numpy(inv.T.copy()),
+                dfwd_re=torch.from_numpy(fwd[:, :T + 1].T.copy()),
+                dfwd_im=torch.from_numpy(fwd[:, T + 1:].T.copy()))
+    packed = pack_tables(m._kernel_form, tabs)
+    s0 = m.from_z(_z0())
+    state = [x.double().contiguous() for x in (
+        s0.vrt_spec.real, s0.vrt_spec.imag, s0.vrt_spec.real,
+        s0.vrt_spec.imag)]
+    args = (0, 6, m.dt, m.robert_coefficient)
+    want = barotropic_step_plain(m._kernel_form, tabs, *state, *args)
+    got = _emulate_kernel(m._kernel_form, tabs, packed, state, *args)
+    for g, w in zip(got, want):
+        assert _rel(g, w.numpy()) <= 1e-12
+    # The float32 packing is the float64 one rounded.
+    for k, v in m._kernel_tables.packed.items():
+        assert v.dtype == torch.float32
+        np.testing.assert_array_equal(v.numpy(),
+                                      packed[k].numpy().astype(np.float32))
+
+
+@pytest.mark.parametrize("M", [2, 3, 25, 26, 73, 74])
+def test_row_pairs_cover_each_entry_once(M):
+    """Row pairs (m, M-1-m): every (m, n >= m) once, M+1 entries a pair,
+    padding only after the middle row of odd M."""
+    seen = []
+    for b in range((M + 1) // 2):
+        entries, c1 = pair_entries(M, b)
+        assert len(entries) == M + 1 and c1 == M - b
+        assert all(e == (b, b + k) for k, e in enumerate(entries[:c1]))
+        pad = [e for e in entries if e == (-1, -1)]
+        assert len(pad) == ((M + 1) // 2 if 2 * b == M - 1 else 0)
+        seen += [e for e in entries if e != (-1, -1)]
+    assert sorted(seen) == [(m, n) for m in range(M) for n in range(m, M)]
+
+
+@pytest.mark.parametrize("form,M,J,L,kb", [("psi", 73, 73, 144, 138),
+                                           ("vrt", 73, 73, 144, 173),
+                                           ("psi", 25, 37, 72, 34),
+                                           ("vrt", 25, 37, 72, 38)])
+def test_kernel_layout_fits(form, M, J, L, kb):
+    """The shared-memory layout: 16-byte aligned regions, tables resident
+    within Hopper's 227 KB at T72 on 73x144; larger grids are refused
+    before launch."""
+    lay = layout(form, M, J, L)
+    assert all(v % 4 == 0 for k, v in lay.items()
+               if k not in ("bytes", "nlp"))
+    assert lay["bytes"] // 1024 == kb and lay["bytes"] <= 227 * 1024
+    nt = len(SYN_TABLES[form]) + len(ANA_TABLES[form])
+    assert lay["twm"] - lay["tab"] == nt * lay["slab"]
+    assert lay["nlp"] % 2 == 1 and lay["nlp"] >= L // 2 + 1
+    _fits(form, M, J, L)
+    with pytest.raises(ValueError, match="step_impl='plain'"):
+        _fits(form, 129, 128, 256)  # T128 on 128x256: over 227 KB
+
+
+def test_packing_refuses_tables_not_zero_below_the_diagonal():
+    m = port_baro.BarotropicModel(LatLonGrid.regular(NLAT, NLON), T,
+                                  dt=1800.0, step_impl="kernel", device="cpu")
+    tabs = dict(m._kernel_tables)
+    tabs["Au"] = tabs["Au"].clone()
+    tabs["Au"][3, 1, 0] = 1.0
+    with pytest.raises(ValueError, match="Au"):
+        pack_tables("vrt", tabs)

@@ -13,7 +13,13 @@ for bit; the two overlap convs bit for bit with each other; a conv-pool
 sample bit for bit whatever the batch), the fused
 flagship on the card against the same model on the
 CPU, and the lat-band sharded flagship on two virtual shards of the card
-against the unsharded one.
+against the unsharded one. The layers' routing on the card: a float64
+model runs the compositions and matches the CPU (1e-10, float64 rounding);
+a ConvLSTM2D with 'relu' runs the plain gate chain; the gradient of a
+ConvLSTM2D through the ``lstm_gates`` kernel (plain VJP) matches the same
+layer's through the plain gate chain within 1e-5 of its scale (the
+kernel's and the plain forward differ by float32 rounding); and
+``fused_conv_pool`` refuses operands that require grad.
 """
 
 import numpy as np
@@ -23,6 +29,7 @@ import torch
 from dlwp_torch import (
     BarotropicModel,
     BarotropicModelPsi,
+    DLWPNeuralNet,
     LatLonGrid,
     build_sequential,
 )
@@ -42,6 +49,8 @@ from dlwp_torch.kernels import (
     overlap_conv_plain,
     reset_launch_counts,
 )
+from dlwp_torch.models import layers as TL
+from dlwp_torch.models.cnn import SequentialModel
 from dlwp_torch.parallel import MeshConfig, SpatialSharding, build_mesh
 from dlwp_torch.parallel.mesh import split_shards
 
@@ -296,3 +305,86 @@ def test_sharded_flagship_on_card_matches_unsharded(dev):
     assert counts["overlap_conv"] == 3 * 4 and counts["halo_exchange"] == 3 * 4
     assert counts["lstm_gates"] == 6 and counts["fused_conv_pool"] == 6
     torch.testing.assert_close(xs["sharded"], xs["plain"], rtol=0, atol=1e-4)
+
+
+def _params_tree(model):
+    return {"params": {
+        f"layers_{i}": {k: p.detach().cpu().numpy()
+                        for k, p in layer.named_parameters()}
+        for i, layer in enumerate(model.layers)
+        if any(True for _ in layer.parameters())
+    }}
+
+
+def test_float64_predict_on_card_matches_cpu(dev):
+    """A float64 flagship (8x16) on the card runs the compositions (no
+    kernel launch) and predicts what the CPU predicts."""
+    x = np.random.RandomState(3).randn(2, 2, 3, 8, 16)
+    nets = {}
+    for name in ("cpu", dev):
+        net = DLWPNeuralNet(is_recurrent=True, time_dim=2, scaler_type=None,
+                            device=name)
+        net.build_model(convlstm_specs(8, 16))
+        nets[name] = net
+    nets["cpu"].init(x, seed=4)
+    tree = _params_tree(nets["cpu"].base_model)
+    for net in nets.values():
+        net.load_flax_params(tree, dtype=torch.float64)
+    reset_launch_counts()
+    got = nets[dev].predict(x)
+    assert set(launch_counts().values()) == {0}
+    np.testing.assert_allclose(got, nets["cpu"].predict(x), rtol=0,
+                               atol=1e-10)
+
+
+def test_convlstm_relu_on_card_matches_cpu(dev):
+    x = np.random.RandomState(5).randn(2, 3, 3, 8, 16).astype(np.float32)
+    models = {}
+    for name in ("cpu", dev):
+        models[name] = SequentialModel(
+            [TL.ConvLSTM2D(4, 3, dilation=2, activation="relu")], device=name)
+    models["cpu"].init(torch.from_numpy(x), seed=6)
+    models[dev].init(torch.from_numpy(x), seed=6)
+    reset_launch_counts()
+    with torch.inference_mode():
+        got = models[dev](torch.from_numpy(x).to(dev)).cpu()
+        want = models["cpu"](torch.from_numpy(x))
+    assert launch_counts()["lstm_gates"] == 0
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+
+
+def test_convlstm_gradient_on_card_matches_plain_path(dev, monkeypatch):
+    """Gradients of a ConvLSTM2D on the card through the gate kernel
+    (forward) and the plain version's VJP (backward), against the same
+    layer with the plain gate chain, for every parameter and the input."""
+    rng = np.random.RandomState(7)
+    x = rng.randn(2, 3, 3, 8, 16).astype(np.float32)
+    w = torch.from_numpy(rng.randn(2, 3, 4, 8, 16).astype(np.float32)).to(dev)
+    grads = []
+    for gates, launched in ((lstm_gates, 2), (lstm_gates_plain, 0)):
+        monkeypatch.setattr(TL, "lstm_gates", gates)
+        model = SequentialModel([TL.ConvLSTM2D(4, 3, dilation=2)], device=dev)
+        model.init(torch.from_numpy(x), seed=8)
+        layer = model.layers[0]
+        params = [getattr(layer, n) for n in ("input_kernel",
+                                              "recurrent_kernel", "bias")]
+        for p in params:
+            p.requires_grad_(True)
+        xt = torch.from_numpy(x).to(dev).requires_grad_(True)
+        reset_launch_counts()
+        (layer(xt) * w).sum().backward()
+        assert launch_counts()["lstm_gates"] == launched
+        grads.append([t.grad for t in params + [xt]])
+    for got, want in zip(*grads):
+        assert ((got - want).abs().max() / want.abs().max()).item() <= 1e-5
+
+
+def test_conv_pool_refuses_operands_that_require_grad(dev):
+    x, k, b = (torch.from_numpy(a).to(dev) for a in _conv_pool_operands(
+        2, B=2, C=5, H=8, W=16, O=7))
+    with pytest.raises(NotImplementedError, match="forward only"):
+        fused_conv_pool(x, k.requires_grad_(True), b, 1)
+    with torch.no_grad():
+        torch.testing.assert_close(fused_conv_pool(x, k, b, 1),
+                                   fused_conv_pool_plain(x, k, b, 1),
+                                   rtol=0, atol=1e-5)
