@@ -10,9 +10,11 @@ Phases, each raising on failure:
    with each kernel's registers and spills from ``-Xptxas -v``;
 3. each kernel against its plain PyTorch version on the card, at the
    flagship shapes and on odd cases (``fused_conv_pool``: both encoder
-   stages, the odd cases of ``CONV_POOL_CASES`` and both stages on the
-   0.5-degree grid (180x720, column blocks), each with the plan and grid
-   it launched; at each flagship stage samples 0..2 of B=64 equal a B=3
+   stages, the odd cases of ``CONV_POOL_CASES``, both stages on the
+   0.5-degree grid (180x720, column blocks) and dilations from 9 to W - 1
+   (taps staged in groups), each with the plan and grid it launched, the
+   large dilations also under every other plan bit for bit; at each
+   flagship stage samples 0..2 of B=64 equal a B=3
    call bit for bit, and other plans (the other ring depth, warp build,
    column split, tile shape and weight layout) give the chosen plan's
    result bit for bit, the ring's other depth timed beside it);
@@ -33,10 +35,11 @@ Phases, each raising on failure:
    off) on the input padded once, without the pool, bias and tanh;
    then the layers' routing on the card: a float64 predict(2) through the
    compositions (no kernel launch) against the CPU, a ConvLSTM2D with
-   'relu' (plain gate chain) against the CPU, the gates' gradient (kernel
-   forward, plain VJP) against autograd through the plain version and a
-   ConvLSTM2D's against the plain gate chain, and fused_conv_pool refusing
-   an operand that requires grad;
+   'relu' (plain gate chain) against the CPU, a float32 FusedConvPool2D
+   at dilation 9 through the kernel against the CPU, the gates' gradient
+   (kernel forward, plain VJP) against autograd through the plain version
+   and a ConvLSTM2D's against the plain gate chain, and fused_conv_pool
+   refusing an operand that requires grad;
 7. the barotropic step kernel against its plain version on the card (psi
    form with and without the hemisphere sign correction, vorticity form):
    T24 on 37x72 for 20 steps and T72 on 73x144 for 40 steps, relative max
@@ -143,14 +146,19 @@ HALO_CONVS = (
 # fused_conv_pool (B, C, H, W, O, dilation): the flagship's encoder stages
 # (the main path's shapes), then odd cases: d 1/2/3, C 3/5/11/24/32, O
 # 7/37/64/65, W 10/16/18/72/144, H 4/8/10; then both stages on the
-# 0.5-degree grid (180x720), 5 column blocks a row.
+# 0.5-degree grid (180x720), 5 column blocks a row; then dilations that
+# stage their taps' rows, or rows and columns, in three groups (up to W -
+# 1), each also under every other plan.
 CONV_POOL_CASES = ((B, 24, NLAT, NLON, 32, 2),
                    (B, 32, NLAT // 2, NLON // 2, 64, 1),
                    (3, 5, 10, 18, 7, 3), (3, 11, 10, 18, 37, 1),
                    (2, 3, 8, 16, 65, 2), (4, 32, 8, 72, 7, 1),
                    (2, 24, 10, 144, 64, 3), (5, 11, 8, 16, 37, 2),
                    (2, 5, 4, 10, 7, 3), (2, 24, 180, 720, 32, 2),
-                   (2, 32, 90, 360, 64, 1))
+                   (2, 32, 90, 360, 64, 1), (3, 5, 10, 18, 7, 9),
+                   (2, 3, 8, 16, 65, 15), (2, 24, 36, 144, 32, 17),
+                   (2, 24, 36, 144, 32, 143))
+LARGE_DILATION = 9  # and above: the cases checked under every plan
 OVERLAP_CONVS = (
     ("convlstm recurrent", (B, 12, NLAT, NLON), 48),
     ("tower conv 2", (B, 32, NLAT // 2, NLON // 2), 64),
@@ -230,14 +238,15 @@ def check_kernels(torch, dev):
         if not err <= TOL_F32:
             raise AssertionError(f"fused_conv_pool {shape}: {err} > {TOL_F32}")
         errs["fused_conv_pool"] = max(errs["fused_conv_pool"], err)
-        if not flagship:
+        if not flagship and d < LARGE_DILATION:
             continue
         # A sample's result depends neither on the batch nor on the plan.
-        small = fused_conv_pool(x[:3].contiguous(), k, bias, d)
-        torch.cuda.synchronize()
-        if not torch.equal(small, y[:3]):
-            raise AssertionError(f"fused_conv_pool {shape}: B=3 differs "
-                                 f"from B={b}")
+        if flagship:
+            small = fused_conv_pool(x[:3].contiguous(), k, bias, d)
+            torch.cuda.synchronize()
+            if not torch.equal(small, y[:3]):
+                raise AssertionError(f"fused_conv_pool {shape}: B=3 differs "
+                                     f"from B={b}")
         variants = _variants(plan, *shape)
         for other in variants:
             if not torch.equal(_launch(x, k, bias, d, other), y):
@@ -245,6 +254,8 @@ def check_kernels(torch, dev):
                                      f"{other} differs from {plan}")
         log(f"check fused_conv_pool {shape}: {len(variants)} other plans "
             f"bit-equal ({', '.join(plan_text(p) for p in variants)})")
+        if not flagship:
+            continue
         ring = variants[0]  # the chosen plan with the other ring depth
         ring_ms = device_ms_per_call(
             torch, lambda: _launch(x, k, bias, d, ring))
@@ -430,12 +441,14 @@ def run_main_path(torch, dev):
 def check_routing(torch, dev):
     """The layers' routing on the card: a float64 flagship predict(2) runs
     the compositions (no kernel launch) and matches the CPU; a ConvLSTM2D
-    with 'relu' runs the plain gate chain and matches the CPU; the gates'
-    gradient (the kernel's forward, the plain version's VJP) equals
-    autograd through the plain version on the card, and a ConvLSTM2D's
-    gradient through the kernel matches the same layer's through the plain
-    gate chain; fused_conv_pool refuses operands that require grad.
-    Returns the largest differences."""
+    with 'relu' runs the plain gate chain and matches the CPU; a float32
+    FusedConvPool2D at dilation 9 runs the kernel, as the JAX layer runs
+    its Pallas kernel there, and matches the CPU; the gates' gradient (the
+    kernel's forward, the plain version's VJP) equals autograd through the
+    plain version on the card, and a ConvLSTM2D's gradient through the
+    kernel matches the same layer's through the plain gate chain;
+    fused_conv_pool refuses operands that require grad. Returns the
+    largest differences."""
     from unittest import mock
 
     import dlwp_torch.models.layers as layers_module
@@ -445,7 +458,7 @@ def check_routing(torch, dev):
         reset_launch_counts,
     )
     from dlwp_torch.models.cnn import SequentialModel
-    from dlwp_torch.models.layers import ConvLSTM2D
+    from dlwp_torch.models.layers import ConvLSTM2D, FusedConvPool2D
 
     out = {}
     card, sampler = flagship_stack(dev)
@@ -489,6 +502,25 @@ def check_routing(torch, dev):
     if counts != expected_counts() or not (
             out["relu_convlstm_max_abs"] <= TOL_F32):
         raise AssertionError(f"relu ConvLSTM2D: {counts}, {out}")
+
+    xp = torch.randn(4, 24, NLAT, NLON, generator=g)
+    pools = {}
+    for name in ("cpu", dev):
+        pools[name] = SequentialModel(
+            [FusedConvPool2D(32, 3, dilation=9)], device=name)
+        pools[name].init(xp, seed=5)
+    reset_launch_counts()
+    with torch.inference_mode():
+        got = pools[dev](xp.to(dev)).cpu()
+        want = pools["cpu"](xp)
+    counts = launch_counts()
+    out["conv_pool_d9_max_abs"] = (got - want).abs().max().item()
+    log(f"routing: FusedConvPool2D(32, dilation=9) on (4, 24, 36, 144) on "
+        f"the card: launches {counts}; max |card - CPU| "
+        f"{out['conv_pool_d9_max_abs']:.3e}")
+    if counts != expected_counts(fused_conv_pool=1) or not (
+            out["conv_pool_d9_max_abs"] <= TOL_F32):
+        raise AssertionError(f"FusedConvPool2D at dilation 9: {counts}, {out}")
 
     # The gates at the flagship's shape: the kernel's forward and the
     # plain VJP against autograd through the plain version, same inputs.
@@ -667,8 +699,9 @@ def baro_work(form, M, J, L, n_steps):
 
 
 def check_barotropic_kernel(torch, dev):
-    """Kernel vs plain version at T24 and T72, and bit-equal resume;
-    returns the largest max |dz| in metres."""
+    """Kernel vs plain version at T24 and T72, and bit-equal resume; a
+    plain dict of tables (not packed) refused; returns the largest max |dz|
+    in metres."""
     from dlwp_torch.kernels import barotropic_step, barotropic_step_plain
 
     worst = 0.0
@@ -700,6 +733,12 @@ def check_barotropic_kernel(torch, dev):
             if not same:
                 raise AssertionError(f"barotropic_step T{T} {form}: resume")
             worst = max(worst, dz)
+    try:
+        barotropic_step(args[0], dict(args[1]), *args[2:])
+    except ValueError as e:
+        log(f"check barotropic_step refuses unpacked tables: {e}")
+    else:
+        raise AssertionError("barotropic_step took a plain dict of tables")
     return worst
 
 
@@ -1349,6 +1388,7 @@ def device_ms_per_call(torch, fn, calls=10):
 # Phases that run alone with --only, to iterate on one part on the card:
 # name -> (function of (torch, dev)).
 ONLY = {
+    "kernels": check_kernels,
     "routing": check_routing,
     "barotropic_kernel": check_barotropic_kernel,
     "barotropic_timing": time_barotropic,

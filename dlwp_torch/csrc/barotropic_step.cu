@@ -68,6 +68,8 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include <cstring>
+
 #include "tf32_mma.cuh"  // cp_async16, cp_async_commit, cp_async_wait
 
 namespace cg = cooperative_groups;
@@ -94,6 +96,21 @@ struct Form<kVrt> {
   static constexpr int NS = 3, NA = 2, NF = 3, NP = 2, NQ = 4, NX = 2;
 };
 
+// Offsets (floats) of the shared-memory regions and their total bytes, in
+// the order of the `lay` array of the C entry points. The wrapper
+// (kernels/barotropic_step.py, layout()) is their only owner; the entry
+// points check only what the indexing below needs of them (check_layout).
+//   tab   (NS + NA) slabs of `slab` floats: the pair's packed tables;
+//   twm   (M, nlp) float2: (cos, sin)(2 pi m l / L), l < L/2 + 1;
+//   wts   (2, M): irfft's weights;  st (2 M, 4): the pair's state rows;
+//   rowc  damp, dden (and psi's invF) of the pair's rows;
+//   frow  vrt's f_row (J);  xs (M + 1, 4): x of the pair's entries;
+//   work  each phase's operands and partial sums, up to `bytes`.
+struct Layout {
+  int slab, nlp, tab, twm, wts, st, rowc, frow, xs, work, bytes;
+};
+constexpr int kLayoutFields = 11;
+
 struct Params {
   const float* in[4];  // vr, vi, pr, pi (M, M)
   float* out[4];       // the result
@@ -108,41 +125,10 @@ struct Params {
   int M, J, L, step0, n_steps;
   float dt, r;
   long long* clocks;  // null, or (n_steps, kStamps) stage clocks of block 0
+  Layout y;           // shared memory
 };
 
 __host__ __device__ inline int round4(int n) { return (n + 3) / 4 * 4; }
-
-// Offsets (floats) of the shared-memory regions; kernels/barotropic_step.py
-// layout() mirrors it.
-struct Layout {
-  int slab, nlp, tab, twm, wts, st, rowc, frow, xs, work, total;
-};
-
-__host__ __device__ inline Layout layout(int form, int M, int J, int L) {
-  const bool psi = form == kPsi;
-  const int NS = psi ? 2 : 3, NT = psi ? 3 : 5, NF = psi ? 4 : 3;
-  const int NP = psi ? 1 : 2, NQ = psi ? 2 : 4, NX = psi ? 4 : 2;
-  const int K1 = M + 1, nl = L / 2 + 1;
-  Layout y;
-  y.slab = round4(K1 * J);
-  y.nlp = nl | 1;  // odd rows of the twiddle matrix: no bank conflicts
-  y.tab = 0;
-  y.twm = y.tab + NT * y.slab;
-  y.wts = y.twm + round4(2 * M * y.nlp);
-  y.st = y.wts + round4(2 * M);
-  y.rowc = y.st + 8 * M;            // (vr, vi, pr, pi) of 2 rows of M
-  y.frow = y.rowc + round4(6 * M);  // damp, dden, invF of 2 rows
-  y.xs = y.frow + round4(J);  // x of the pair's entries: 4 floats each
-  y.work = y.xs + 4 * K1;
-  const int a = kSplit * J * 2 * NS * NX;
-  const int b = round4(2 * NF * M) + round4(kSplit * nl * 2 * NF) +
-                round4(NP * nl * 2) + kSplit * M * 2 * NP;
-  const int c = round4(2 * J * 2 * NP) + kSplit * K1 * NQ;
-  int w = a > b ? a : b;
-  w = w > c ? w : c;
-  y.total = y.work + w;
-  return y;
-}
 
 // Stage clocks: thread 0 of block 0 stamps clock64() at the end of each
 // stage of a step into clk[k] (clk is null but in the timing build).
@@ -510,7 +496,7 @@ barotropic_kernel(Params p) {
   extern __shared__ __align__(16) float sh[];
   cg::grid_group grid = cg::this_grid();
   const int M = p.M, L = p.L;
-  const Layout y = layout(FORM, M, p.J, L);
+  const Layout& y = p.y;
   // Block b < P owns pair b; block P + b, where the grid has it, helps a
   // pair of two rows: both hold the pair's tables and state and run phase
   // C alike (the same sums, so the same state), and phase A splits the
@@ -593,13 +579,26 @@ __global__ void __launch_bounds__(kThreads) sync_probe(int n_steps) {
   }
 }
 
-// One cooperative launch of `fn` with the kernel's shared-memory request
-// and grid: max(P, J) blocks, or `blocks` if > 0, cut to what the card
-// holds at once (every block of a cooperative launch must be resident),
-// and refused below the P row-pair blocks.
-int launch(const void* fn, void** args, int form, int M, int J, int L,
+// What the kernel's indexing needs of the wrapper's layout: the regions in
+// order from 0, each 16-byte aligned (cp.async and vector accesses), a slab
+// for the M+1 entries of J values, an odd twiddle row of at least L/2 + 1
+// entries (no bank conflicts), and the work region inside the bytes.
+bool check_layout(const int* lay, int M, int J, int L, Layout* y) {
+  static_assert(sizeof(Layout) == kLayoutFields * sizeof(int), "ints only");
+  memcpy(y, lay, sizeof(Layout));
+  bool ok = y->tab == 0 && y->slab % 4 == 0 && y->slab >= (M + 1) * J &&
+            y->nlp % 2 == 1 && y->nlp >= L / 2 + 1 && y->bytes > 4 * y->work;
+  for (int i = 3; i < kLayoutFields - 1; ++i)  // twm .. work
+    ok = ok && lay[i] % 4 == 0 && lay[i] >= lay[i - 1];
+  return ok;
+}
+
+// One cooperative launch of `fn` with `smem` bytes of shared memory a
+// block and the kernel's grid: max(P, J) blocks, or `blocks` if > 0, cut
+// to what the card holds at once (every block of a cooperative launch must
+// be resident), and refused below the P row-pair blocks.
+int launch(const void* fn, void** args, size_t smem, int M, int J,
            int blocks, int* blocks_out, void* stream) {
-  const size_t smem = (size_t)layout(form, M, J, L).total * sizeof(float);
   cudaError_t err = cudaSuccess;
   if (smem > 48 * 1024) {
     err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -628,15 +627,18 @@ int launch(const void* fn, void** args, int form, int M, int J, int L,
 }  // namespace
 
 // ptrs: vr, vi, pr, pi (in); vr, vi, pr, pi (out); syn; fwd; tab, tw,
-// wts, damp, dden; then invF (psi) or f_row (vrt). Launches on `stream`,
-// with `clocks` (null, or n_steps x kStamps) the build that stamps block
-// 0's stages; writes the grid size to *blocks_out and returns the CUDA
-// error (0 = ok).
+// wts, damp, dden; then invF (psi) or f_row (vrt). lay: the kLayoutFields
+// values of Layout. Launches on `stream`, with `clocks` (null, or n_steps
+// x kStamps) the build that stamps block 0's stages; writes the grid size
+// to *blocks_out and returns the CUDA error (0 = ok).
 extern "C" int dlwp_barotropic_step(int form, void* const* ptrs, int M,
                                     int J, int L, int step0, int n_steps,
-                                    float dt, float r, long long* clocks,
-                                    int* blocks_out, void* stream) {
+                                    float dt, float r, const int* lay,
+                                    long long* clocks, int* blocks_out,
+                                    void* stream) {
   Params p;
+  if ((form != kPsi && form != kVrt) || !check_layout(lay, M, J, L, &p.y))
+    return (int)cudaErrorInvalidValue;
   for (int c = 0; c < 4; ++c) {
     p.in[c] = static_cast<const float*>(ptrs[c]);
     p.out[c] = static_cast<float*>(ptrs[4 + c]);
@@ -663,16 +665,16 @@ extern "C" int dlwp_barotropic_step(int form, void* const* ptrs, int M,
                    : (clocks ? (const void*)barotropic_kernel<kVrt, true>
                              : (const void*)barotropic_kernel<kVrt, false>);
   void* args[] = {&p};
-  return launch(fn, args, form, M, J, L, 0, blocks_out, stream);
+  return launch(fn, args, p.y.bytes, M, J, 0, blocks_out, stream);
 }
 
-// The sync probe of the kernel of `form` at these sizes: n_steps x two grid
-// syncs on the kernel's grid (blocks = 0) or on `blocks` blocks, with the
-// kernel's shared-memory request. Writes the grid size to *blocks_out.
-extern "C" int dlwp_barotropic_sync_probe(int form, int M, int J, int L,
+// The sync probe of the kernel at these sizes: n_steps x two grid syncs on
+// the kernel's grid (blocks = 0) or on `blocks` blocks, with the kernel's
+// shared-memory request, `smem` bytes. Writes the grid size to *blocks_out.
+extern "C" int dlwp_barotropic_sync_probe(int M, int J, int smem,
                                           int n_steps, int blocks,
                                           int* blocks_out, void* stream) {
   void* args[] = {&n_steps};
-  return launch((const void*)sync_probe, args, form, M, J, L, blocks,
+  return launch((const void*)sync_probe, args, smem, M, J, blocks,
                 blocks_out, stream);
 }

@@ -42,15 +42,22 @@
 //    warps, one column block a row (stage 1: 18 column tiles of 144
 //    columns; stage 2: 9 column tiles of 72 x 2 o-subgroups); a wider grid
 //    takes more column blocks (5 at 720 and 360 columns).
-// 3. Dilation and the wrap are offsets into shared memory. A tile stages
-//    input rows 2 hp0 - d .. 2 (hp0 + rb) - 1 + d (2 rb + 2 d rows) of
-//    each sample: its n columns w0 .. w0 + n - 1 and the d columns on
-//    each side of them, taken modulo W (the longitude wrap), beside them;
-//    every tap (dy d, dx d) is then an offset. Latitude outside [0, H)
-//    stages as zeros. Row interiors go as 16-byte cp.async.cg where W % 4
-//    == 0 and x is 16-byte aligned, else 4 bytes at a time (the same
-//    values either way). A masked column reads what an earlier tile left
-//    past n + d; no stored output does.
+// 3. Dilation and the wrap are offsets into shared memory, at any d < W.
+//    A tile's rows 2 hp0 .. 2 (hp0 + rb) - 1 read the rows dy d away, dy
+//    in -1, 0, 1. Where d <= 2 rb the tile stages the rows 2 hp0 - d ..
+//    2 (hp0 + rb) - 1 + d of each sample in order (2 rb + 2 d rows);
+//    beyond, it stages three groups of 2 rb rows, group dy + 1 holding
+//    rows 2 hp0 + dy d + r' (6 rb rows, however large d). Either way tap
+//    dy is the offset dy rstep rows, rstep = min(d, 2 rb). Columns alike:
+//    where d <= cw, the tile's n columns w0 .. w0 + n - 1 and the d
+//    columns on each side, taken modulo W (the longitude wrap), stand in
+//    order; beyond, three groups of cw columns, group dx + 1 holding
+//    columns w0 + dx d + i modulo W; tap dx is the offset dx cstep,
+//    cstep = min(d, cw). Latitude outside [0, H) stages as zeros. Row
+//    interiors go as 16-byte cp.async.cg where W % 4 == 0 and x is
+//    16-byte aligned, else 4 bytes at a time (the same values either
+//    way). A masked column reads what an earlier tile left past n; no
+//    stored output does.
 // 4. A persistent grid (SMs x resident blocks) walks the tiles; a ring of
 //    2 or 3 buffers runs over (tile, slab) units across tile boundaries.
 //    Where the launch has one o-group (both flagship stages), every slab's
@@ -96,7 +103,9 @@ struct Params {
   int B, C, H, W, O, d;
   int bb, rb, rs, lm, nm, nos, n_og, ncg, n_cb, cw, n_rg, nslab, tiles;
   int vec_x, vec_w;
-  int nrows;  // staged input rows of a sample: 2 rb + 2 d
+  // Rows and columns between taps in shared memory (header, 3.):
+  // min(d, 2 rb) and min(d, cw); staged rows of a sample: 2 rb + 2 rstep.
+  int rstep, cstep, nrows;
   int xs_floats, ws_floats, stages;
   int resident;  // the weights of every slab stay in shared memory
 };
@@ -127,11 +136,12 @@ __device__ __forceinline__ Tile decode(const Params& p, int t) {
   return tl;
 }
 
-// Stage the input rows of slab c0 of tile tl: xs [bl][r][cc][rs], row r =
-// input row 2 hp0 - d + r; its n = min(cw, W - w0) columns w0 .. w0 + n
-// - 1 at lm .. lm + n - 1, then the d columns on each side, taken modulo
-// W. Rows outside [0, H), samples past the batch and channels past C stage
-// as zeros.
+// Stage the input rows of slab c0 of tile tl: xs [bl][r][cc][rs], row r
+// as the header (3.) orders them; its n = min(cw, W - w0) columns w0 ..
+// w0 + n - 1 at lm .. lm + n - 1, then the columns of the taps dx = -1
+// and 1, taken modulo W: the d on each side where d <= cw, else the
+// groups at lm - cw and lm + cw. Rows outside [0, H), samples past the
+// batch and channels past C stage as zeros.
 __device__ void stage_x(float* xs, const Params& p, const Tile& tl, int c0) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nwarps = blockDim.x >> 5;
@@ -139,34 +149,44 @@ __device__ void stage_x(float* xs, const Params& p, const Tile& tl, int c0) {
   const int n = min(p.cw, W - w0);
   const int nrows = p.bb * p.nrows * CS;
   const int nq = p.vec_x ? n / 4 : n;
+  // Columns of each side, where the right side starts in shared memory and
+  // in the row (header, 3.).
+  const bool col_groups = p.cstep < d;
+  const int side = col_groups ? n : d;
+  const int rpos = col_groups ? p.cw : n, rcol = col_groups ? d : n;
   // Row index (bl * nrows + r) * CS + cc, stepped by nwarps without
   // division.
   int cc = warp % CS, r = warp / CS, bl = 0;
   while (r >= p.nrows) r -= p.nrows, ++bl;
   for (int row = warp; row < nrows; row += nwarps) {
     const int c = c0 + cc;
-    const int gr = 2 * tl.hp0 - d + r;
+    int gr = 2 * tl.hp0 - d + r;
+    if (p.rstep < d) {  // three groups of 2 rb rows
+      const int grp = r / (2 * p.rb);
+      gr = 2 * tl.hp0 + (grp - 1) * d + r - grp * 2 * p.rb;
+    }
     float* dst = xs + row * p.rs + p.lm;
     if (bl < tl.nb && c < p.C && gr >= 0 && gr < H) {
       const float* src =
           p.x + (((size_t)(tl.b0 + bl) * p.C + c) * H + gr) * W;
-      for (int i = lane; i < nq + 2 * d; i += 32) {
+      for (int i = lane; i < nq + 2 * side; i += 32) {
         if (i < nq) {
           if (p.vec_x) {
             cp_async16(dst + 4 * i, src + w0 + 4 * i);
           } else {
             cp_async4(dst + i, src + w0 + i);
           }
-        } else if (i < nq + d) {  // left: columns w0 - d .. w0 - 1
+        } else if (i < nq + side) {  // left: from column w0 - d
           const int j = i - nq, col = w0 - d + j;  // > -W, as d < W
-          cp_async4(dst - d + j, src + (col < 0 ? col + W : col));
-        } else {  // right: columns w0 + n .. w0 + n + d - 1
-          const int j = i - nq - d, col = w0 + n + j;  // < 2 W
-          cp_async4(dst + n + j, src + (col < W ? col : col - W));
+          cp_async4(dst - p.cstep + j, src + (col < 0 ? col + W : col));
+        } else {  // right: from column w0 + n, or w0 + d
+          const int j = i - nq - side, col = w0 + rcol + j;  // < 2 W
+          cp_async4(dst + rpos + j, src + (col < W ? col : col - W));
         }
       }
     } else {
-      for (int i = lane - d; i < n + d; i += 32) dst[i] = 0.f;
+      for (int i = lane - p.cstep; i < p.cw + p.cstep; i += 32)
+        dst[i] = 0.f;
     }
     for (cc += nwarps; cc >= CS; cc -= CS) {
       if (++r == p.nrows) r = 0, ++bl;
@@ -231,13 +251,13 @@ __device__ __forceinline__ void mma3(float (&c)[4], const uint32_t (&ahi)[4],
 template <int MO, bool K4>
 __device__ __forceinline__ void compute(float (&tmp)[MO][2][4],
                                         const float* xb, const float* wa,
-                                        int rs, int d) {
+                                        int rs, int rstep, int cstep) {
 #pragma unroll
   for (int dy = 0; dy < 3; ++dy) {
 #pragma unroll
     for (int dx = 0; dx < 3; ++dx) {
       const int tap = dy * 3 + dx;
-      const float* xt = xb + dy * d * CS * rs + dx * d;
+      const float* xt = xb + dy * rstep * CS * rs + dx * cstep;
       uint32_t bhi[2][2], blo[2][2];
 #pragma unroll
       for (int rr = 0; rr < 2; ++rr)
@@ -344,7 +364,7 @@ __device__ void run(const Params& p) {
     const int lane = threadIdx.x & 31;
     const Unit w = warp_unit(p);
     xbase = ((w.bl * p.nrows + 2 * w.rl) * CS + (lane & 3)) * p.rs + p.lm -
-            p.d + w.cg * 8 + (lane >> 2);
+            p.cstep + w.cg * 8 + (lane >> 2);
     wbase = (w.os * MO * 16 + (lane >> 2)) * WR + (lane & 3) * 9;
   }
   float acc[MO][2][4] = {}, tmp[MO][2][4] = {};
@@ -362,9 +382,9 @@ __device__ void run(const Params& p) {
     const float* xs = smem + buf * p.xs_floats + xbase;
     const float* ws = wring + (p.resident ? k : buf) * p.ws_floats + wbase;
     if (p.C - k * CS <= 4) {
-      compute<MO, true>(tmp, xs, ws, p.rs, p.d);
+      compute<MO, true>(tmp, xs, ws, p.rs, p.rstep, p.cstep);
     } else {
-      compute<MO, false>(tmp, xs, ws, p.rs, p.d);
+      compute<MO, false>(tmp, xs, ws, p.rs, p.rstep, p.cstep);
     }
 #pragma unroll
     for (int i = 0; i < MO; ++i)
@@ -438,7 +458,9 @@ extern "C" int dlwp_fused_conv_pool(const float* x, const float* k,
   p.cw = 8 * p.ncg;
   p.n_rg = (H / 2 + p.rb - 1) / p.rb;
   p.nslab = (C + CS - 1) / CS;
-  p.nrows = 2 * p.rb + 2 * d;
+  p.rstep = d < 2 * p.rb ? d : 2 * p.rb;
+  p.cstep = d < p.cw ? d : p.cw;
+  p.nrows = 2 * p.rb + 2 * p.rstep;
   p.xs_floats = p.bb * p.nrows * CS * p.rs;
   p.ws_floats = p.nm * 16 * WR;
   const int threads = plan[P_WARPS] * 32;
@@ -446,8 +468,8 @@ extern "C" int dlwp_fused_conv_pool(const float* x, const float* k,
   // Every column block holds a column: (n_cb - 1) cw < W <= n_cb cw.
   if (plan[P_WARPS] != p.bb * p.rb * p.ncg * p.nos ||
       plan[P_WARPS] > MAX_WARPS || (p.stages != 2 && p.stages != 3) ||
-      p.n_cb * p.cw < W || (p.n_cb - 1) * p.cw >= W || p.lm < d ||
-      p.lm % 4 || p.rs < p.lm + p.cw + d || p.rs % 4 ||
+      p.n_cb * p.cw < W || (p.n_cb - 1) * p.cw >= W || p.lm < p.cstep ||
+      p.lm % 4 || p.rs < p.lm + p.cw + p.cstep || p.rs % 4 ||
       p.n_og * p.nm * 16 < O ||
       p.tiles != (B + p.bb - 1) / p.bb * p.n_rg * p.n_cb * p.n_og ||
       (long long)p.tiles * p.nslab > 0x7fffffffLL ||

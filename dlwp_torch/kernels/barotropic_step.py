@@ -20,8 +20,8 @@ J latitudes and L longitudes:
 
 The kernel reads the Legendre tables in the packed layout of
 :func:`pack_tables`, made once per table set (``fused_step`` makes it when
-it builds the tables, as a :class:`StepTables`), and the DFTs from one
-twiddle table:
+it builds the tables, as a :class:`StepTables`, which a launch requires),
+and the DFTs from one twiddle table:
 
 - Row pairs. Block ``b < P = ceil(M/2)`` owns the wavenumbers
   ``m1 = b`` and ``m2 = M-1-b`` (the middle row of odd M alone). The
@@ -94,10 +94,16 @@ def pair_entries(M: int, b: int):
     return entries + [(-1, -1)] * (M + 1 - len(entries)), c1
 
 
+# The fields of layout(), in the order of struct Layout in the source.
+LAYOUT_FIELDS = ("slab", "nlp", "tab", "twm", "wts", "st", "rowc", "frow",
+                 "xs", "work", "bytes")
+
+
 def layout(form: str, M: int, J: int, L: int) -> dict:
     """Offsets (floats) of the kernel's shared-memory regions, the row of
-    its twiddle matrix (``nlp``) and its total bytes, as ``layout()`` in
-    the source computes them."""
+    its twiddle matrix (``nlp``) and its total bytes. This is the layout's
+    only definition: the kernel takes it as it is (:func:`_layout_arg`) and
+    its entry points check only what the indexing needs of it."""
     K1, nl, nf, npp = M + 1, L // 2 + 1, NF[form], NP[form]
     ns, nx = len(SYN_TABLES[form]), 4 if form == "psi" else 2
     nt = ns + len(ANA_TABLES[form])
@@ -271,22 +277,26 @@ def _lib():
     lib = _build.load("barotropic_step")
     fn = lib.dlwp_barotropic_step
     fn.argtypes = ([ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 5
-                   + [ctypes.c_float] * 2 + [ctypes.c_void_p] * 3)
+                   + [ctypes.c_float] * 2 + [ctypes.c_void_p] * 4)
     fn.restype = ctypes.c_int
     probe = lib.dlwp_barotropic_sync_probe
-    probe.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2
+    probe.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2
     probe.restype = ctypes.c_int
     return lib
 
 
 @functools.cache  # a pure function of four ints; only passes are cached
-def _fits(form, M, J, L):
-    smem = layout(form, M, J, L)["bytes"]
-    if smem > MAX_SMEM:
+def _layout_arg(form, M, J, L):
+    """:func:`layout` as the kernel's ``lay`` array, after checking that
+    it fits a block's shared memory."""
+    lay = layout(form, M, J, L)
+    if lay["bytes"] > MAX_SMEM:
         raise ValueError(
             f"barotropic_step {form}: T{M - 1} on {J} latitudes needs "
-            f"{smem} B of shared memory a block, more than Hopper's "
+            f"{lay['bytes']} B of shared memory a block, more than Hopper's "
             f"{MAX_SMEM}; run step_impl='plain'")
+    return (ctypes.c_int * len(LAYOUT_FIELDS))(
+        *(lay[k] for k in LAYOUT_FIELDS))
 
 
 def sync_probe(form, M: int, J: int, L: int, n_steps: int, blocks: int = 0,
@@ -296,13 +306,13 @@ def sync_probe(form, M: int, J: int, L: int, n_steps: int, blocks: int = 0,
     sizes (or on ``blocks`` blocks) with its shared-memory request; the
     kernel's time less the probe's is the time of its phases. Returns the
     grid size. Not a launch of the kernel: ``launches`` does not count it."""
-    _fits(form, M, J, L)
+    smem = _layout_arg(form, M, J, L)[LAYOUT_FIELDS.index("bytes")]
     blocks_out = ctypes.c_int(0)
     lib = _lib()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.dlwp_barotropic_sync_probe(FORMS[form], M, J, L, n_steps,
-                                             blocks, ctypes.byref(blocks_out),
+        err = lib.dlwp_barotropic_sync_probe(M, J, smem, n_steps, blocks,
+                                             ctypes.byref(blocks_out),
                                              stream)
     if err:
         raise RuntimeError(f"barotropic sync probe failed: CUDA error {err}")
@@ -313,8 +323,8 @@ def barotropic_step(form, tables, vr, vi, pr, pi, step0: int, n_steps: int,
                     dt: float, r: float):
     """``n_steps`` fused steps from global step ``step0``; returns the new
     ``(vr, vi, pr, pi)``. One cooperative kernel launch on CUDA tensors,
-    reading ``tables.packed`` where ``tables`` is a :class:`StepTables`
-    (else packing them first)."""
+    which reads ``tables.packed``: there ``tables`` must be a
+    :class:`StepTables`, packed once when it is made."""
     if vr.device.type == "cpu":
         return barotropic_step_plain(form, tables, vr, vi, pr, pi, step0,
                                      n_steps, dt, r)
@@ -333,8 +343,12 @@ def _launch(form, tables, state, step0, n_steps, dt, r, clocks=None):
     if step0 < 0 or n_steps < 0 or step0 + n_steps >= 2**31:
         raise ValueError(f"barotropic_step: bad step0={step0}, "
                          f"n_steps={n_steps}")
-    _fits(form, M, J, L)
-    packed = getattr(tables, "packed", None) or pack_tables(form, tables)
+    lay = _layout_arg(form, M, J, L)
+    packed = getattr(tables, "packed", None)
+    if packed is None:
+        raise ValueError(
+            "barotropic_step: the kernel reads packed tables; pass "
+            "StepTables(form, tables), made once, not a plain dict")
     extra = tables["invF" if form == "psi" else "f_row"]
     dev = state[0].device
     inputs = list(state) + [packed["tab"], packed["tw"], packed["wts"],
@@ -358,7 +372,7 @@ def _launch(form, tables, state, step0, n_steps, dt, r, clocks=None):
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.dlwp_barotropic_step(
-            FORMS[form], block, M, J, L, step0, n_steps, dt, r,
+            FORMS[form], block, M, J, L, step0, n_steps, dt, r, lay,
             None if clocks is None else clocks.data_ptr(),
             ctypes.byref(grid), stream,
         )

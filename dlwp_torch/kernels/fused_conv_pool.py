@@ -46,7 +46,6 @@ _MO = (2, 1)  # m16 o-fragments a warp may own: the kernel's builds
 # The kernel's registers (at most 96 a thread: 18 warps over the SM's four
 # register partitions) let two blocks share an SM only at 10 warps or fewer.
 _TWO_BLOCK_WARPS = 10
-MAX_DILATION = 8  # the left margin of a staged row is at most 8 floats
 
 
 class Plan(NamedTuple):
@@ -76,11 +75,25 @@ class Plan(NamedTuple):
     resident: bool
 
 
-def _row_stride(lm, width, d):
-    """Floats per staged row: margin, ``width`` columns and the right wrap
-    columns, a multiple of 4 that is 8 or 24 mod 32, so the B fragment
-    loads (4 channels x 8 columns a warp) hit 32 banks."""
-    rs = -(-(lm + width + d) // 4) * 4
+def _steps(d, rb, cw):
+    """Rows and columns between a tile's taps in shared memory
+    (csrc/fused_conv_pool.cu, header 3.): ``d`` where the rows or columns
+    stand in order, else ``2 rb`` rows or ``cw`` columns, a group each
+    tap, so that a large dilation stages no more than three taps' worth."""
+    return min(d, 2 * rb), min(d, cw)
+
+
+def _x_floats(bb, rb, rs, rstep):
+    """Floats of one ring buffer of input rows: ``bb`` samples of
+    ``2 rb + 2 rstep`` rows of ``_CS`` channels of ``rs`` floats."""
+    return bb * (2 * rb + 2 * rstep) * _CS * rs
+
+
+def _row_stride(lm, width, cstep):
+    """Floats per staged row: margin, ``width`` columns and the right
+    tap's columns, a multiple of 4 that is 8 or 24 mod 32, so the B
+    fragment loads (4 channels x 8 columns a warp) hit 32 banks."""
+    rs = -(-(lm + width + cstep) // 4) * 4
     while rs % 32 not in (8, 24):
         rs += 4
     return rs
@@ -92,7 +105,6 @@ def _candidates(B, C, H, W, O, d):
     output channels computed and not stored). A column block is the
     narrowest of its count: ``ncg`` column tiles cover the row in
     ``n_cb`` blocks, and no fewer tiles do."""
-    lm = -(-d // 4) * 4
     H2, ntile, nslab = H // 2, -(-W // 8), -(-C // _CS)
     for nm in sorted({-(-min(O, og) // 16) for og in _OG}):
         n_og = -(-O // (16 * nm))
@@ -104,15 +116,17 @@ def _candidates(B, C, H, W, O, d):
                 n_cb = -(-ntile // ncg)
                 if -(-ntile // n_cb) != ncg:
                     continue
-                rs = _row_stride(lm, 8 * ncg, d)
                 for rb in range(1, min(H2, _MAX_WARPS // (ncg * nos)) + 1):
+                    rstep, cstep = _steps(d, rb, 8 * ncg)
+                    lm = -(-cstep // 4) * 4
+                    rs = _row_stride(lm, 8 * ncg, cstep)
                     n_rg = -(-H2 // rb)
                     for bb in range(1, B + 1):
                         warps = bb * rb * ncg * nos
                         if warps > _MAX_WARPS:
                             break
                         layout = ring(
-                            4 * bb * (2 * rb + 2 * d) * _CS * rs,
+                            4 * _x_floats(bb, rb, rs, rstep),
                             4 * nm * 16 * _WR, nslab, n_og == 1,
                             MAX_SMEM if warps > _TWO_BLOCK_WARPS
                             else TWO_PER_SM)
@@ -139,10 +153,9 @@ def _plan(B, C, H, W, O, d, n_sm=N_SM) -> Plan:
     if H < 2 or W < 2 or H % 2 or W % 2:
         raise ValueError(f"fused_conv_pool: H and W must be even, got "
                          f"{H}x{W}")
-    if not 1 <= d <= min(MAX_DILATION, W - 1):
+    if not 1 <= d < W:
         raise ValueError(f"fused_conv_pool: dilation {d} outside 1.."
-                         f"{min(MAX_DILATION, W - 1)} (at most "
-                         f"{MAX_DILATION}, below W={W})")
+                         f"{W - 1} (below W={W})")
     cands = list(_candidates(B, C, H, W, O, d))
     want_tiles = min(2 * n_sm, max(p.tiles for p, _ in cands))
     ok = [(p, w) for p, w in cands if p.tiles >= want_tiles]
@@ -174,7 +187,8 @@ def _variants(plan: Plan, B, C, H, W, O, d):
     result does not depend on the plan: ``plan`` with the other ring depth,
     then one candidate for each warp build, column split, tile shape,
     weight layout and o-grouping."""
-    x_bytes = 4 * plan.bb * (2 * plan.rb + 2 * d) * _CS * plan.rs
+    x_bytes = 4 * _x_floats(plan.bb, plan.rb, plan.rs,
+                            _steps(d, plan.rb, 8 * plan.ncg)[0])
     step = x_bytes + (0 if plan.resident else 4 * plan.nm * 16 * _WR)
     stages = 5 - plan.stages  # 3 <-> 2
     out = {plan._replace(stages=stages,

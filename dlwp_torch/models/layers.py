@@ -20,7 +20,6 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from dlwp_torch.kernels import fused_conv_pool, lstm_gates
-from dlwp_torch.kernels.fused_conv_pool import MAX_DILATION
 from dlwp_torch.kernels.lstm_gates import ACT_CODES, gate_chain, hard_sigmoid
 from dlwp_torch.ops.conv import conv_after_upsample2, cyclic_conv2d
 from dlwp_torch.ops.pooling import max_pool2d, upsample2d
@@ -180,13 +179,13 @@ class FusedConvPool2D(_ConvBase):
         super().__init__(features, kernel_size, dilation, activation, use_bias)
 
     def uses_kernel(self, x) -> bool:
-        """A 3x3 tanh stage on an even float32 grid, at a dilation the
-        kernel takes (1..``MAX_DILATION``, below the width)."""
+        """A 3x3 tanh stage on an even float32 grid, at a dilation below
+        the width, as the JAX layer's Pallas branch takes it."""
         d = self.dilation
         return (
             self.kernel_size == (3, 3)
             and d[0] == d[1]
-            and 1 <= d[0] <= min(MAX_DILATION, x.shape[-1] - 1)
+            and 1 <= d[0] < x.shape[-1]
             and self.activation == "tanh"
             and x.dim() == 4
             and x.shape[-1] % 2 == 0

@@ -35,11 +35,13 @@ from dlwp_torch.kernels import barotropic_step, barotropic_step_plain, launch_co
 from dlwp_torch.spectral import dft_tables
 from dlwp_torch.kernels.barotropic_step import (
     ANA_TABLES,
+    LAYOUT_FIELDS,
     NF,
     NP,
     SPLIT,
     SYN_TABLES,
-    _fits,
+    _launch,
+    _layout_arg,
     layout,
     pack_tables,
     pair_entries,
@@ -510,8 +512,8 @@ def test_row_pairs_cover_each_entry_once(M):
                                            ("vrt", 25, 37, 72, 38)])
 def test_kernel_layout_fits(form, M, J, L, kb):
     """The shared-memory layout: 16-byte aligned regions, tables resident
-    within Hopper's 227 KB at T72 on 73x144; larger grids are refused
-    before launch."""
+    within Hopper's 227 KB at T72 on 73x144, passed to the kernel field by
+    field as it is; larger grids are refused before launch."""
     lay = layout(form, M, J, L)
     assert all(v % 4 == 0 for k, v in lay.items()
                if k not in ("bytes", "nlp"))
@@ -519,9 +521,11 @@ def test_kernel_layout_fits(form, M, J, L, kb):
     nt = len(SYN_TABLES[form]) + len(ANA_TABLES[form])
     assert lay["twm"] - lay["tab"] == nt * lay["slab"]
     assert lay["nlp"] % 2 == 1 and lay["nlp"] >= L // 2 + 1
-    _fits(form, M, J, L)
+    assert list(_layout_arg(form, M, J, L)) == [lay[k] for k in LAYOUT_FIELDS]
+    assert list(LAYOUT_FIELDS) == ["slab", "nlp"] + [
+        k for k in lay if k not in ("slab", "nlp")]
     with pytest.raises(ValueError, match="step_impl='plain'"):
-        _fits(form, 129, 128, 256)  # T128 on 128x256: over 227 KB
+        _layout_arg(form, 129, 128, 256)  # T128 on 128x256: over 227 KB
 
 
 def test_packing_refuses_tables_not_zero_below_the_diagonal():
@@ -532,3 +536,13 @@ def test_packing_refuses_tables_not_zero_below_the_diagonal():
     tabs["Au"][3, 1, 0] = 1.0
     with pytest.raises(ValueError, match="Au"):
         pack_tables("vrt", tabs)
+
+
+def test_kernel_launch_refuses_tables_that_are_not_packed():
+    """The kernel reads tables packed once (StepTables); a plain dict is
+    refused before any launch, not packed again at each one."""
+    m = port_baro.BarotropicModel(LatLonGrid.regular(NLAT, NLON), T,
+                                  dt=1800.0, step_impl="kernel", device="cpu")
+    state = [torch.zeros(T + 1, T + 1) for _ in range(4)]
+    with pytest.raises(ValueError, match=r"StepTables\(form, tables\)"):
+        _launch("vrt", dict(m._kernel_tables), state, 0, 1, m.dt, 0.01)

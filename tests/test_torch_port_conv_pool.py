@@ -37,6 +37,7 @@ from dlwp_torch.kernels._tiling import MAX_GRID, MAX_SMEM
 from dlwp_torch.kernels.fused_conv_pool import (
     _candidates,
     _plan,
+    _steps,
     _tile,
     _variants,
 )
@@ -49,10 +50,14 @@ FLAGSHIP = [(64, 24, 36, 144, 32, 2), (64, 32, 18, 72, 64, 1)]
 # The same stages on the 0.5-degree grid (180x720), which take 5 column
 # blocks a row.
 WIDE = [(64, 24, 180, 720, 32, 2), (64, 32, 90, 360, 64, 1)]
+# Dilations that stage their taps' rows, or rows and columns, as three
+# groups (chip_smoke.py's and the card tests' large-dilation cases).
+LARGE_D = [(3, 5, 10, 18, 7, 9), (2, 3, 8, 16, 65, 15),
+           (2, 24, 36, 144, 32, 17), (2, 24, 36, 144, 32, 143)]
 # The golden 8x16 model's stages (B=2, as the card test runs it), the
 # sharded card test's 16x32 model, chip_smoke.py's and the card tests' odd
 # cases: d 1/2/3, C 3/5/11/24/32, O 7/37/64/65, W 8/10/16/18/72/144, H
-# 4/8/10.
+# 4/8/10; then dilations past a tile's rows or columns, up to W - 1.
 CASES = FLAGSHIP + WIDE + [
     (2, 24, 8, 16, 32, 2), (2, 32, 4, 8, 64, 1),
     (4, 24, 16, 32, 32, 2), (4, 32, 8, 16, 64, 1),
@@ -60,20 +65,21 @@ CASES = FLAGSHIP + WIDE + [
     (3, 11, 10, 18, 37, 3), (5, 3, 8, 16, 65, 2), (4, 32, 8, 72, 7, 1),
     (2, 24, 10, 144, 64, 3), (70, 11, 8, 18, 65, 2), (1, 24, 36, 144, 32, 2),
     (2, 5, 4, 10, 7, 3),
-]
+] + LARGE_D
 
 
 def entry_accepts(plan, B, C, H, W, O, d):
     """The checks of the kernel's C entry point, dlwp_fused_conv_pool."""
     cw, nslab = 8 * plan.ncg, -(-C // 8)
-    x_floats = plan.bb * (2 * plan.rb + 2 * d) * 8 * plan.rs
+    rstep, cstep = _steps(d, plan.rb, cw)
+    x_floats = plan.bb * (2 * plan.rb + 2 * rstep) * 8 * plan.rs
     w_floats = plan.nm * 16 * 76
     return (plan.nm % plan.mo == 0 and plan.nm <= 4
             and plan.warps == plan.bb * plan.rb * plan.ncg * plan.nm // plan.mo
             and plan.warps <= 18 and plan.stages in (2, 3)
             and (plan.n_cb - 1) * cw < W <= plan.n_cb * cw
-            and plan.lm >= d and plan.lm % 4 == 0
-            and plan.rs >= plan.lm + cw + d and plan.rs % 4 == 0
+            and plan.lm >= cstep and plan.lm % 4 == 0
+            and plan.rs >= plan.lm + cw + cstep and plan.rs % 4 == 0
             and plan.n_og * plan.nm * 16 >= O
             and plan.n_rg == -(-(H // 2) // plan.rb)
             and plan.tiles == -(-B // plan.bb) * plan.n_rg * plan.n_cb
@@ -93,12 +99,13 @@ def check_plan(B, C, H, W, O, d):
     assert 1 <= plan.warps <= 18 and plan.mo in (1, 2) and plan.nm <= 4
     assert plan.nm % plan.mo == 0
     assert plan.warps == plan.bb * plan.rb * plan.ncg * (plan.nm // plan.mo)
-    # column blocks cover the row, none empty; staged rows: margin >= d,
-    # every column tile's reads inside the row, 16-byte aligned, fragment
-    # loads on 32 banks
+    # column blocks cover the row, none empty; staged rows: margin >= the
+    # left tap's offset, every column tile's reads inside the row, 16-byte
+    # aligned, fragment loads on 32 banks
     assert (plan.n_cb - 1) * cw < W <= plan.n_cb * cw
-    assert plan.lm % 4 == 0 and plan.lm >= d
-    assert plan.rs >= plan.lm + cw + d
+    cstep = _steps(d, plan.rb, cw)[1]
+    assert plan.lm % 4 == 0 and plan.lm >= cstep
+    assert plan.rs >= plan.lm + cw + cstep
     assert plan.rs % 4 == 0 and plan.rs % 32 in (8, 24)
     assert (plan.n_og - 1) * plan.nm * 16 < O <= plan.n_og * plan.nm * 16
     assert not plan.resident or plan.n_og == 1
@@ -170,13 +177,14 @@ def test_plan_variants_are_launches_of_the_same_work(stage):
         assert entry_accepts(p, *stage) and p.smem <= MAX_SMEM, p
 
 
-@pytest.mark.parametrize("bad", [dict(d=9), dict(d=16), dict(H=9),
+@pytest.mark.parametrize("bad", [dict(d=0), dict(d=16), dict(H=9),
                                  dict(W=15),
                                  dict(B=2 ** 16, H=2 ** 12, W=2 ** 16, d=1)],
-                         ids=["d9", "d=W", "odd H", "odd W", "too wide"])
+                         ids=["d0", "d=W", "odd H", "odd W", "too wide"])
 def test_plan_rejects_what_the_kernel_cannot_take(bad):
-    """Dilation 1..min(8, W - 1), even H and W, at most 2^31 - 1 (tile,
-    slab) units: any width fits shared memory, in column blocks."""
+    """Dilation 1..W - 1, even H and W, at most 2^31 - 1 (tile, slab)
+    units: any width and dilation fit shared memory, in column blocks
+    and tap groups."""
     args = dict(B=2, C=5, H=8, W=16, O=32, d=2) | bad
     with pytest.raises(ValueError, match="fused_conv_pool"):
         _plan(**args)
@@ -191,8 +199,9 @@ def emulate_kernel(x, k, bias, d, plan):
     B, C, H, W = x.shape
     O = k.shape[0]
     H2, W2, CS, WR = H // 2, W // 2, 8, 76
-    nrows, nslab = 2 * plan.rb + 2 * d, -(-C // CS)
     nos, cw = plan.nm // plan.mo, 8 * plan.ncg
+    rstep, cstep = _steps(d, plan.rb, cw)
+    nrows, nslab = 2 * plan.rb + 2 * rstep, -(-C // CS)
     kf = k.reshape(O, C * 9)
     lane = np.arange(32)
     g, t = lane >> 2, lane & 3
@@ -208,13 +217,22 @@ def emulate_kernel(x, k, bias, d, plan):
                                                range(CS)):
                 dst = ((bl * nrows + r) * CS + cc) * plan.rs + plan.lm
                 gr, c = 2 * hp0 - d + r, c0 + cc
+                if rstep < d:  # three groups of 2 rb rows
+                    grp = r // (2 * plan.rb)
+                    gr = 2 * hp0 + (grp - 1) * d + r - grp * 2 * plan.rb
                 if bl < nb and c < C and 0 <= gr < H:
                     src = x[b0 + bl, c, gr]
                     xs[dst:dst + n] = src[w0:w0 + n]
-                    xs[dst - d:dst] = src[(w0 - d + np.arange(d)) % W]
-                    xs[dst + n:dst + n + d] = src[(w0 + n + np.arange(d)) % W]
+                    if cstep < d:  # three groups of cw columns
+                        i = np.arange(n)
+                        xs[dst - cw:dst - cw + n] = src[(w0 - d + i) % W]
+                        xs[dst + cw:dst + cw + n] = src[(w0 + d + i) % W]
+                    else:
+                        i = np.arange(d)
+                        xs[dst - d:dst] = src[(w0 - d + i) % W]
+                        xs[dst + n:dst + n + d] = src[(w0 + n + i) % W]
                 else:
-                    xs[dst - d:dst + n + d] = 0
+                    xs[dst - cstep:dst + cw + cstep] = 0
             ws = np.zeros(plan.nm * 16 * WR)
             for ol, j in itertools.product(range(plan.nm * 16), range(72)):
                 o = og * plan.nm * 16 + ol
@@ -226,12 +244,12 @@ def emulate_kernel(x, k, bias, d, plan):
                 rl = (w // (nos * plan.ncg)) % plan.rb
                 bl = w // (nos * plan.ncg * plan.rb)
                 xbase = (((bl * nrows + 2 * rl) * CS + t) * plan.rs + plan.lm
-                         - d + 8 * cg + g)
+                         - cstep + 8 * cg + g)
                 wbase = (os_ * plan.mo * 16 + g) * WR + t * 9
                 for dy, dx, i, rr in itertools.product(
                         range(3), range(3), range(plan.mo), range(2)):
                     tap = dy * 3 + dx
-                    b = xbase + (rr + dy * d) * CS * plan.rs + dx * d
+                    b = xbase + (rr + dy * rstep) * CS * plan.rs + dx * cstep
                     Bm = np.zeros((8, 8))
                     Bm[t, g] = xs[b]
                     a = wbase + i * 16 * WR + tap
@@ -279,7 +297,8 @@ def _distinct_plans(B, C, H, W, O, d):
 
 
 EMULATED = [(2, 11, 8, 18, 37, 2), (3, 3, 6, 16, 65, 3), (2, 5, 4, 8, 7, 1),
-            (2, 24, 8, 16, 32, 2), (2, 5, 4, 10, 7, 3)]
+            (2, 24, 8, 16, 32, 2), (2, 5, 4, 10, 7, 3), (2, 5, 10, 18, 7, 9),
+            (2, 3, 8, 16, 7, 15)]
 
 
 @pytest.mark.parametrize("case", EMULATED, ids=lambda c: "-".join(map(str, c)))
@@ -299,8 +318,9 @@ def test_kernel_addressing_matches_plain(case):
 
 def test_emulated_plans_cover_every_build():
     """Both warp builds, a split and a whole row, a ragged last block,
-    resident and streamed weights, tiles of several samples and rows: each
-    runs in the emulation above."""
+    resident and streamed weights, tiles of several samples and rows, rows
+    and columns of the taps in order and in groups: each runs in the
+    emulation above."""
     plans = [p for case in EMULATED for p in _distinct_plans(*case)]
     ragged = [p for case in EMULATED for p in _distinct_plans(*case)
               if 8 * p.ncg * p.n_cb > case[3]]
@@ -308,6 +328,10 @@ def test_emulated_plans_cover_every_build():
     assert {p.n_cb > 1 for p in plans} == {True, False} and ragged
     assert {p.resident for p in plans} == {True, False}
     assert any(p.bb > 1 for p in plans) and any(p.rb > 1 for p in plans)
+    steps = {(s < case[5], t < case[5]) for case in EMULATED
+             for p in _distinct_plans(*case)
+             for s, t in [_steps(case[5], p.rb, 8 * p.ncg)]}
+    assert steps == {(False, False), (True, False), (True, True)}
 
 
 @pytest.mark.parametrize("C", [24, 32])

@@ -104,13 +104,16 @@ def test_kernels_match_plain_on_card(dev):
 # (B, C, H, W, O, dilation): the flagship's encoder stages at B=64, then
 # odd cases: d 1/2/3, C 3/5/11/24/32, O 7/37/64/65, W 10/16/18/72/144, H
 # 4/8/10; then the two stages on the 0.5-degree grid (180x720), 5 column
-# blocks a row.
+# blocks a row; then dilations that stage their taps' rows, or rows and
+# columns, in three groups (up to W - 1).
+LARGE_D = [(3, 5, 10, 18, 7, 9), (2, 3, 8, 16, 65, 15),
+           (2, 24, 36, 144, 32, 17), (2, 24, 36, 144, 32, 143)]
 CONV_POOL_CASES = [(64, 24, 36, 144, 32, 2), (64, 32, 18, 72, 64, 1),
                    (3, 5, 10, 18, 7, 3), (3, 11, 10, 18, 37, 1),
                    (2, 3, 8, 16, 65, 2), (4, 32, 8, 72, 7, 1),
                    (2, 24, 10, 144, 64, 3), (5, 11, 8, 16, 37, 2),
                    (2, 5, 4, 10, 7, 3), (2, 24, 180, 720, 32, 2),
-                   (2, 32, 90, 360, 64, 1)]
+                   (2, 32, 90, 360, 64, 1)] + LARGE_D
 
 
 @pytest.mark.parametrize("case", CONV_POOL_CASES,
@@ -162,6 +165,22 @@ def test_conv_pool_does_not_depend_on_plan(dev, stage):
     assert any(p.n_cb > 1 for p in others)
     assert {p.stages for p in others} != {plan.stages}
     for other in others:
+        assert torch.equal(_launch(x, k, b, d, other), want), other
+
+
+@pytest.mark.parametrize("case", LARGE_D, ids=lambda c: "-".join(map(str, c)))
+def test_conv_pool_large_dilation_does_not_depend_on_plan(dev, case):
+    """At a dilation past a tile's rows or columns, plans that stage the
+    taps in order and in groups give the chosen plan's result bit for
+    bit."""
+    from dlwp_torch.kernels.fused_conv_pool import _launch, _variants
+
+    B, C, H, W, O, d = case
+    x, k, b = (torch.from_numpy(a).to(dev) for a in _conv_pool_operands(
+        9, B, C, H, W, O))
+    want = fused_conv_pool(x, k, b, d)
+    plan, _ = fused_conv_pool.last_launch
+    for other in _variants(plan, *case):
         assert torch.equal(_launch(x, k, b, d, other), want), other
 
 
@@ -224,6 +243,20 @@ def test_barotropic_kernel_matches_plain_on_card(dev, form):
     assert torch.equal(s2.vrt_spec, s20.vrt_spec)
     assert torch.equal(s2.vrt_spec_prev, s20.vrt_spec_prev)
     assert torch.equal(s20.vrt_spec, torch.complex(got[0], got[1]))
+
+
+def test_barotropic_kernel_refuses_unpacked_tables(dev):
+    """A launch reads the tables packed once: a plain dict of the same
+    tables is refused, not packed again."""
+    m = BarotropicModel(LatLonGrid.regular(37, 72), 24, dt=1800.0,
+                        step_impl="kernel", device=dev)
+    s0 = m.from_z(100.0 * np.random.RandomState(2).randn(37, 72))
+    parts = [x.contiguous() for x in (s0.vrt_spec.real, s0.vrt_spec.imag,
+                                      s0.vrt_spec_prev.real,
+                                      s0.vrt_spec_prev.imag)]
+    with pytest.raises(ValueError, match="StepTables"):
+        barotropic_step(m._kernel_form, dict(m._kernel_tables), *parts, 0, 1,
+                        m.dt, m.robert_coefficient)
 
 
 def _lat2(dev):

@@ -5,9 +5,11 @@
   the JAX layer in float64 from one seeded weight set (1e-10, float64
   rounding).
 - The routing predicates (``uses_kernel``) send only float32 operands at
-  what the kernels take to the wrappers; float64, bf16, dilation 9 and
-  activations the kernel lacks go to the composition or the plain gate
-  chain, and their forward agrees with the kernel's plain version.
+  what the kernels take to the wrappers (the conv-pool kernel at any
+  dilation below the width, as the JAX layer's Pallas branch); float64,
+  bf16 and activations the kernel lacks go to the composition or the
+  plain gate chain, and their forward agrees with the kernel's plain
+  version.
 - ``lstm_gates`` is an ``autograd.Function``: gradcheck in float64, and its
   gradients equal autograd through ``lstm_gates_plain`` (its backward is
   that version's VJP, so exactly).
@@ -88,12 +90,13 @@ def _built(layer, x):
     (torch.float32, 8, True),
     (torch.float64, 2, False),
     (torch.bfloat16, 2, False),
-    (torch.float32, 9, False),
+    (torch.float32, 9, True),
+    (torch.float32, 23, True),
 ])
 def test_conv_pool_routing(dtype, dilation, want, monkeypatch):
-    """float32 at a dilation of 1..8 goes to the wrapper; float64, bf16
-    and d = 9 run conv -> bias -> tanh -> pool, which equals the kernel's
-    plain version."""
+    """float32 at any dilation below the width goes to the wrapper, as the
+    JAX layer sends it to its Pallas kernel; float64 and bf16 run conv ->
+    bias -> tanh -> pool, which equals the kernel's plain version."""
     x = torch.from_numpy(np.random.RandomState(5).randn(2, 3, 8, 24)).to(dtype)
     layer = _built(TL.FusedConvPool2D(5, 3, dilation=dilation), x)
     assert layer.uses_kernel(x) is want
