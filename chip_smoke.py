@@ -40,11 +40,27 @@ Phases, each raising on failure:
    (kernel forward, plain VJP) against autograd through the plain version
    and a ConvLSTM2D's against the plain gate chain, and fused_conv_pool
    refusing an operand that requires grad;
-7. the barotropic step kernel against its plain version on the card (psi
+7. the training phase (``--only train``), the flow of
+   ``examples/train_convlstm.py`` at full width: the dataset of phase 5
+   (176 samples, the last 25% held out), a shuffled SeriesSampler at
+   B=32, the flagship from a seed, a latitude-weighted MSE, adam at 1e-3,
+   early stopping armed; ``fit_generator`` for 2 epochs with a checkpoint
+   each epoch, a fresh model resumed to epoch 3 against two uninterrupted
+   3-epoch runs (bit-equal, or under cuDNN's default algorithms within
+   ``TOL_RESUME_RRMS`` and bit-equal under its deterministic ones), each
+   fit's launch counts (the gate kernel in every train step, the conv-pool
+   kernel only in validation); the forecast after fit (predict(32) at
+   B=64, both kernels); ``device_prefetch``'s batches against the
+   sampler's; the first 3 train steps against the CPU at S=1 and S=2 (with
+   the insolation-persisting splice); train steps/s and samples/s (CUDA
+   events), one step's device time by part (``torch.profiler``), and what
+   a hand backward could save (the plain gate VJP and each conv-pool
+   stage's composition backward, beside their bounds);
+8. the barotropic step kernel against its plain version on the card (psi
    form with and without the hemisphere sign correction, vorticity form):
    T24 on 37x72 for 20 steps and T72 on 73x144 for 40 steps, relative max
    |dz|; 7 + 13 steps equal 20 bit for bit;
-8. the barotropic path at full width, the configuration ``bench.py`` times:
+9. the barotropic path at full width, the configuration ``bench.py`` times:
    T72 on 73x144, dt 1800 s, damping 5e-6, ``step_impl="kernel"``,
    ``run_with_snapshots(24, 12)`` (144 h, 6-hourly) for both forms; 24
    launches each, finite, snapshot times equal to the plain engine's, and
@@ -53,14 +69,14 @@ Phases, each raising on failure:
    device kernel time by name (``torch.profiler``) and idle share; then the
    example's default flow (``examples/run_barotropic.py``: 4 batched init
    times, T42, plain engine) on the card against the CPU;
-9. barotropic timings (CUDA events, median of 3 after warm-up): ms per step
-   as the two-point slope of 500 and 2000 steps, for the kernel, its plain
-   version and the plain engine, beside the bound per step; the kernel's
-   sync probe (its two grid syncs a step alone, same grid and shared
-   memory) on its grid and on 37, 73 and 132 blocks; the stages of a step
-   from block 0's clock64() stamps (the kernel's timing build); the kernel
-   and its probe at T24 on 37x72; registers and spills of both forms;
-10. the lat-band kernels (``halo_exchange``, ``overlap_conv``,
+10. barotropic timings (CUDA events, median of 3 after warm-up): ms per step
+    as the two-point slope of 500 and 2000 steps, for the kernel, its plain
+    version and the plain engine, beside the bound per step; the kernel's
+    sync probe (its two grid syncs a step alone, same grid and shared
+    memory) on its grid and on 37, 73 and 132 blocks; the stages of a step
+    from block 0's clock64() stamps (the kernel's timing build); the kernel
+    and its probe at T24 on 37x72; registers and spills of both forms;
+11. the lat-band kernels (``halo_exchange``, ``overlap_conv``,
     ``overlap_conv_db``) against their plain versions on meshes of virtual
     shards of the one card (lat 1, 2, 4 and data 2 x lat 2), at every
     sharded conv of the flagship at B=64 and on odd cases (W=18, 72, 144;
@@ -68,7 +84,7 @@ Phases, each raising on failure:
     halos): halos bit-equal; convs within 1e-5, the two conv kernels
     bit-equal to each other and to themselves on shards whose base is not
     16-byte aligned;
-11. the spatial-parallel forecast at full width: the flagship built with
+12. the spatial-parallel forecast at full width: the flagship built with
     ``mesh=build_mesh(MeshConfig(data=1, lat=2), devices=[cuda:0] * 2)``,
     ``batch_spec=("data", None, None, "lat", None)``,
     ``spatial_impl="overlap"``, ``predict(32)`` at B=64 in fp32 gates;
@@ -82,7 +98,7 @@ Phases, each raising on failure:
     (CUDA events, and device time from ``torch.profiler``) beside its
     bound: fp32 FMA, and for the convs also their 3xTF32 tensor-core
     arithmetic;
-12. a ``{"kernels": [...]}`` line, then the last line
+13. a ``{"kernels": [...]}`` line, then the last line
     ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without printing a result when no CUDA device is present.
@@ -159,6 +175,25 @@ CONV_POOL_CASES = ((B, 24, NLAT, NLON, 32, 2),
                    (2, 3, 8, 16, 65, 15), (2, 24, 36, 144, 32, 17),
                    (2, 24, 36, 144, 32, 143))
 LARGE_DILATION = 9  # and above: the cases checked under every plan
+# The training phase: B=32 on a 176-sample series (the last 25% held out),
+# 3 epochs, adam at 1e-3; card vs CPU over the first 3 steps. Limits of
+# the card vs the CPU (fp32, plain versions, same weights and batches):
+# each step's loss (relative), the first step's gradient (global relative
+# RMS over every parameter) and the parameters after the 3 steps
+# (relative RMS); Adam turns tiny gradient differences into sign-sized
+# steps, hence the parameters' looser limit. The first card run gave at
+# most 1.1e-7, 1.7e-6 and 1.4e-5 (S=2); the limits keep a 10x margin.
+TRAIN_B, TRAIN_N, TRAIN_LR, TRAIN_EPOCHS, TRAIN_CHECK_STEPS = 32, 176, 1e-3, 3, 3
+TOL_TRAIN = {"loss": 1e-5, "grad": 2e-5, "params": 2e-4}
+# fit_generator's rate is timed over a window of seconds: a 1600-sample
+# series (1197 train windows, 38 steps an epoch at B=32), 8 epochs.
+FIT_TIME_N, FIT_TIME_EPOCHS = 1600, 8
+# A resumed fit against the uninterrupted one: bit-equal under cuDNN's
+# deterministic algorithms; with its default ones (whose gradient sums
+# are not in a fixed order) within this relative RMS of the parameters
+# after 3 epochs (15 steps). Two uninterrupted runs differed by up to
+# 6.1e-5 in the first card runs.
+TOL_RESUME_RRMS = 1e-3
 OVERLAP_CONVS = (
     ("convlstm recurrent", (B, 12, NLAT, NLON), 48),
     ("tower conv 2", (B, 32, NLAT // 2, NLON // 2), 64),
@@ -341,14 +376,12 @@ def check_golden(torch, dev, root):
         raise AssertionError(f"golden: {err} > {TOL_GOLDEN}")
 
 
-def flagship_stack(device, seed=0, mesh=None):
-    """Synthetic dataset -> model -> sampler, as a user builds it; with a
-    ``mesh``, the model shards latitude bands over it (``overlap``)."""
-    from dlwp_torch import DLWPNeuralNet, PredictorDataset, SeriesSampler
-    from dlwp_torch.flagship import convlstm_specs
+def flagship_dataset(n, seed=0):
+    """The synthetic 36x144 series: ``n`` 6-hourly samples of two varlevs
+    from ``RandomState(seed)``."""
+    from dlwp_torch import PredictorDataset
 
-    n = B + 2 * TD + 2
-    data = PredictorDataset(
+    return PredictorDataset(
         predictors=np.random.RandomState(seed)
         .randn(n, C, NLAT, NLON).astype(np.float32),
         sample=(np.datetime64("2007-01-01")
@@ -359,6 +392,15 @@ def flagship_stack(device, seed=0, mesh=None):
         mean=np.zeros(C, np.float32),
         std=np.ones(C, np.float32),
     )
+
+
+def flagship_stack(device, seed=0, mesh=None):
+    """Synthetic dataset -> model -> sampler, as a user builds it; with a
+    ``mesh``, the model shards latitude bands over it (``overlap``)."""
+    from dlwp_torch import DLWPNeuralNet, SeriesSampler
+    from dlwp_torch.flagship import convlstm_specs
+
+    data = flagship_dataset(B + 2 * TD + 2, seed)
     dlwp = DLWPNeuralNet(time_dim=TD, scaler_type=None, is_recurrent=True,
                          device=device)
     dlwp.build_model(convlstm_specs(NLAT, NLON, C, TD), mesh=mesh,
@@ -370,15 +412,38 @@ def flagship_stack(device, seed=0, mesh=None):
     return dlwp, sampler
 
 
-def run_main_path(torch, dev):
+def forecast_vs_cpu(fc, cpu, cpu_sampler, tag, label, gate_dtype=None):
+    """Hold the card's forecast ``fc`` (of samples 0..) to the CPU model's
+    (plain versions) on its first 4 samples: step-1 max abs and the
+    trajectory's relative RMS, to the limits of ``tag``."""
     from dlwp_torch import TimeSeriesEstimator
+
+    t0 = time.perf_counter()
+    ref = TimeSeriesEstimator(cpu, cpu_sampler, gate_dtype=gate_dtype) \
+        .predict(STEPS, samples=np.arange(4))
+    got = fc.values[:, :4]
+    step1 = np.abs(got[:TD] - ref.values[:TD]).max()
+    rrms = (np.sqrt(np.mean((got - ref.values) ** 2))
+            / np.sqrt(np.mean(ref.values ** 2)))
+    log(f"{label} vs CPU plain (4 samples, {time.perf_counter() - t0:.1f} s "
+        f"on CPU): step-1 max abs {step1:.3e}, {STEPS}-step relative RMS "
+        f"{rrms:.3e}")
+    if not step1 <= TOL_STEP1[tag]:
+        raise AssertionError(f"{label} step 1: {step1} > {TOL_STEP1[tag]}")
+    if not rrms <= TOL_TRAJ_RRMS[tag]:
+        raise AssertionError(f"{label} trajectory: {rrms}")
+    return {"step1_max_abs": float(step1), "rel_rms": float(rrms)}
+
+
+def run_main_path(torch, dev):
+    from dlwp_torch import TimeSeriesEstimator, flax_tree
     from dlwp_torch.kernels import launch_counts, reset_launch_counts
 
     dlwp, sampler = flagship_stack(dev)
     x_sample, _ = sampler.generate(np.arange(1))
     dlwp.init(x_sample, seed=0)
     cpu, cpu_sampler = flagship_stack("cpu")
-    cpu.load_flax_params(params_tree(dlwp))
+    cpu.load_flax_params(flax_tree(dlwp.base_model))
     torch.set_num_threads(os.cpu_count() or 1)
 
     results, counts = {}, {}
@@ -396,20 +461,8 @@ def run_main_path(torch, dev):
         if fc.values.shape != (STEPS * TD, B, C, NLAT, NLON) or not (
                 np.isfinite(fc.values).all()):
             raise AssertionError(f"{tag}: bad forecast {fc.values.shape}")
-        t0 = time.perf_counter()
-        ref = TimeSeriesEstimator(cpu, cpu_sampler, gate_dtype=gd).predict(
-            STEPS, samples=np.arange(4))
-        got = fc.values[:, :4]
-        step1 = np.abs(got[:TD] - ref.values[:TD]).max()
-        rrms = (np.sqrt(np.mean((got - ref.values) ** 2))
-                / np.sqrt(np.mean(ref.values ** 2)))
-        log(f"main path {tag} vs CPU plain (4 samples, "
-            f"{time.perf_counter() - t0:.1f} s on CPU): step-1 max abs "
-            f"{step1:.3e}, {STEPS}-step relative RMS {rrms:.3e}")
-        if not step1 <= TOL_STEP1[tag]:
-            raise AssertionError(f"{tag} step 1: {step1} > {TOL_STEP1[tag]}")
-        if not rrms <= TOL_TRAJ_RRMS[tag]:
-            raise AssertionError(f"{tag} trajectory: {rrms}")
+        forecast_vs_cpu(fc, cpu, cpu_sampler, tag, f"main path {tag}",
+                        gate_dtype=gd)
 
         x0, days, ms, _ = est.prepare_inputs(np.arange(B))
         rollout = est.rollout_fn(STEPS)
@@ -452,7 +505,7 @@ def check_routing(torch, dev):
     from unittest import mock
 
     import dlwp_torch.models.layers as layers_module
-    from dlwp_torch import TimeSeriesEstimator
+    from dlwp_torch import TimeSeriesEstimator, flax_tree
     from dlwp_torch.kernels import (
         fused_conv_pool, launch_counts, lstm_gates, lstm_gates_plain,
         reset_launch_counts,
@@ -464,7 +517,7 @@ def check_routing(torch, dev):
     card, sampler = flagship_stack(dev)
     card.init(sampler.generate(np.arange(1))[0], seed=0)
     cpu, cpu_sampler = flagship_stack("cpu")
-    tree = params_tree(card)
+    tree = flax_tree(card.base_model)
     for net in (card, cpu):
         net.load_flax_params(tree, dtype=torch.float64)
     reset_launch_counts()
@@ -579,14 +632,498 @@ def check_routing(torch, dev):
     return out
 
 
-def params_tree(dlwp):
-    """The model's weights as a flax-style tree of numpy arrays."""
-    return {"params": {
-        f"layers_{i}": {k: p.detach().cpu().numpy()
-                        for k, p in layer.named_parameters()}
-        for i, layer in enumerate(dlwp.base_model.layers)
-        if any(True for _ in layer.parameters())
-    }}
+def splice_insolation(inp, pred, k):
+    """``examples/train_convlstm.py``'s sequence splice in torch: the
+    prediction's channels, then the input's last known insolation."""
+    import torch
+
+    return torch.cat([pred, inp[:, :, C:]], dim=2)
+
+
+def gates_per_train_step(S):
+    """``lstm_gates`` launches of one train step, from the code: the
+    ConvLSTM runs the gates at its steps t >= 1 (TD - 1 launches a model
+    call), the loss makes S model calls, and with S > 1 each call runs
+    under ``checkpoint`` and again in its recompute."""
+    return (TD - 1) * S * (2 if S > 1 else 1)
+
+
+def train_stack(device, S=1, seed=0, n=TRAIN_N):
+    """The flagship to train and its train and validation samplers, as
+    ``examples/train_convlstm.py`` builds them: the last 25% of the
+    series held out with ``train_test_split_ind``, shuffle on with seed 0,
+    insolation, TD input and output steps, B=32, a latitude-weighted MSE,
+    adam at 1e-3 and early stopping armed; random weights from ``seed``."""
+    from dlwp_torch import DLWPNeuralNet, SeriesSampler
+    from dlwp_torch.flagship import convlstm_specs
+    from dlwp_torch.ops.losses import latitude_weighted_loss, mse
+    from dlwp_torch.utils import train_test_split_ind
+
+    data = flagship_dataset(n)
+    tr_idx, val_idx = train_test_split_ind(n, n // 4, method="last")
+    train_data, val_data = data.isel_sample(tr_idx), data.isel_sample(val_idx)
+    net = DLWPNeuralNet(is_recurrent=True, time_dim=TD, scaler_type=None,
+                        device=device)
+    net.build_model(
+        convlstm_specs(NLAT, NLON, C, TD),
+        loss=latitude_weighted_loss(mse, train_data.lat), optimizer="adam",
+        learning_rate=TRAIN_LR, sequence_steps=S,
+        splice_fn=splice_insolation if S > 1 else None,
+        early_stopping=True, patience=TRAIN_EPOCHS,
+    )
+    kw = dict(input_time_steps=TD, output_time_steps=TD,
+              sequence=S if S > 1 else None, add_insolation=True,
+              batch_size=TRAIN_B)
+    train = SeriesSampler(train_data, model=net, shuffle=True, seed=0, **kw)
+    val = SeriesSampler(val_data, model=net, **kw)
+    net.init(train.generate(np.arange(1))[0], seed=seed)
+    return net, train, val
+
+
+def state_equal(a, b):
+    return a.keys() == b.keys() and all(
+        bool((a[k] == b[k]).all()) for k in a)
+
+
+def state_rel_rms(got, want):
+    """sqrt(sum |got - want|^2) / sqrt(sum |want|^2) over a state dict."""
+    num = sum(float(((got[k].double().cpu() - want[k].double().cpu()) ** 2)
+                    .sum()) for k in want)
+    den = sum(float((want[k].double().cpu() ** 2).sum()) for k in want)
+    return (num / den) ** 0.5
+
+
+def fit_launches(epochs, n_train, n_val):
+    """Launches of fit_generator over ``epochs`` epochs: each train step's
+    gates, and each validation batch's model step (2 conv-pool stages, TD
+    - 1 gate launches)."""
+    return expected_counts(
+        lstm_gates=epochs * (n_train * gates_per_train_step(1)
+                             + n_val * (TD - 1)),
+        fused_conv_pool=epochs * n_val * 2)
+
+
+def fit_three_ways(torch, dev, tmp, tag):
+    """From one seed: fit_generator for 2 epochs with a checkpoint each
+    epoch, then a fresh model resumed from it to epoch 3; and two
+    uninterrupted 3-epoch runs. Each fit's launch counts are set to 0
+    just before it and read just after, and held to :func:`fit_launches`.
+    Returns [(net, history, wall s, launch counts)] in that order."""
+    from dlwp_torch.kernels import launch_counts, reset_launch_counts
+
+    ckpt = os.path.join(tmp, tag)
+    runs = []
+    for epochs, kw in ((2, {"checkpoint_dir": ckpt}),
+                       (3, {"checkpoint_dir": ckpt, "resume": True}),
+                       (3, {}), (3, {})):
+        net, train, val = train_stack(dev)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        hist = net.fit_generator(train, validation_data=val, epochs=epochs,
+                                 verbose=False, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+        need = fit_launches(len(hist.epoch), len(train), len(val))
+        if counts != need:
+            raise AssertionError(f"fit ({tag}, {epochs} epochs {kw}) "
+                                 f"launches {counts} != {need}")
+        losses = hist.history["loss"] + hist.history["val_loss"]
+        if not np.isfinite(losses).all():
+            raise AssertionError(f"fit: non-finite losses {hist.history}")
+        runs.append((net, hist, wall, counts))
+    return runs
+
+
+def fit_resume_forecast(torch, dev, tmp):
+    """fit_generator with checkpoints, a resumed run against the
+    uninterrupted one and a second uninterrupted run against the first
+    (the card's own run-to-run spread); where the default run is not
+    bit-equal, the same under cuDNN's deterministic algorithms, which
+    must be; then TimeSeriesEstimator.predict on the trained model."""
+    from dlwp_torch import (SeriesSampler, TimeSeriesEstimator,
+                            device_prefetch, flax_tree)
+    from dlwp_torch.kernels import launch_counts, reset_launch_counts
+
+    out = {}
+    runs = fit_three_ways(torch, dev, tmp, "default")
+    (_, hist, wall, counts) = runs[0]
+    out["fit_launches"] = counts
+    log(f"train fit_generator: 2 epochs at B={TRAIN_B}, {wall:.2f} s host "
+        f"clock (epochs {[round(t, 3) for t in hist.history['time']]} s; the "
+        f"process's first fit, which imports torch._dynamo on building the "
+        f"optimizer); launches {counts}; loss "
+        f"{hist.history['loss']}, val_loss {hist.history['val_loss']}")
+
+    def compare(runs, tag):
+        resumed, hist_r = runs[1][:2]
+        straight, hist_s = runs[2][:2]
+        again = runs[3][0]
+        s_state = straight.base_model.state_dict()
+        row = {
+            "resume_bit_equal": (
+                hist_r.epoch == [2]
+                and state_equal(resumed.base_model.state_dict(), s_state)
+                and hist_r.history["loss"] == hist_s.history["loss"][2:]),
+            "resume_rel_rms": state_rel_rms(resumed.base_model.state_dict(),
+                                            s_state),
+            "rerun_bit_equal": state_equal(again.base_model.state_dict(),
+                                           s_state),
+            "rerun_rel_rms": state_rel_rms(again.base_model.state_dict(),
+                                           s_state),
+        }
+        log(f"train resume ({tag}): epoch 3 resumed from the epoch-2 "
+            f"checkpoint vs 3 epochs straight: bit-equal "
+            f"{row['resume_bit_equal']}, parameter relative RMS "
+            f"{row['resume_rel_rms']:.3e}; a second straight run: bit-equal "
+            f"{row['rerun_bit_equal']}, relative RMS "
+            f"{row['rerun_rel_rms']:.3e}; epoch-3 loss "
+            f"{hist_r.history['loss']} vs {hist_s.history['loss'][2:]}")
+        return row
+
+    out["default"] = compare(runs, "default cuDNN algorithms")
+    if not out["default"]["resume_bit_equal"]:
+        if not out["default"]["resume_rel_rms"] <= TOL_RESUME_RRMS:
+            raise AssertionError(f"resumed run differs: {out}")
+        with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                        deterministic=True,
+                                        allow_tf32=False):
+            det = fit_three_ways(torch, dev, tmp, "deterministic")
+        out["deterministic"] = compare(det, "cuDNN deterministic")
+        if not (out["deterministic"]["resume_bit_equal"]
+                and out["deterministic"]["rerun_bit_equal"]):
+            raise AssertionError(f"resumed run differs: {out}")
+
+    straight = runs[2][0]
+    sampler = SeriesSampler(flagship_dataset(TRAIN_N), model=straight,
+                            input_time_steps=TD, output_time_steps=TD,
+                            batch_size=B, add_insolation=True)
+    reset_launch_counts()
+    fc = TimeSeriesEstimator(straight, sampler).predict(STEPS,
+                                                        samples=np.arange(B))
+    torch.cuda.synchronize()
+    out["forecast_launches"] = launch_counts()
+    log(f"train: TimeSeriesEstimator.predict({STEPS}) at B={B} on the "
+        f"trained model: {fc.values.shape}, launches "
+        f"{out['forecast_launches']}")
+    need = expected_counts(fused_conv_pool=2 * STEPS, lstm_gates=STEPS)
+    if out["forecast_launches"] != need:
+        raise AssertionError(f"forecast after fit: {out} != {need}")
+    if fc.values.shape != (STEPS * TD, B, C, NLAT, NLON) or not (
+            np.isfinite(fc.values).all()):
+        raise AssertionError(f"forecast after fit: {fc.values.shape}")
+    cpu, cpu_sampler = flagship_stack("cpu")  # the same first samples
+    cpu.load_flax_params(flax_tree(straight.base_model))
+    out["forecast_vs_cpu"] = forecast_vs_cpu(
+        fc, cpu, cpu_sampler, "fp32", "train: forecast after fit")
+
+    # device_prefetch: the side-stream copies equal the sampler's batches.
+    want = list(sampler)
+    got = [tuple(t.cpu().numpy() for t in pair)
+           for pair in device_prefetch(sampler, device=dev)]
+    out["prefetch_equal"] = len(got) == len(want) and all(
+        np.array_equal(a, b) for g, w in zip(got, want)
+        for a, b in zip(g, w))
+    log(f"train: device_prefetch of {len(want)} batches of B={B}: equal to "
+        f"the sampler's {out['prefetch_equal']}")
+    if not out["prefetch_equal"]:
+        raise AssertionError("device_prefetch changed the batches")
+    return out
+
+
+def train_vs_cpu(torch, dev, S):
+    """The first TRAIN_CHECK_STEPS train steps on the card and, from the
+    same weights and batches, in fp32 on the CPU (plain versions): each
+    step's loss, the first step's gradient and the parameters after the
+    steps. Before them, ``evaluate`` of the first batch on those weights
+    (on the card through both kernels) against the CPU's. One train
+    step's launches, and one evaluated batch's."""
+    from dlwp_torch import flax_tree
+    from dlwp_torch.kernels import launch_counts, reset_launch_counts
+
+    card, train, _ = train_stack(dev, S)
+    cpu, _, _ = train_stack("cpu", S)
+    cpu.load_flax_params(flax_tree(card.base_model))
+    batches = [train[i] for i in range(TRAIN_CHECK_STEPS)]
+    runs = {}
+    for name, net in (("card", card), ("cpu", cpu)):
+        tr = net.trainer
+        tr.init(batches[0][0])
+        before = {k: v.detach().cpu().clone()
+                  for k, v in net.base_model.state_dict().items()}
+        if name == "card":
+            reset_launch_counts()
+        eval_loss = tr.evaluate([batches[0]])["loss"]
+        if name == "card":
+            torch.cuda.synchronize()
+            eval_counts = launch_counts()
+        losses, grads, t0 = [], None, time.perf_counter()
+        for k, (xb, yb) in enumerate(batches):
+            if name == "card" and k == 0:
+                reset_launch_counts()
+            losses.append(tr.train_step(xb, yb)["loss"].item())
+            if name == "card" and k == 0:
+                step_counts = launch_counts()
+            if k == 0:
+                grads = {n: p.grad.detach().cpu().clone()
+                         for n, p in net.base_model.named_parameters()}
+        params = {k: v.detach().cpu().clone()
+                  for k, v in net.base_model.state_dict().items()}
+        runs[name] = (losses, grads, params, time.perf_counter() - t0,
+                      eval_loss)
+    (l_card, g_card, p_card, _, e_card), (l_cpu, g_cpu, p_cpu, cpu_s,
+                                          e_cpu) = runs["card"], runs["cpu"]
+    moved = {k: p_cpu[k] - before[k] for k in p_cpu}
+    out = {
+        "loss_rel": max(abs(a - b) / abs(b) for a, b in zip(l_card, l_cpu)),
+        "eval_loss_rel": abs(e_card - e_cpu) / abs(e_cpu),
+        "grad_rel_rms": state_rel_rms(g_card, g_cpu),
+        "params_rel_rms": state_rel_rms(p_card, p_cpu),
+        "params_diff_over_update_rms": state_rel_rms(
+            {k: p_card[k] - before[k] for k in p_card}, moved),
+        "losses_card": l_card, "losses_cpu": l_cpu,
+        "step_launches": step_counts, "eval_launches": eval_counts,
+    }
+    log(f"train S={S} card vs CPU fp32 ({TRAIN_CHECK_STEPS} steps at B="
+        f"{TRAIN_B}, {cpu_s:.1f} s on the CPU): loss relative "
+        f"{out['loss_rel']:.3e} (limit {TOL_TRAIN['loss']}), evaluate's "
+        f"loss relative {out['eval_loss_rel']:.3e} (same limit), first "
+        f"gradient "
+        f"relative RMS {out['grad_rel_rms']:.3e} (limit {TOL_TRAIN['grad']}),"
+        f" parameters relative RMS {out['params_rel_rms']:.3e} (limit "
+        f"{TOL_TRAIN['params']}; the difference is "
+        f"{out['params_diff_over_update_rms']:.3e} of the update's RMS); "
+        f"launches a train step {step_counts}, an evaluated batch "
+        f"{eval_counts}")
+    need_step = expected_counts(lstm_gates=gates_per_train_step(S))
+    need_eval = expected_counts(lstm_gates=(TD - 1) * S,
+                                fused_conv_pool=2 * S)
+    if step_counts != need_step or eval_counts != need_eval:
+        raise AssertionError(f"S={S} launches: {out}")
+    for key, lim in (("loss_rel", "loss"), ("eval_loss_rel", "loss"),
+                     ("grad_rel_rms", "grad"),
+                     ("params_rel_rms", "params")):
+        if not out[key] <= TOL_TRAIN[lim]:
+            raise AssertionError(f"S={S} {key}: {out[key]} > {TOL_TRAIN[lim]}")
+    return out
+
+
+def train_step_split(torch, fn):
+    """Device time of one call of ``fn`` (a train step) by part, from a
+    ``torch.profiler`` trace: each kernel goes to the part its name or the
+    ops that launched it name. Returns {part: [ms, kernels, top names]}."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+
+    def part(event, kname):
+        chain, e = [], event
+        while e is not None:
+            chain.append(e.name)
+            e = e.cpu_parent
+        ops = " | ".join(chain)
+        backward = "autograd::engine" in ops
+        if "lstm_gates" in kname:
+            return "lstm_gates kernel" + (" (recompute)" if backward else "")
+        if "Optimizer.step" in ops:
+            return "optimizer update"
+        if "_GatesBackward" in ops:
+            return "plain gate VJP"
+        if "aten::convolution_backward" in ops:
+            if "dgrad" in kname:
+                return "conv data-gradient"
+            if "wgrad" in kname:
+                return "conv weight-gradient"
+            return "conv backward, other kernels"
+        if "aten::cudnn_convolution" in ops or "aten::convolution" in ops:
+            return "conv forward" + (" (recompute)" if backward else "")
+        return "other backward" if backward else "other forward"
+
+    split = {}
+    for event in prof.events():
+        for k in getattr(event, "kernels", ()):
+            row = split.setdefault(part(event, k.name), [0.0, 0, {}])
+            row[0] += k.duration / 1e3
+            row[1] += 1
+            row[2][k.name] = row[2].get(k.name, 0.0) + k.duration / 1e3
+    for row in split.values():
+        row[2] = [f"{t:.4f} ms {n[:70]}" for n, t in
+                  sorted(row[2].items(), key=lambda kv: -kv[1])[:3]]
+    return split
+
+
+def time_train(torch, dev, S):
+    """Train steps/s and samples/s at B=32 on device-resident batches (CUDA
+    events, median after warm-up), the device time of one step by kernel
+    and by part (torch.profiler), and the idle share."""
+    net, train, _ = train_stack(dev, S)
+    tr = net.trainer
+    xb, yb = train[0]
+    tr.init(xb)
+    xd, yd = tr._to_device(xb), tr._to_device(yb)
+    step = lambda: tr.train_step(xd, yd)  # noqa: E731
+    ms = timed_ms(step, reps=5, inner=5, warmup=3)
+    profile_device(torch, step, f"train step S={S} B={TRAIN_B}")
+    split = train_step_split(torch, step)
+    device = sum(v[0] for v in split.values())
+    out = {"ms_per_step": ms, "steps_per_s": 1e3 / ms,
+           "samples_per_s": TRAIN_B * 1e3 / ms, "device_ms_per_step": device,
+           "idle_share": 1 - device / ms,
+           "split_ms": {k: v[0] for k, v in split.items()},
+           "split_launches": {k: v[1] for k, v in split.items()},
+           "split_top": {k: v[2] for k, v in split.items()}}
+    log(f"train S={S} B={TRAIN_B}: {ms:.3f} ms a step (CUDA events) -> "
+        f"{out['steps_per_s']:.2f} steps/s, {out['samples_per_s']:.1f} "
+        f"samples/s; device {device:.3f} ms a step (idle "
+        f"{100 * out['idle_share']:.1f}%)")
+    total = sum(out["split_ms"].values())
+    for k, v in sorted(split.items(), key=lambda kv: -kv[1][0]):
+        log(f"  {v[0]:8.4f} ms {100 * v[0] / max(total, 1e-9):5.1f}% "
+            f"x{v[1]:<4d} {k}: {'; '.join(v[2])}")
+    return out
+
+
+def time_fit_generator(torch, dev, device_ms_per_step):
+    """fit_generator's train samples/s at B=32 over FIT_TIME_EPOCHS epochs
+    of a FIT_TIME_N-sample series, without validation, after a one-epoch
+    warm-up; then its host-clock time split into its serial parts, each
+    timed alone over the same number of epochs: the sampler's batch
+    assembly, each batch's copy to the card (pinning included; synchronized
+    once at the end) and the train steps on batches already on the card.
+    The rest is the fit loop's own. The device's idle share in the fit
+    takes the train step's device time (``device_ms_per_step``, from
+    torch.profiler) for each step."""
+    net, train, _ = train_stack(dev, n=FIT_TIME_N)
+    tr, E = net.trainer, FIT_TIME_EPOCHS
+    net.fit_generator(train, epochs=1, verbose=False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hist = net.fit_generator(train, epochs=E, verbose=False)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    if len(hist.epoch) != E:
+        raise AssertionError(f"timed fit ran {len(hist.epoch)} epochs")
+    steps, windows = E * len(train), E * len(train._indices)
+
+    t0 = time.perf_counter()
+    for _ in range(E):
+        batches = list(train)
+    assembly_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for _ in range(E):
+        on_card = [(tr._to_device(x), tr._to_device(y)) for x, y in batches]
+    torch.cuda.synchronize()
+    copy_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for _ in range(E):
+        for x, y in on_card:
+            tr.train_step(x, y)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    out = {"fit_s": fit_s, "epochs": E, "steps": steps, "windows": windows,
+           "samples_per_s": windows / fit_s, "steps_per_s": steps / fit_s,
+           "assembly_s": assembly_s, "copy_s": copy_s, "step_s": step_s,
+           "rest_s": fit_s - assembly_s - copy_s - step_s,
+           "idle_share": 1 - steps * device_ms_per_step / 1e3 / fit_s}
+    log(f"train fit_generator timed: {E} epochs of {windows // E} windows "
+        f"({steps} steps at B={TRAIN_B}, no validation) in {fit_s:.3f} s "
+        f"host clock: {out['samples_per_s']:.1f} train samples/s, "
+        f"{out['steps_per_s']:.2f} steps/s, device idle "
+        f"{100 * out['idle_share']:.1f}%. Alone over the same epochs: "
+        f"sampler assembly {assembly_s:.3f} s "
+        f"({100 * assembly_s / fit_s:.1f}%), copies to the card "
+        f"{copy_s:.3f} s ({100 * copy_s / fit_s:.1f}%), train steps on "
+        f"card-resident batches {step_s:.3f} s "
+        f"({100 * step_s / fit_s:.1f}%); the rest {out['rest_s']:.3f} s")
+    return out
+
+
+def time_backward_candidates(torch, dev):
+    """What a hand backward kernel could save in a train step at B=32:
+    the device time of the plain gate VJP (after the kernel's forward) and
+    of each conv-pool stage's composition backward (conv data and weight
+    gradients, tanh and pool backward), each beside the bound of the same
+    function (bytes once each way; for the convs also 3 TF32 products a
+    multiply-add, the hand convs' arithmetic), and the composition's
+    forward beside the kernel's (torch.profiler, mean of 10 calls)."""
+    from dlwp_torch.kernels import lstm_gates
+    from dlwp_torch.models.cnn import SequentialModel
+    from dlwp_torch.models.layers import FusedConvPool2D
+
+    g = torch.Generator().manual_seed(11)
+    F4, n = 4 * 4 * (C + 1), TRAIN_B * NLAT * NLON
+    zx, zh = (torch.randn(TRAIN_B, F4, NLAT, NLON, generator=g).to(dev)
+              .requires_grad_(True) for _ in range(2))
+    c0 = torch.randn(TRAIN_B, F4 // 4, NLAT, NLON, generator=g).to(dev) \
+        .requires_grad_(True)
+    grads = [torch.randn(TRAIN_B, F4 // 4, NLAT, NLON, generator=g).to(dev)
+             for _ in range(2)]
+    fwd = device_ms_per_call(torch, lambda: lstm_gates(zx, zh, c0, "tanh"))
+    both = device_ms_per_call(torch, lambda: torch.autograd.grad(
+        lstm_gates(zx, zh, c0, "tanh"), (zx, zh, c0), grads))
+    # read zx, zh, c, dh, dc; write dzx, dzh, dc: 20 F-channel planes.
+    bound, by = bound_ms(4 * 20 * (F4 // 4) * n, 0)
+    out = {"gate_vjp": {"ms": both - fwd, "forward_kernel_ms": fwd,
+                        "bound_ms": bound, "bound_by": by}}
+    log(f"backward candidates: plain gate VJP {both - fwd:.4f} ms device at "
+        f"({TRAIN_B}, {F4}, {NLAT}, {NLON}), bound {bound:.4f} ms ({by}); "
+        f"the kernel's forward {fwd:.4f} ms")
+    for name, (Cin, H, W, O, d) in (("stage 1", (TD * F4 // 4, NLAT, NLON,
+                                                 32, 2)),
+                                    ("stage 2", (32, NLAT // 2, NLON // 2,
+                                                 64, 1))):
+        x = torch.randn(TRAIN_B, Cin, H, W, generator=g).to(dev)
+        model = SequentialModel([FusedConvPool2D(O, 3, dilation=d)],
+                                device=dev).init(x, seed=3)
+        layer = model.layers[0]
+        with torch.no_grad():
+            kernel_fwd = device_ms_per_call(torch, lambda: layer(x))
+        x.requires_grad_(True)
+        for p in (layer.kernel, layer.bias):
+            p.requires_grad_(True)
+        dy = torch.randn(TRAIN_B, O, H // 2, W // 2, generator=g).to(dev)
+        comp_fwd = device_ms_per_call(torch, lambda: layer(x))
+        comp_all = device_ms_per_call(torch, lambda: torch.autograd.grad(
+            layer(x), (x, layer.kernel, layer.bias), dy))
+        flops = 2 * 2 * TRAIN_B * O * Cin * 9 * H * W  # data + weight grads
+        nbytes = 4 * (2 * x.numel() + 2 * layer.kernel.numel() + O
+                      + dy.numel())
+        b_fp32, by32 = bound_ms(nbytes, flops)
+        b_tc, bytc = bound_ms(nbytes, 3 * flops, PEAK_TF32_FLOPS)
+        out[name] = {"shape": [TRAIN_B, Cin, H, W, O, d],
+                     "backward_ms": comp_all - comp_fwd,
+                     "composition_forward_ms": comp_fwd,
+                     "kernel_forward_ms": kernel_fwd,
+                     "bound_fp32_ms": b_fp32, "bound_tc_ms": b_tc}
+        log(f"backward candidates: conv-pool {name} ({TRAIN_B}, {Cin}, {H},"
+            f" {W})->{O} d={d}: composition backward {comp_all - comp_fwd:.4f}"
+            f" ms device (bound fp32 {b_fp32:.4f} ({by32}), 3xTF32 "
+            f"{b_tc:.4f} ({bytc})); composition forward {comp_fwd:.4f} ms, "
+            f"the kernel's {kernel_fwd:.4f} ms")
+    return out
+
+
+def run_train_phase(torch, dev):
+    """The training path at full width (the flow of
+    examples/train_convlstm.py): fit, checkpoint and resume, the forecast
+    after fit, S=1 and S=2 against the CPU, and the train rates."""
+    import tempfile
+
+    torch.set_num_threads(os.cpu_count() or 1)
+    with tempfile.TemporaryDirectory() as tmp:
+        out = fit_resume_forecast(torch, dev, tmp)
+    for S in (1, 2):
+        out[f"S{S}"] = train_vs_cpu(torch, dev, S)
+        out[f"S{S}"].update(time_train(torch, dev, S))
+    out["fit_timed"] = time_fit_generator(
+        torch, dev, out["S1"]["device_ms_per_step"])
+    out["backward_candidates"] = time_backward_candidates(torch, dev)
+    return out
 
 
 def profile_steps(torch, est, x0, days, ms, tag, steps=4, names=None):
@@ -611,9 +1148,12 @@ def profile_device(torch, fn, label, per=1, unit="call", names=None):
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
+    # torch.optim's step annotation spans its kernels on the device
+    # timeline; it is a range, not a kernel, and is left out.
     rows = [e for e in prof.key_averages()
             if getattr(e, "device_time_total", 0) > 0
-            and e.device_type.name == "CUDA"]
+            and e.device_type.name == "CUDA"
+            and not e.key.startswith("Optimizer.")]
     total = sum(e.device_time_total for e in rows)
     if names is not None:
         names.update({e.key: (e.device_time_total / 1e3 / per, e.count / per)
@@ -1145,7 +1685,7 @@ def run_sharded_path(torch, dev):
     """The lat=2 spatial-parallel forecast on the card (the slice's main
     path) against the unsharded forecast and the CPU; then B=8, rates and
     the profile. Returns the launches per run and the measurements."""
-    from dlwp_torch import TimeSeriesEstimator
+    from dlwp_torch import TimeSeriesEstimator, flax_tree
     from dlwp_torch.kernels import launch_counts, reset_launch_counts
 
     card, sampler = flagship_stack(dev)
@@ -1154,7 +1694,7 @@ def run_sharded_path(torch, dev):
     sharded.base_model.share_params_from(card.base_model)
     cpu, cpu_sampler = flagship_stack(
         "cpu", mesh=virtual_mesh(torch.device("cpu"), 1, 2))
-    cpu.load_flax_params(params_tree(card))
+    cpu.load_flax_params(flax_tree(card.base_model))
     per_step = {b: dispatch_launches(torch, cpu, b) for b in (B, B_SMALL)}
     log(f"sharded path: launches per step from the dispatch: {per_step}")
     if per_step[B_SMALL]["overlap_conv"] == 0:
@@ -1390,6 +1930,7 @@ def device_ms_per_call(torch, fn, calls=10):
 ONLY = {
     "kernels": check_kernels,
     "routing": check_routing,
+    "train": run_train_phase,
     "barotropic_kernel": check_barotropic_kernel,
     "barotropic_timing": time_barotropic,
 }
@@ -1450,6 +1991,7 @@ def main(argv=None) -> int:
     check_golden(torch, dev, root)
     main_launches, rollout = run_main_path(torch, dev)
     routing = check_routing(torch, dev)
+    train = run_train_phase(torch, dev)
     sharded_launches, per_step, sharded = run_sharded_path(torch, dev)
     par_timing = time_parallel_kernels(torch, dev)
     baro_err = check_barotropic_kernel(torch, dev)
@@ -1499,6 +2041,9 @@ def main(argv=None) -> int:
         entry = {
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": main_launches[name],
+            # The training path's launches: fit_generator's first 2
+            # epochs (train steps, then validation under no_grad).
+            "launches_train": train["fit_launches"][name],
             "max_abs_err": errs[name],
             "ms": float(np.mean([r["ms"] for r in rows])),
             "plain_ms": float(np.mean([r["plain_ms"] for r in rows])),
@@ -1522,6 +2067,7 @@ def main(argv=None) -> int:
         "source": "dlwp_torch/csrc/barotropic_step.cu",
         "replaces": "dlwp_tpu/barotropic/pallas_step.py:123",
         "launches": sum(baro_launches.values()),
+        "launches_train": train["fit_launches"]["barotropic_step"],
         "max_abs_err": baro_err,
         # Per integration step at T72 on 73x144, mean of the two forms.
         "ms": float(np.mean([r["ms"] for r in rows])),
@@ -1546,6 +2092,7 @@ def main(argv=None) -> int:
         entry = {
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": sharded_launches[run][name],
+            "launches_train": train["fit_launches"][name],
             "max_abs_err": errs[name],
             "ms": float(np.mean([r["ms"] for r in rows])),
             "plain_ms": float(np.mean([r["plain_ms"] for r in rows])),
@@ -1572,7 +2119,7 @@ def main(argv=None) -> int:
                         "library_device_ms"):
                 entry[key] = float(np.mean([r[key] for r in rows]))
         kernels.append(entry)
-    log(json.dumps({"rollout": rollout, "routing": routing,
+    log(json.dumps({"rollout": rollout, "routing": routing, "train": train,
                     "sharded_path": sharded,
                     "sharded_launches": sharded_launches,
                     "launches_per_step": per_step,

@@ -2,8 +2,9 @@
 
 The port of ``dlwp_tpu`` (JAX on TPU), module for module, with the same
 NCHW / (B, T, C, H, W) layouts at public functions: the ConvLSTM forecast
-stack, its lat-band spatial-parallel form (:mod:`dlwp_torch.parallel`)
-and the spectral barotropic core. Entry points run on
+stack and its training (:mod:`dlwp_torch.train`), its lat-band
+spatial-parallel form (:mod:`dlwp_torch.parallel`) and the spectral
+barotropic core. Entry points run on
 ``cuda`` unless given ``device="cpu"``; see :mod:`dlwp_torch.device`.
 Hand-written kernels live in ``csrc/`` with their wrappers and plain
 PyTorch versions in :mod:`dlwp_torch.kernels`.
@@ -14,15 +15,24 @@ from dlwp_torch.barotropic import (
     BarotropicModelPsi,
     BarotropicState,
 )
-from dlwp_torch.data import PredictorDataset, SeriesSampler
+from dlwp_torch.data import (
+    PredictorDataset,
+    SamplesSampler,
+    SeriesSampler,
+    device_prefetch,
+)
 from dlwp_torch.device import resolve_device
 from dlwp_torch.forecast import Forecast, TimeSeriesEstimator
 from dlwp_torch.grid import LatLonGrid
-from dlwp_torch.models import DLWPNeuralNet, build_sequential
+from dlwp_torch.models import DLWPFunctional, DLWPNeuralNet, build_sequential
 from dlwp_torch.spectral import SphericalHarmonics
+from dlwp_torch.train import TrainConfig, Trainer
+from dlwp_torch.utils import load_model, save_model
 from dlwp_torch.weights import (
     barotropic_state_from_numpy,
+    flax_tree,
     load_flax_params,
+    load_optax_adam_state,
     tree_from_leaves,
 )
 
@@ -30,16 +40,25 @@ __all__ = [
     "BarotropicModel",
     "BarotropicModelPsi",
     "BarotropicState",
+    "DLWPFunctional",
     "DLWPNeuralNet",
     "Forecast",
     "LatLonGrid",
     "PredictorDataset",
+    "SamplesSampler",
     "SeriesSampler",
     "SphericalHarmonics",
     "TimeSeriesEstimator",
+    "TrainConfig",
+    "Trainer",
     "barotropic_state_from_numpy",
     "build_sequential",
+    "device_prefetch",
+    "flax_tree",
     "load_flax_params",
+    "load_model",
+    "load_optax_adam_state",
     "resolve_device",
+    "save_model",
     "tree_from_leaves",
 ]

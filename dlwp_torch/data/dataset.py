@@ -39,6 +39,16 @@ class PredictorDataset:
                 f"varlev {e.args[0]!r} not in dataset (has {self.varlev})"
             ) from None
 
+    def isel_sample(self, index) -> "PredictorDataset":
+        """Subset along the sample axis (train/validation splits)."""
+        return dataclasses.replace(
+            self,
+            predictors=np.asarray(self.predictors)[index],
+            sample=self.sample[index],
+            targets=None if self.targets is None
+            else np.asarray(self.targets)[index],
+        )
+
     def sel(self, varlev: Sequence[str] | None = None) -> "PredictorDataset":
         """Subset channels by varlev name (a copy)."""
         if varlev is None:

@@ -228,9 +228,10 @@ def fused_conv_pool(x, kernel, bias=None, dilation: int = 2):
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in (x, kernel, bias)):
         raise NotImplementedError(
-            "fused_conv_pool's kernel is forward only; its backward comes "
-            "with the training slice (ROADMAP.md section 1, item 1): run "
-            "under torch.no_grad() or with operands that need no gradient")
+            "fused_conv_pool's kernel is forward only; a backward kernel is "
+            "queued as speed work (ROADMAP.md section 2b), and "
+            "FusedConvPool2D trains through its composition: run under "
+            "torch.no_grad() or with operands that need no gradient")
     if bias is None:
         bias = x.new_zeros(O)
     for name, t in (("x", x), ("kernel", kernel), ("bias", bias)):

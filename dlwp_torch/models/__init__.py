@@ -1,6 +1,6 @@
 """Model layers, ``build_sequential`` and API (port of ``dlwp_tpu.models``)."""
 
-from dlwp_torch.models.api import DLWPNeuralNet
+from dlwp_torch.models.api import DLWPFunctional, DLWPNeuralNet, shape_series
 from dlwp_torch.models.cnn import LAYER_REGISTRY, SequentialModel, build_sequential
 from dlwp_torch.models.layers import (
     Activation,
@@ -19,6 +19,7 @@ __all__ = [
     "Activation",
     "ConvLSTM2D",
     "CyclicConv2D",
+    "DLWPFunctional",
     "DLWPNeuralNet",
     "FusedConvPool2D",
     "Identity",
@@ -30,4 +31,5 @@ __all__ = [
     "UpSampling2D",
     "build_sequential",
     "get_activation",
+    "shape_series",
 ]

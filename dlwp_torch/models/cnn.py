@@ -145,12 +145,13 @@ def _peephole_fuse(layers: list) -> list:
 
 class SequentialModel(nn.Module):
     """Apply a fixed sequence of layers; ``layers[i]`` is flax
-    ``layers_{i}``."""
+    ``layers_{i}``. Lives on ``device`` (default ``cuda``; raises without
+    a card unless ``device='cpu'``)."""
 
-    def __init__(self, layers: Sequence[nn.Module], device="cpu"):
+    def __init__(self, layers: Sequence[nn.Module], device=None):
         super().__init__()
         self.layers = nn.ModuleList(layers)
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
 
     def forward(self, x):
         for layer in self.layers:
@@ -161,7 +162,11 @@ class SequentialModel(nn.Module):
     def init(self, x: torch.Tensor, seed: int = 0) -> "SequentialModel":
         """Create random parameters for input ``x``, layer by layer (the
         flax ``init`` shape pass), from a ``torch.Generator`` seeded with
-        ``seed``. Layers that already hold parameters keep them."""
+        ``seed``. Layers that already hold parameters keep them; a model
+        whose layers all hold them runs nothing."""
+        if all(layer.built for layer in self.layers
+               if isinstance(layer, ParamLayer)):
+            return self
         gen = torch.Generator().manual_seed(seed)
         x = x.to(self.device)
         for layer in self.layers:

@@ -171,7 +171,10 @@ class FusedConvPool2D(_ConvBase):
     What :meth:`uses_kernel` admits goes through ``fused_conv_pool`` (its
     kernel on the card, its plain version on the CPU); any other case runs
     the composition conv -> bias -> activation -> pool, as the JAX layer
-    composes the ops outside its float32 Pallas branch.
+    composes the ops outside its float32 Pallas branch. While a gradient
+    is recorded the layer runs the composition, whose backward autograd
+    has: the kernel is forward only, as the JAX Pallas kernel has no VJP
+    and the JAX layer trains through the composition.
     """
 
     def __init__(self, features, kernel_size=3, dilation=1,
@@ -180,18 +183,22 @@ class FusedConvPool2D(_ConvBase):
 
     def uses_kernel(self, x) -> bool:
         """A 3x3 tanh stage on an even float32 grid, at a dilation below
-        the width, as the JAX layer's Pallas branch takes it."""
+        the width, as the JAX layer's Pallas branch takes it, and no
+        gradient to record for x, the kernel or the bias."""
         d = self.dilation
+        operands = (x, self.kernel, self.bias)
         return (
-            self.kernel_size == (3, 3)
+            not (torch.is_grad_enabled()
+                 and any(t is not None and t.requires_grad for t in operands))
+            and self.kernel_size == (3, 3)
             and d[0] == d[1]
             and 1 <= d[0] < x.shape[-1]
             and self.activation == "tanh"
             and x.dim() == 4
             and x.shape[-1] % 2 == 0
             and x.shape[-2] % 2 == 0
-            and all(t.dtype == torch.float32
-                    for t in (x, self.kernel, self.bias) if t is not None)
+            and all(t.dtype == torch.float32 for t in operands
+                    if t is not None)
         )
 
     def forward(self, x):

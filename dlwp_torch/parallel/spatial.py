@@ -13,7 +13,7 @@ mesh's shards and joins its output.
 'pallas' (the ``halo_exchange`` kernel + a VALID conv; any kernel size and
 dilation) or 'overlap' (the ``overlap_conv`` kernels for 3x3 undilated 4-D
 convs, others as 'pallas'). The kernel paths are forward only: their
-backward comes with the training slice (ROADMAP.md section 1, item 1).
+backward comes with the sharded backward (ROADMAP.md section 1, item 6).
 """
 
 from __future__ import annotations
@@ -98,8 +98,9 @@ class SpatialSharding:
                                             or kernel.requires_grad):
                 raise NotImplementedError(
                     "the sharded kernel paths are forward only; their "
-                    "backward comes with the training slice (ROADMAP.md "
-                    "section 1, item 1): use impl='ppermute' to train")
+                    "backward comes with the sharded backward of the "
+                    "training slice (ROADMAP.md section 1, item 6): use "
+                    "impl='ppermute' to differentiate")
             return _fast_conv_impl(x, kernel, self, dilation)
         return _ppermute_conv(x, kernel, self, dilation)
 

@@ -1,0 +1,464 @@
+"""Training loop (port of ``dlwp_tpu.train.trainer``).
+
+One train step is a forward through the model, the loss, ``backward`` and
+an optimizer step with optax's update rule (:mod:`dlwp_torch.train.optim`),
+on the model's device:
+
+- the loss, the optimizer and the metrics are plain callables;
+- multi-step ("sequence") training rolls the model out ``sequence_steps``
+  times inside the loss, feeding each prediction back through
+  ``splice_fn``, each model step under ``torch.utils.checkpoint`` (the
+  JAX package's ``jax.checkpoint``): its activations are recomputed in the
+  backward;
+- early stopping with a minimum-epoch floor and best-weights restore;
+- checkpoints every few epochs and resume from the latest.
+
+Kernels: every forward of a train step runs the ``lstm_gates`` kernel
+(kernel forward, plain VJP), and so does checkpoint's recompute; the
+conv-pool stages run their composition while a gradient is recorded, as
+the JAX layer trains them. Evaluation runs under ``torch.no_grad()``, so
+both kernels run there.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Any, Callable, Iterable
+
+import numpy as np
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from dlwp_torch.models.layers import ParamLayer
+from dlwp_torch.ops import losses as loss_lib
+from dlwp_torch.train.optim import OPTIMIZERS, add_decayed_weights
+
+LOSSES = {
+    "mse": loss_lib.mse,
+    "mae": loss_lib.mae,
+    "mean_squared_error": loss_lib.mse,
+    "mean_absolute_error": loss_lib.mae,
+}
+
+EVAL_IMPLS = ("forward", "outer", "grad")
+
+
+def resolve_loss(loss) -> Callable:
+    if callable(loss):
+        return loss
+    try:
+        return LOSSES[loss]
+    except KeyError:
+        raise ValueError(f"unknown loss {loss!r}") from None
+
+
+def resolve_optimizer(optimizer, learning_rate=1e-3, **kwargs) -> Callable:
+    """A factory ``params -> torch.optim.Optimizer``: an optimizer name of
+    :data:`~dlwp_torch.train.optim.OPTIMIZERS` with ``learning_rate`` and
+    the rule's keyword arguments, or such a callable as it is. The
+    trainer calls it with the model's ``named_parameters()``."""
+    if callable(optimizer):
+        return optimizer
+    try:
+        rule = OPTIMIZERS[optimizer]
+    except KeyError:
+        raise ValueError(f"unknown optimizer {optimizer!r}") from None
+    return lambda params: rule(params, learning_rate, **kwargs)
+
+
+@dataclasses.dataclass
+class TrainConfig:
+    """Training configuration, with the JAX package's fields and defaults."""
+
+    loss: Any = "mse"
+    optimizer: Any = "adam"
+    learning_rate: float = 1e-3
+    weight_decay: float = 0.0  # optax add_decayed_weights in front
+    epochs: int = 10
+    batch_size: int = 64
+    shuffle: bool = True
+    # Early stopping:
+    early_stopping: bool = False
+    min_epochs: int = 0
+    patience: int = 0
+    monitor: str = "val_loss"
+    restore_best_weights: bool = True
+    # Multi-step sequence training:
+    sequence_steps: int = 1
+    # Validation-eval form, all three of the same value: 'forward' is the
+    # train step's loss without the backward; 'outer' computes the
+    # per-step losses after the rollout, over the stacked predictions.
+    # 'grad' is, in the JAX package, the forward lowered under
+    # value_and_grad with the gradients discarded: a workaround for a TPU
+    # compile fault (its utils/compile_safe.py), which this package does
+    # not port. Here it is the 'forward' form.
+    eval_impl: str = "forward"
+    seed: int = 0
+
+
+class History:
+    """Keras-History-like record of epoch metrics."""
+
+    def __init__(self):
+        self.history: dict[str, list[float]] = {}
+        self.epoch: list[int] = []
+
+    def append(self, epoch: int, metrics: dict[str, float]):
+        self.epoch.append(epoch)
+        for k, v in metrics.items():
+            self.history.setdefault(k, []).append(float(v))
+
+
+class EarlyStoppingMin:
+    """Early stopping with a minimum-epoch floor and best-weights restore:
+    no stop before ``min_epochs``; stop after ``patience`` epochs without
+    improvement; keep a copy of the best parameters (a state dict)."""
+
+    def __init__(self, monitor="val_loss", min_epochs=0, patience=0,
+                 restore_best_weights=True, min_delta=0.0):
+        self.monitor = monitor
+        self.min_epochs = min_epochs
+        self.patience = patience
+        self.restore_best_weights = restore_best_weights
+        self.min_delta = min_delta
+        self.best = np.inf
+        self.best_params = None
+        self.wait = 0
+
+    def update(self, epoch: int, metrics: dict[str, float], params) -> bool:
+        """Returns True if training should stop. ``params``: a state dict."""
+        current = metrics.get(self.monitor)
+        if current is None:
+            return False
+        if current < self.best - self.min_delta:
+            self.best = current
+            self.wait = 0
+            if self.restore_best_weights:
+                self.best_params = {k: v.detach().clone()
+                                    for k, v in params.items()}
+        else:
+            self.wait += 1
+        return epoch + 1 >= self.min_epochs and self.wait > self.patience
+
+
+class Trainer:
+    """Training loop for a port ``SequentialModel``, on its device.
+
+    Args:
+        model: the model (``model.device`` is where batches go).
+        config: TrainConfig.
+        splice_fn: for sequence training, ``(current_input, prediction,
+            step_index) -> next input``; default: the prediction itself.
+        mesh: a lat-band mesh; ``fit`` raises on one (the sharded
+            backward, ROADMAP.md section 1, item 6).
+        metrics: ``{name: fn(y_true, y_pred)}``, recorded beside the loss.
+    """
+
+    def __init__(
+        self,
+        model,
+        config: TrainConfig | None = None,
+        splice_fn: Callable | None = None,
+        mesh=None,
+        metrics: dict[str, Callable] | None = None,
+    ):
+        self.model = model
+        self.config = config or TrainConfig()
+        if self.config.eval_impl not in EVAL_IMPLS:
+            raise ValueError(f"eval_impl must be one of {EVAL_IMPLS}")
+        self.loss_fn = resolve_loss(self.config.loss)
+        self.make_optimizer = resolve_optimizer(
+            self.config.optimizer, self.config.learning_rate)
+        self.splice_fn = splice_fn
+        self.metrics = metrics or {}
+        self.mesh = mesh
+        self.optimizer = None
+
+    @property
+    def device(self) -> torch.device:
+        return self.model.device
+
+    @property
+    def params(self):
+        """The model's state dict (live tensors), or None before
+        parameters exist."""
+        if not all(layer.built for layer in self.model.layers
+                   if isinstance(layer, ParamLayer)):
+            return None
+        return self.model.state_dict()
+
+    # ------------------------------------------------------------------ core
+    def init(self, sample_x):
+        """Random parameters from ``config.seed`` for layers that have none
+        (loaded weights are kept), gradients on, and a fresh optimizer."""
+        self.model.init(self._to_device(sample_x[:1]), seed=self.config.seed)
+        for p in self.model.parameters():
+            p.requires_grad_(True)
+        self.optimizer = self.make_optimizer(list(self.model.named_parameters()))
+        return self.params
+
+    def _to_device(self, a) -> torch.Tensor:
+        """A batch as a tensor on the model's device, in the parameters'
+        dtype once they exist. Host arrays go to a card through pinned
+        memory without a host wait, so the host can queue the step behind
+        the copy."""
+        params = [p for p in self.model.parameters()]
+        dtype = params[0].dtype if params else None
+        if not isinstance(a, torch.Tensor):
+            a = torch.from_numpy(np.ascontiguousarray(a))
+            if self.device.type == "cuda":
+                a = a.pin_memory()
+        return a.to(device=self.device, dtype=dtype or a.dtype,
+                    non_blocking=True)
+
+    def _forward_loss(self, x, y):
+        """Single- or multi-step loss and prediction.
+
+        For ``sequence_steps`` S > 1 the target carries a step axis at
+        position 1, (B, S, ...). The model runs S times, each step's input
+        spliced from the previous one and its prediction, each step under
+        ``checkpoint`` while a gradient is recorded; the loss is the mean
+        of the S step losses (equal weights)."""
+        S = self.config.sequence_steps
+        if S == 1:
+            pred = self.model(x)
+            return self.loss_fn(y, pred), pred
+        splice = self.splice_fn or (lambda inp, pred, k: pred)
+        remat = torch.is_grad_enabled()
+        inp, losses, preds = x, [], []
+        for k in range(S):
+            pred = (checkpoint(self.model, inp, use_reentrant=False) if remat
+                    else self.model(inp))
+            losses.append(self.loss_fn(y[:, k], pred))
+            preds.append(pred)
+            inp = splice(inp, pred, k)
+        return torch.stack(losses).mean(), torch.stack(preds, dim=1)
+
+    def _forward_loss_outer(self, x, y):
+        """The same value as :meth:`_forward_loss`, the step losses taken
+        after the rollout over the stacked predictions."""
+        S = self.config.sequence_steps
+        if S == 1:
+            pred = self.model(x)
+            return self.loss_fn(y, pred), pred
+        splice = self.splice_fn or (lambda inp, pred, k: pred)
+        inp, preds = x, []
+        for k in range(S):
+            pred = self.model(inp)
+            preds.append(pred)
+            inp = splice(inp, pred, k)
+        preds = torch.stack(preds, dim=1)
+        losses = torch.stack([self.loss_fn(y[:, k], preds[:, k])
+                              for k in range(S)])
+        return losses.mean(), preds
+
+    def train_step(self, x, y) -> dict[str, torch.Tensor]:
+        """One optimizer step on a batch (host arrays or tensors); returns
+        the batch's loss and metrics as 0-d tensors on the device. After it,
+        each parameter's ``grad`` holds this step's gradient (with
+        ``weight_decay`` added when it is set)."""
+        if self.optimizer is None:
+            self.init(x)
+        x, y = self._to_device(x), self._to_device(y)
+        params = [p for group in self.optimizer.param_groups
+                  for p in group["params"]]
+        for p in params:
+            p.grad = None
+        loss, pred = self._forward_loss(x, y)
+        loss.backward()
+        if self.config.weight_decay:
+            add_decayed_weights(params, self.config.weight_decay)
+        self.optimizer.step()
+        out = {"loss": loss.detach()}
+        with torch.no_grad():
+            for name, fn in self.metrics.items():
+                out[name] = fn(y, pred.detach())
+        return out
+
+    @torch.no_grad()
+    def _eval_step(self, x, y):
+        if self.config.eval_impl == "outer":
+            loss, pred = self._forward_loss_outer(x, y)
+        else:
+            loss, pred = self._forward_loss(x, y)
+        out = {"loss": loss}
+        for name, fn in self.metrics.items():
+            out[name] = fn(y, pred)
+        return out
+
+    def _check_unsharded(self):
+        if self.mesh is not None or any(
+                getattr(layer, "spatial", None) is not None
+                for layer in self.model.layers):
+            raise NotImplementedError(
+                "training a model built on a mesh needs the sharded backward "
+                "(ROADMAP.md section 1, item 6), and data parallelism across "
+                "cards waits with it: build the model without a mesh to "
+                "train it")
+
+    # ------------------------------------------------------------------ API
+    def fit(
+        self,
+        x=None,
+        y=None,
+        generator: Iterable | None = None,
+        validation_data=None,
+        epochs: int | None = None,
+        batch_size: int | None = None,
+        verbose: bool = True,
+        callbacks: list | None = None,
+        checkpoint_dir: str | None = None,
+        checkpoint_every: int = 1,
+        resume: bool = False,
+    ) -> History:
+        """Train from arrays or a batch generator.
+
+        ``generator`` yields (x_batch, y_batch) and supports len() and
+        re-iteration each epoch (the Keras ``Sequence`` protocol, as
+        :class:`~dlwp_torch.data.sampler.SeriesSampler`). Array batches
+        come in the order of ``np.random.RandomState(config.seed)``
+        shuffles. ``validation_data`` is (x, y) arrays or a generator.
+        The epoch metric is the unweighted mean of the batch losses.
+        Training stops on a non-finite epoch loss.
+
+        ``checkpoint_dir``: save the parameters and optimizer state every
+        ``checkpoint_every`` epochs; with ``resume=True``, restore the
+        latest checkpoint and continue from the epoch after it. A resumed
+        run sees the batches the uninterrupted run would have seen: the
+        array shuffle, and a generator's ``on_epoch_end`` order, advance
+        once per completed epoch (as the JAX package's ``fit_device``
+        realigns its shuffle; its per-batch ``fit`` does not).
+        """
+        self._check_unsharded()
+        cfg = self.config
+        epochs = epochs or cfg.epochs
+        batch_size = batch_size or cfg.batch_size
+        history = History()
+        stopper = (
+            EarlyStoppingMin(cfg.monitor, cfg.min_epochs, cfg.patience,
+                             cfg.restore_best_weights)
+            if cfg.early_stopping else None
+        )
+        rng = np.random.RandomState(cfg.seed)
+
+        if self.optimizer is None:
+            if generator is not None:
+                x0, _ = (generator[0] if hasattr(generator, "__getitem__")
+                         else next(iter(generator)))
+            else:
+                x0 = x[:1]
+            self.init(x0)
+
+        start_epoch = 0
+        if checkpoint_dir and resume:
+            from dlwp_torch.train.checkpoint import restore_checkpoint
+
+            try:
+                state, meta = restore_checkpoint(checkpoint_dir,
+                                                 device=self.device)
+            except FileNotFoundError:
+                pass
+            else:
+                self.model.load_state_dict(state["params"])
+                self.optimizer.load_state_dict(state["opt_state"])
+                start_epoch = int(meta.get("epoch", -1)) + 1
+                if verbose:
+                    print(f"resumed from epoch {start_epoch}")
+                for _ in range(start_epoch):
+                    if generator is None and cfg.shuffle:
+                        rng.shuffle(np.arange(len(x)))
+                    elif generator is not None and hasattr(generator,
+                                                           "on_epoch_end"):
+                        generator.on_epoch_end()
+
+        n = None if x is None else len(x)
+        for epoch in range(start_epoch, epochs):
+            t0 = time.time()
+            train_metrics: dict[str, list] = {}
+            if generator is not None:
+                epoch_iter = iter(generator)
+            else:
+                idx = np.arange(n)
+                if cfg.shuffle:
+                    rng.shuffle(idx)
+                epoch_iter = (
+                    (x[idx[i:i + batch_size]], y[idx[i:i + batch_size]])
+                    for i in range(0, n, batch_size)
+                )
+            for xb, yb in epoch_iter:
+                m = self.train_step(xb, yb)
+                for k, v in m.items():
+                    train_metrics.setdefault(k, []).append(v)
+                for cb in callbacks or []:
+                    if hasattr(cb, "on_batch"):
+                        cb.on_batch(float(m["loss"]))
+            metrics = {k: _mean(vs) for k, vs in train_metrics.items()}
+            if not np.isfinite(metrics.get("loss", 0.0)):
+                print(f"non-finite loss at epoch {epoch + 1}; stopping")
+                if (stopper is not None and stopper.restore_best_weights
+                        and stopper.best_params is not None):
+                    self.model.load_state_dict(stopper.best_params)
+                history.append(epoch, metrics)
+                break
+            if validation_data is not None:
+                metrics.update({
+                    f"val_{k}": v for k, v in self.evaluate(
+                        validation_data, batch_size=batch_size).items()
+                })
+            metrics["time"] = time.time() - t0
+            history.append(epoch, metrics)
+            for cb in callbacks or []:
+                cb(epoch, metrics, self.params)
+            if checkpoint_dir and (epoch + 1) % checkpoint_every == 0:
+                from dlwp_torch.train.checkpoint import save_checkpoint
+
+                save_checkpoint(
+                    checkpoint_dir, self.model.state_dict(),
+                    self.optimizer.state_dict(), step=epoch,
+                    metadata={"epoch": epoch, **metrics},
+                )
+            if verbose:
+                desc = " ".join(f"{k}={v:.6g}" for k, v in metrics.items())
+                print(f"epoch {epoch + 1}/{epochs}: {desc}")
+            if stopper is not None and stopper.update(
+                    epoch, metrics, self.model.state_dict()):
+                if stopper.restore_best_weights and stopper.best_params is not None:
+                    self.model.load_state_dict(stopper.best_params)
+                if verbose:
+                    print(f"early stopping at epoch {epoch + 1}")
+                break
+        return history
+
+    def evaluate(self, data, batch_size: int = 64) -> dict[str, float]:
+        """Mean over batches of the loss and metrics, without gradients
+        (the kernels run): ``data`` is (x, y) arrays or a generator."""
+        if isinstance(data, tuple):
+            x, y = data
+            batches = ((x[i:i + batch_size], y[i:i + batch_size])
+                       for i in range(0, len(x), batch_size))
+        else:
+            batches = iter(data)
+        out: dict[str, list] = {}
+        for xb, yb in batches:
+            m = self._eval_step(self._to_device(xb), self._to_device(yb))
+            for k, v in m.items():
+                out.setdefault(k, []).append(v)
+        return {k: _mean(v) for k, v in out.items()}
+
+
+def _mean(values) -> float:
+    """The unweighted mean of per-batch 0-d tensors, taken on the host in
+    their dtype."""
+    return float(np.mean(torch.stack(values).cpu().numpy()))
+
+
+__all__ = [
+    "EarlyStoppingMin",
+    "History",
+    "LOSSES",
+    "TrainConfig",
+    "Trainer",
+    "resolve_loss",
+    "resolve_optimizer",
+]

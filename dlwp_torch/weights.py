@@ -6,6 +6,11 @@ A flax ``SequentialModel`` keeps its parameters as
 (OIHW ``kernel`` and ``bias``; ``input_kernel``, ``recurrent_kernel`` and
 ``bias`` for ``ConvLSTM2D``), so loading is a checked one-to-one copy.
 
+:func:`flax_tree` takes the weights out again in that layout, and
+:func:`load_optax_adam_state` carries an optax Adam state into the port's
+:class:`~dlwp_torch.train.optim.Adam`, so a run of the JAX package can be
+continued here.
+
 The barotropic core has no weights; its state is what crosses:
 :func:`barotropic_state_from_numpy` resumes a JAX ``BarotropicState`` taken
 out as numpy arrays.
@@ -62,6 +67,75 @@ def load_flax_params(model, params, dtype=torch.float32) -> None:
             )
     for (slot, name), val in staged.items():
         setattr(slots[slot], name, nn.Parameter(val, requires_grad=False))
+
+
+def flax_tree(model) -> dict:
+    """``model``'s weights as a flax-layout tree of numpy arrays (the
+    inverse of :func:`load_flax_params`)."""
+    return {"params": {
+        slot: {name: p.detach().cpu().numpy()
+               for name, p in layer.named_parameters(recurse=False)}
+        for slot, layer in _param_layers(model).items()
+    }}
+
+
+def _adam_state(opt_state):
+    """The first (count, mu, nu) in an optax state: a ``ScaleByAdamState``
+    (or any object or dict with those fields), possibly inside the tuples
+    of an optax chain."""
+    if isinstance(opt_state, dict) and {"count", "mu", "nu"} <= set(opt_state):
+        return opt_state["count"], opt_state["mu"], opt_state["nu"]
+    if all(hasattr(opt_state, k) for k in ("count", "mu", "nu")):
+        return opt_state.count, opt_state.mu, opt_state.nu
+    if isinstance(opt_state, (tuple, list)):
+        for part in opt_state:
+            found = _adam_state(part)
+            if found is not None:
+                return found
+    return None
+
+
+@torch.no_grad()
+def load_optax_adam_state(optimizer, opt_state) -> None:
+    """Fill ``optimizer`` (the port's :class:`~dlwp_torch.train.optim.Adam`
+    over a ``SequentialModel``'s ``named_parameters()``, as the trainer
+    builds it) from an optax Adam state given as numpy arrays: the step
+    ``count`` and the ``mu`` and ``nu`` trees in flax ``layers_{i}``
+    slots. Raises when a parameter has no moment, a moment no parameter, or
+    shapes differ."""
+    found = _adam_state(opt_state)
+    if found is None:
+        raise ValueError("no Adam state (count, mu, nu) in opt_state")
+    count, mu, nu = found
+    mu, nu = mu.get("params", mu), nu.get("params", nu)
+    seen = set()
+    for group in optimizer.param_groups:
+        names = group.get("param_names")
+        if names is None:
+            raise ValueError("the optimizer needs named parameters: build it "
+                             "over model.named_parameters()")
+        for name, p in zip(names, group["params"]):
+            parts = name.split(".")
+            if len(parts) != 3 or parts[0] != "layers":
+                raise ValueError(f"parameter {name!r} is not a layer weight")
+            slot, leaf = f"layers_{parts[1]}", parts[2]
+            try:
+                m, v = np.asarray(mu[slot][leaf]), np.asarray(nu[slot][leaf])
+            except KeyError:
+                raise KeyError(f"no moment for {slot}.{leaf}") from None
+            if m.shape != tuple(p.shape) or v.shape != tuple(p.shape):
+                raise ValueError(f"{slot}.{leaf}: moments {m.shape}, "
+                                 f"parameter {tuple(p.shape)}")
+            optimizer.state[p] = {
+                "count": int(np.asarray(count)),
+                "mu": torch.tensor(m, dtype=p.dtype, device=p.device),
+                "nu": torch.tensor(v, dtype=p.dtype, device=p.device),
+            }
+            seen.add((slot, leaf))
+    extra = sorted(f"{slot}.{leaf}" for slot in mu for leaf in mu[slot]
+                   if (slot, leaf) not in seen)
+    if extra:
+        raise KeyError(f"moments without a parameter: {extra}")
 
 
 def tree_from_leaves(model, leaves) -> dict:

@@ -19,7 +19,12 @@ a ConvLSTM2D with 'relu' runs the plain gate chain; the gradient of a
 ConvLSTM2D through the ``lstm_gates`` kernel (plain VJP) matches the same
 layer's through the plain gate chain within 1e-5 of its scale (the
 kernel's and the plain forward differ by float32 rounding); and
-``fused_conv_pool`` refuses operands that require grad.
+``fused_conv_pool`` refuses operands that require grad. Training: one
+full-width flagship train step against the CPU (loss 1e-5 relative,
+gradient 2e-5 and parameters 2e-4 relative RMS, the limits of
+``chip_smoke.py``'s training phase), a FusedConvPool2D's composition
+under a gradient against its kernel under no_grad (1e-5), and the
+kernels launched by ``fit_generator`` and the forecast after it.
 """
 
 import numpy as np
@@ -421,3 +426,119 @@ def test_conv_pool_refuses_operands_that_require_grad(dev):
         torch.testing.assert_close(fused_conv_pool(x, k, b, 1),
                                    fused_conv_pool_plain(x, k, b, 1),
                                    rtol=0, atol=1e-5)
+
+
+def _rel_rms(got, want):
+    num = sum(float(((got[k].double().cpu() - want[k].double().cpu()) ** 2)
+                    .sum()) for k in want)
+    return (num / sum(float((want[k].double().cpu() ** 2).sum())
+                      for k in want)) ** 0.5
+
+
+def test_flagship_train_step_on_card_matches_cpu(dev):
+    """One train step of the full-width flagship (36x144, B=4, adam, a
+    latitude-weighted MSE) on the card and on the CPU from the same
+    weights and batch, with chip_smoke.py's limits: loss 1e-5 relative,
+    gradient 2e-5 and parameters 2e-4 relative RMS. The step launches the
+    gate kernel once and the conv-pool kernel not at all."""
+    from dlwp_torch.ops.losses import latitude_weighted_loss, mse
+    from dlwp_torch.train import TrainConfig, Trainer
+
+    rng = np.random.RandomState(4)
+    x = rng.randn(4, 2, 3, 36, 144).astype(np.float32)
+    y = rng.randn(4, 2, 2, 36, 144).astype(np.float32)
+    loss = latitude_weighted_loss(mse, np.linspace(87.5, 0.0, 36))
+    runs = {}
+    for name in ("cpu", dev):
+        model = build_sequential(convlstm_specs(), device=name)
+        model.init(torch.from_numpy(x), seed=3)
+        tr = Trainer(model, TrainConfig(loss=loss))
+        tr.init(x)
+        reset_launch_counts()
+        got = tr.train_step(x, y)["loss"].item()
+        counts = launch_counts()
+        runs[name] = (got, {n: p.grad for n, p in model.named_parameters()},
+                      model.state_dict(), counts)
+    (l_cpu, g_cpu, p_cpu, _), (l_card, g_card, p_card, counts) = (
+        runs["cpu"], runs[dev])
+    assert counts["lstm_gates"] == 1 and counts["fused_conv_pool"] == 0
+    assert abs(l_card - l_cpu) <= 1e-5 * abs(l_cpu)
+    assert _rel_rms(g_card, g_cpu) <= 2e-5
+    assert _rel_rms(p_card, p_cpu) <= 2e-4
+
+
+def test_conv_pool_composition_under_grad_matches_kernel(dev):
+    """A FusedConvPool2D at a flagship stage: with a gradient recorded it
+    runs its composition (no launch), under no_grad the kernel (one
+    launch); the two forwards agree within 1e-5."""
+    x = torch.from_numpy(_conv_pool_operands(5, B=4, C=24, H=36, W=144,
+                                             O=32)[0]).to(dev)
+    layer = SequentialModel([TL.FusedConvPool2D(32, 3, dilation=2)],
+                            device=dev).init(x, seed=2).layers[0]
+    layer.kernel.requires_grad_(True)
+    reset_launch_counts()
+    composed = layer(x)
+    assert composed.requires_grad and launch_counts()["fused_conv_pool"] == 0
+    with torch.no_grad():
+        fused = layer(x)
+    assert launch_counts()["fused_conv_pool"] == 1
+    torch.testing.assert_close(composed.detach(), fused, rtol=0, atol=1e-5)
+
+
+def test_fit_then_predict_launches_both_kernels(dev, tmp_path):
+    """fit_generator with validation on the card: the train steps launch
+    the gate kernel, the validation both kernels; the forecast after fit
+    (parameters that require grad) launches both."""
+    from dlwp_torch import PredictorDataset, SeriesSampler, TimeSeriesEstimator
+
+    n = 24
+    data = PredictorDataset(
+        predictors=np.random.RandomState(6).randn(n, 2, 8, 16)
+        .astype(np.float32),
+        sample=(np.datetime64("2007-01-01")
+                + np.arange(n) * np.timedelta64(6, "h")),
+        varlev=["HGT/500", "THICK/300-700"],
+        lat=np.linspace(87.5, 0.0, 8), lon=np.arange(16) * 22.5)
+    net = DLWPNeuralNet(time_dim=2, is_recurrent=True, scaler_type=None,
+                        device=dev)
+    net.build_model(convlstm_specs(8, 16))
+    kw = dict(input_time_steps=2, output_time_steps=2, add_insolation=True,
+              batch_size=8)
+    train = SeriesSampler(data, model=net, shuffle=True, **kw)
+    val = SeriesSampler(data, model=net, **kw)
+    net.init(train[0][0], seed=0)
+    reset_launch_counts()
+    net.fit_generator(train, validation_data=val, epochs=1, verbose=False,
+                      checkpoint_dir=str(tmp_path))
+    counts = launch_counts()
+    assert counts["lstm_gates"] == len(train) + len(val)
+    assert counts["fused_conv_pool"] == 2 * len(val)
+    assert all(p.requires_grad for p in net.base_model.parameters())
+    reset_launch_counts()
+    fc = TimeSeriesEstimator(net, val).predict(3, samples=np.arange(4))
+    assert np.isfinite(fc.values).all()
+    assert launch_counts()["fused_conv_pool"] == 6
+    assert launch_counts()["lstm_gates"] == 3
+
+
+def test_device_prefetch_on_card(dev):
+    """Batches copied on a side stream equal the sampler's."""
+    from dlwp_torch import PredictorDataset, SeriesSampler, device_prefetch
+
+    n = 20
+    data = PredictorDataset(
+        predictors=np.random.RandomState(7).randn(n, 2, 8, 16)
+        .astype(np.float32),
+        sample=(np.datetime64("2007-01-01")
+                + np.arange(n) * np.timedelta64(6, "h")),
+        varlev=["HGT/500", "THICK/300-700"],
+        lat=np.linspace(87.5, 0.0, 8), lon=np.arange(16) * 22.5)
+    kw = dict(input_time_steps=2, output_time_steps=2, add_insolation=True,
+              batch_size=4, shuffle=True, seed=2, is_recurrent=True)
+    want = list(SeriesSampler(data, **kw))
+    got = list(device_prefetch(SeriesSampler(data, **kw), device=dev))
+    assert len(got) == len(want)
+    for (gx, gy), (wx, wy) in zip(got, want):
+        assert gx.device == torch.empty(0, device=dev).device
+        np.testing.assert_array_equal(gx.cpu().numpy(), wx)
+        np.testing.assert_array_equal(gy.cpu().numpy(), wy)

@@ -45,13 +45,13 @@ def softsign(v):
 def _run_convlstm(x, **kw):
     """The same seeded weights through the JAX layer (its default XLA gate
     path) and the port's layer, float64."""
-    port = SequentialModel([TL.ConvLSTM2D(4, **kw)])
+    port = SequentialModel([TL.ConvLSTM2D(4, **kw)], device="cpu")
     port.init(torch.from_numpy(x), seed=3)
     tree = {"params": {"layers_0": {
         k: p.numpy().copy() for k, p in port.layers[0].named_parameters()}}}
     want = np.asarray(JL.ConvLSTM2D(features=4, **kw).apply(
         {"params": tree["params"]["layers_0"]}, jnp.asarray(x)))
-    model = SequentialModel([TL.ConvLSTM2D(4, **kw)])
+    model = SequentialModel([TL.ConvLSTM2D(4, **kw)], device="cpu")
     load_flax_params(model, tree, dtype=torch.float64)
     with torch.inference_mode():
         return model(torch.from_numpy(x)).numpy(), want
@@ -80,7 +80,7 @@ def test_convlstm_refuses_unknown_activation_name():
 
 
 def _built(layer, x):
-    SequentialModel([layer]).init(x, seed=0)
+    SequentialModel([layer], device="cpu").init(x, seed=0)
     return layer
 
 

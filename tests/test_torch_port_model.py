@@ -40,10 +40,10 @@ def _random_tree(model, x, seed=0):
 def _run_layer(jax_layer, make_port_layer, x):
     """Same random weights through the JAX layer and a fresh port layer
     filled by ``load_flax_params``."""
-    tree = _random_tree(SequentialModel([make_port_layer()]), x)
+    tree = _random_tree(SequentialModel([make_port_layer()], device="cpu"), x)
     want = np.asarray(jax_layer.apply(
         {"params": tree["params"]["layers_0"]}, jnp.asarray(x)))
-    model = SequentialModel([make_port_layer()])
+    model = SequentialModel([make_port_layer()], device="cpu")
     load_flax_params(model, tree, dtype=torch.float64)
     with torch.inference_mode():
         got = model(torch.from_numpy(x)).numpy()

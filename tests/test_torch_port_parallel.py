@@ -300,10 +300,10 @@ def test_spatial_layers_match_jax(conv, impl):
         make_port = lambda s: TL.CyclicConv2D(4, activation="tanh",
                                               spatial=s, **kw)
         jl = JL.CyclicConv2D(features=4, activation="tanh", spatial=js, **kw)
-    tree = _tree(SequentialModel([make_port(None)]), x)
+    tree = _tree(SequentialModel([make_port(None)], device="cpu"), x)
     want = np.asarray(jax.jit(jl.apply)(
         {"params": tree["params"]["layers_0"]}, jnp.asarray(x)))
-    model = SequentialModel([make_port(ps)])
+    model = SequentialModel([make_port(ps)], device="cpu")
     load_flax_params(model, tree)
     with torch.inference_mode():
         got = model(torch.from_numpy(x)).numpy()
