@@ -98,7 +98,32 @@ Phases, each raising on failure:
     (CUDA events, and device time from ``torch.profiler``) beside its
     bound: fp32 FMA, and for the convs also their 3xTF32 tensor-core
     arithmetic;
-13. a ``{"kernels": [...]}`` line, then the last line
+13. device-resident training (``--only device_train``) at the training
+    phase's width: every batch of a ``DeviceSeriesSampler`` equal to the
+    host sampler's bit for bit (S=1, S=2, two epochs); ``fit_device`` for
+    3 epochs with ``examples/train_convlstm.py --cosine-decay``'s chain
+    (clip 1.0, adam on a cosine decay to 5%) and a device validation
+    sampler on the card against the CPU from the same weights (the
+    training phase's limits, ``TOL_TRAIN``), every epoch's step loop under
+    ``torch.cuda.set_sync_debug_mode("error")``, launch counts (the gate
+    kernel in every train step, the conv-pool kernel only in validation);
+    ``fit_device`` against per-batch ``fit`` (bit-equal under cuDNN's
+    deterministic algorithms); then ``fit_generator`` and ``fit_device``
+    timed in turns over 8 epochs of 1197 windows: train samples/s, device
+    idle share, the step loop's host time;
+14. ``--only layers``: a spec model of every newly registered layer (Conv2D
+    SAME at stride 2 with an even kernel, the padding layers, RowConv2D,
+    AveragePooling2D, Dense, slice_layer, an edgefix CyclicConv2D) on the
+    card against the CPU;
+15. ``--only skip_tower``: SkipTower(c_out=4, width=32, time_steps=2,
+    lstm_features=8) on the flagship input: predict(32) at B=64 against the
+    CPU (forecast limits; gate launches), its rate and idle share, and 3
+    train steps against the CPU (train limits);
+16. ``--only verify``: ``examples/validate.py``'s flow (validation split,
+    ``TimeSeriesEstimator.predict``, ``verification_from_series``, the
+    RMSE rows) on the model phase 13 trained, on the card against the CPU
+    (1e-4 relative), the table printed;
+17. a ``{"kernels": [...]}`` line, then the last line
     ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without printing a result when no CUDA device is present.
@@ -394,16 +419,17 @@ def flagship_dataset(n, seed=0):
     )
 
 
-def flagship_stack(device, seed=0, mesh=None):
+def flagship_stack(device, seed=0, mesh=None, specs=None):
     """Synthetic dataset -> model -> sampler, as a user builds it; with a
-    ``mesh``, the model shards latitude bands over it (``overlap``)."""
+    ``mesh``, the model shards latitude bands over it (``overlap``).
+    ``specs``: another model than the flagship."""
     from dlwp_torch import DLWPNeuralNet, SeriesSampler
     from dlwp_torch.flagship import convlstm_specs
 
     data = flagship_dataset(B + 2 * TD + 2, seed)
     dlwp = DLWPNeuralNet(time_dim=TD, scaler_type=None, is_recurrent=True,
                          device=device)
-    dlwp.build_model(convlstm_specs(NLAT, NLON, C, TD), mesh=mesh,
+    dlwp.build_model(specs or convlstm_specs(NLAT, NLON, C, TD), mesh=mesh,
                      batch_spec=SHARD_SPEC if mesh else None,
                      spatial_impl="overlap")
     sampler = SeriesSampler(data, model=dlwp, input_time_steps=TD,
@@ -648,36 +674,46 @@ def gates_per_train_step(S):
     return (TD - 1) * S * (2 if S > 1 else 1)
 
 
-def train_stack(device, S=1, seed=0, n=TRAIN_N):
-    """The flagship to train and its train and validation samplers, as
-    ``examples/train_convlstm.py`` builds them: the last 25% of the
-    series held out with ``train_test_split_ind``, shuffle on with seed 0,
-    insolation, TD input and output steps, B=32, a latitude-weighted MSE,
-    adam at 1e-3 and early stopping armed; random weights from ``seed``."""
-    from dlwp_torch import DLWPNeuralNet, SeriesSampler
+def train_stack(device, S=1, seed=0, n=TRAIN_N, specs=None, shuffle=True):
+    """The flagship (or ``specs``) to train and its train and validation
+    samplers, as ``examples/train_convlstm.py`` builds them: the last 25%
+    of the series held out with ``train_test_split_ind``, shuffle on with
+    seed 0 (unless ``shuffle`` is off), insolation, TD input and output
+    steps, B=32, a latitude-weighted MSE, adam at 1e-3 and early stopping
+    armed; random weights from ``seed``."""
+    from dlwp_torch import DLWPNeuralNet
     from dlwp_torch.flagship import convlstm_specs
     from dlwp_torch.ops.losses import latitude_weighted_loss, mse
-    from dlwp_torch.utils import train_test_split_ind
 
     data = flagship_dataset(n)
-    tr_idx, val_idx = train_test_split_ind(n, n // 4, method="last")
-    train_data, val_data = data.isel_sample(tr_idx), data.isel_sample(val_idx)
     net = DLWPNeuralNet(is_recurrent=True, time_dim=TD, scaler_type=None,
                         device=device)
     net.build_model(
-        convlstm_specs(NLAT, NLON, C, TD),
-        loss=latitude_weighted_loss(mse, train_data.lat), optimizer="adam",
+        specs or convlstm_specs(NLAT, NLON, C, TD),
+        loss=latitude_weighted_loss(mse, data.lat), optimizer="adam",
         learning_rate=TRAIN_LR, sequence_steps=S,
         splice_fn=splice_insolation if S > 1 else None,
         early_stopping=True, patience=TRAIN_EPOCHS,
     )
+    train, val = train_samplers(net, S, n, shuffle)
+    net.init(train.generate(np.arange(1))[0], seed=seed)
+    return net, train, val
+
+
+def train_samplers(net, S=1, n=TRAIN_N, shuffle=True):
+    """The train (shuffled from seed 0 when ``shuffle``) and validation
+    samplers of :func:`train_stack`'s split."""
+    from dlwp_torch import SeriesSampler
+    from dlwp_torch.utils import train_test_split_ind
+
+    data = flagship_dataset(n)
+    tr_idx, val_idx = train_test_split_ind(n, n // 4, method="last")
     kw = dict(input_time_steps=TD, output_time_steps=TD,
               sequence=S if S > 1 else None, add_insolation=True,
               batch_size=TRAIN_B)
-    train = SeriesSampler(train_data, model=net, shuffle=True, seed=0, **kw)
-    val = SeriesSampler(val_data, model=net, **kw)
-    net.init(train.generate(np.arange(1))[0], seed=seed)
-    return net, train, val
+    return (SeriesSampler(data.isel_sample(tr_idx), model=net,
+                          shuffle=shuffle, seed=0, **kw),
+            SeriesSampler(data.isel_sample(val_idx), model=net, **kw))
 
 
 def state_equal(a, b):
@@ -693,14 +729,14 @@ def state_rel_rms(got, want):
     return (num / den) ** 0.5
 
 
-def fit_launches(epochs, n_train, n_val):
-    """Launches of fit_generator over ``epochs`` epochs: each train step's
-    gates, and each validation batch's model step (2 conv-pool stages, TD
-    - 1 gate launches)."""
+def fit_launches(epochs, n_train, n_val, S=1, pools=2):
+    """Launches of a fit over ``epochs`` epochs: each train step's gates,
+    and each validation batch's S model steps (``pools`` conv-pool stages,
+    TD - 1 gate launches each)."""
     return expected_counts(
-        lstm_gates=epochs * (n_train * gates_per_train_step(1)
-                             + n_val * (TD - 1)),
-        fused_conv_pool=epochs * n_val * 2)
+        lstm_gates=epochs * (n_train * gates_per_train_step(S)
+                             + n_val * (TD - 1) * S),
+        fused_conv_pool=epochs * n_val * pools * S)
 
 
 def fit_three_ways(torch, dev, tmp, tag):
@@ -831,21 +867,78 @@ def fit_resume_forecast(torch, dev, tmp):
     return out
 
 
-def train_vs_cpu(torch, dev, S):
+def leaf_modules(model):
+    return {n: m for n, m in model.named_modules()
+            if n and not any(True for _ in m.children())}
+
+
+def forced_gradient(torch, S, specs, weights, batch, card_out):
+    """The first step's gradient on the CPU from ``weights``, its backward
+    evaluated at the card's forward values ``card_out`` (each leaf
+    module's output, by name): each output keeps the CPU's graph and takes
+    the card's value, so a max whose argmax the two forwards' last-bit
+    differences flip (a near tie) routes the gradient as on the card."""
+    ref, _, _ = train_stack("cpu", S, specs=specs)
+    ref.base_model.load_state_dict(weights)
+    for p in ref.base_model.parameters():
+        p.requires_grad_(True)
+
+    def force(out, card):
+        if isinstance(out, tuple):
+            return tuple(force(o, c) for o, c in zip(out, card))
+        return out + (card.to(out.dtype) - out).detach()
+
+    hooks = [m.register_forward_hook(
+        lambda mod, inp, out, n=n: force(out, card_out[n]))
+        for n, m in leaf_modules(ref.base_model).items()]
+    x, y = (ref.trainer._to_device(a) for a in batch)
+    ref.trainer._forward_loss(x, y)[0].backward()
+    for h in hooks:
+        h.remove()
+    return {n: p.grad.detach().clone()
+            for n, p in ref.base_model.named_parameters()}
+
+
+def pool_decisions(a, b):
+    """A 2x2 max pool over (B, C, H, W) on ``a`` and on ``b``: the windows
+    whose argmax differs, the windows, and the smallest gap between the
+    two largest values of a window of ``b``."""
+    def windows(t):
+        B, C, H, W = t.shape
+        return (t.double().reshape(B, C, H // 2, 2, W // 2, 2)
+                .permute(0, 1, 2, 4, 3, 5).reshape(-1, 4))
+
+    wa, wb = windows(a), windows(b)
+    top = wb.topk(2, dim=1).values
+    return (int((wa.argmax(1) != wb.argmax(1)).sum()), wa.shape[0],
+            float((top[:, 0] - top[:, 1]).min()))
+
+
+def train_vs_cpu(torch, dev, S, make_specs=None, pools=2, label="train",
+                 force=False, pooled=None):
     """The first TRAIN_CHECK_STEPS train steps on the card and, from the
     same weights and batches, in fp32 on the CPU (plain versions): each
     step's loss, the first step's gradient and the parameters after the
     steps. Before them, ``evaluate`` of the first batch on those weights
     (on the card through both kernels) against the CPU's. One train
-    step's launches, and one evaluated batch's."""
+    step's launches, and one evaluated batch's (``pools`` conv-pool
+    launches a model step: 2 for the flagship). ``make_specs``: a
+    function returning another model's specs, called for each model.
+    ``force``: hold the first gradient to :func:`forced_gradient` (the
+    CPU's backward at the card's forward values), and report its
+    difference to the CPU's own as ``grad_rel_rms_unforced``; with it,
+    ``pooled`` ({leaf module: channels a 2x2 max pool takes from its
+    output}) reports those pools' :func:`pool_decisions`, card against
+    CPU, in the first step."""
     from dlwp_torch import flax_tree
     from dlwp_torch.kernels import launch_counts, reset_launch_counts
 
-    card, train, _ = train_stack(dev, S)
-    cpu, _, _ = train_stack("cpu", S)
+    specs = make_specs or (lambda: None)
+    card, train, _ = train_stack(dev, S, specs=specs())
+    cpu, _, _ = train_stack("cpu", S, specs=specs())
     cpu.load_flax_params(flax_tree(card.base_model))
     batches = [train[i] for i in range(TRAIN_CHECK_STEPS)]
-    runs = {}
+    runs, outs = {}, {"card": {}, "cpu": {}}
     for name, net in (("card", card), ("cpu", cpu)):
         tr = net.trainer
         tr.init(batches[0][0])
@@ -859,9 +952,18 @@ def train_vs_cpu(torch, dev, S):
             eval_counts = launch_counts()
         losses, grads, t0 = [], None, time.perf_counter()
         for k, (xb, yb) in enumerate(batches):
+            hooks = []
             if name == "card" and k == 0:
                 reset_launch_counts()
+            if force and k == 0:
+                hooks = [m.register_forward_hook(
+                    lambda mod, inp, out, n=n: outs[name].__setitem__(
+                        n, tuple(o.detach().cpu() for o in out)
+                        if isinstance(out, tuple) else out.detach().cpu()))
+                    for n, m in leaf_modules(net.base_model).items()]
             losses.append(tr.train_step(xb, yb)["loss"].item())
+            for h in hooks:
+                h.remove()
             if name == "card" and k == 0:
                 step_counts = launch_counts()
             if k == 0:
@@ -874,22 +976,37 @@ def train_vs_cpu(torch, dev, S):
     (l_card, g_card, p_card, _, e_card), (l_cpu, g_cpu, p_cpu, cpu_s,
                                           e_cpu) = runs["card"], runs["cpu"]
     moved = {k: p_cpu[k] - before[k] for k in p_cpu}
+    if force:
+        g_ref = forced_gradient(torch, S, specs(), before, batches[0],
+                                outs["card"])
     out = {
         "loss_rel": max(abs(a - b) / abs(b) for a, b in zip(l_card, l_cpu)),
         "eval_loss_rel": abs(e_card - e_cpu) / abs(e_cpu),
-        "grad_rel_rms": state_rel_rms(g_card, g_cpu),
+        "grad_rel_rms": state_rel_rms(g_card, g_ref if force else g_cpu),
         "params_rel_rms": state_rel_rms(p_card, p_cpu),
         "params_diff_over_update_rms": state_rel_rms(
             {k: p_card[k] - before[k] for k in p_card}, moved),
         "losses_card": l_card, "losses_cpu": l_cpu,
         "step_launches": step_counts, "eval_launches": eval_counts,
     }
-    log(f"train S={S} card vs CPU fp32 ({TRAIN_CHECK_STEPS} steps at B="
+    if force:
+        out["grad_rel_rms_unforced"] = state_rel_rms(g_card, g_cpu)
+        out["pool_decisions"] = {
+            n: pool_decisions(outs["card"][n][:, :c], outs["cpu"][n][:, :c])
+            for n, c in (pooled or {}).items()}
+    forced = ("against the CPU's backward at the card's forward values "
+              if force else "")
+    unforced = (f"; against the CPU's own {out['grad_rel_rms_unforced']:.3e}"
+                + "".join(f"; the max pool on {n}: {d} of {w} windows' argmax "
+                          f"differ, the CPU's smallest top-two gap {g:.3e}"
+                          for n, (d, w, g) in out["pool_decisions"].items())
+                if force else "")
+    log(f"{label} S={S} card vs CPU fp32 ({TRAIN_CHECK_STEPS} steps at B="
         f"{TRAIN_B}, {cpu_s:.1f} s on the CPU): loss relative "
         f"{out['loss_rel']:.3e} (limit {TOL_TRAIN['loss']}), evaluate's "
         f"loss relative {out['eval_loss_rel']:.3e} (same limit), first "
-        f"gradient "
-        f"relative RMS {out['grad_rel_rms']:.3e} (limit {TOL_TRAIN['grad']}),"
+        f"gradient {forced}relative RMS {out['grad_rel_rms']:.3e} (limit "
+        f"{TOL_TRAIN['grad']}{unforced}),"
         f" parameters relative RMS {out['params_rel_rms']:.3e} (limit "
         f"{TOL_TRAIN['params']}; the difference is "
         f"{out['params_diff_over_update_rms']:.3e} of the update's RMS); "
@@ -897,7 +1014,7 @@ def train_vs_cpu(torch, dev, S):
         f"{eval_counts}")
     need_step = expected_counts(lstm_gates=gates_per_train_step(S))
     need_eval = expected_counts(lstm_gates=(TD - 1) * S,
-                                fused_conv_pool=2 * S)
+                                fused_conv_pool=pools * S)
     if step_counts != need_step or eval_counts != need_eval:
         raise AssertionError(f"S={S} launches: {out}")
     for key, lim in (("loss_rel", "loss"), ("eval_loss_rel", "loss"),
@@ -1124,6 +1241,484 @@ def run_train_phase(torch, dev):
         torch, dev, out["S1"]["device_ms_per_step"])
     out["backward_candidates"] = time_backward_candidates(torch, dev)
     return out
+
+
+# ---------------------------------------------------------------------------
+# Device-resident training, the remaining layers, SkipTower, verification.
+def chain_optimizer(steps):
+    """``examples/train_convlstm.py --cosine-decay``'s optimizer in the
+    port: the global norm clipped at 1, then adam on a cosine decay from
+    the learning rate over ``steps`` to 5% of it."""
+    from dlwp_torch.train import chain, clip_by_global_norm
+    from dlwp_torch.train import cosine_decay_schedule
+    from dlwp_torch.train.optim import adam
+
+    return chain(clip_by_global_norm(1.0),
+                 adam(cosine_decay_schedule(TRAIN_LR, steps, 0.05)))
+
+
+def device_stack(device, S=1, shuffle=True):
+    """:func:`train_stack` with its samplers wrapped in
+    ``DeviceSeriesSampler``s on ``device``, and the trainer's optimizer
+    :func:`chain_optimizer` over TRAIN_EPOCHS epochs of the device
+    sampler's batches (known once the sampler exists)."""
+    from dlwp_torch import DeviceSeriesSampler
+
+    net, train, val = train_stack(device, S, shuffle=shuffle)
+    train = DeviceSeriesSampler(train, device=device)
+    val = DeviceSeriesSampler(val, device=device)
+    net.trainer.make_optimizer = chain_optimizer(len(train) * TRAIN_EPOCHS)
+    return net, train, val
+
+
+def probe_step_loop(torch, trainer, guard, record):
+    """Wrap ``trainer._device_epoch`` (an epoch's step loop): with
+    ``guard`` it runs under ``torch.cuda.set_sync_debug_mode('error')``,
+    where anything that waits for the card raises; its host time and step
+    count go to ``record``."""
+    real = trainer._device_epoch
+
+    def probed(sampler, idx):
+        if guard:
+            torch.cuda.set_sync_debug_mode("error")
+        t0 = time.perf_counter()
+        try:
+            out = real(sampler, idx)
+        finally:
+            if guard:
+                torch.cuda.set_sync_debug_mode(0)
+        record.append((time.perf_counter() - t0, len(out)))
+        return out
+
+    trainer._device_epoch = probed
+
+
+_TRAINED = {}  # the card's model after device_train's S=1 fit, for verify
+
+
+def device_batches_equal(torch, dev, S):
+    """Every batch of two shuffled epochs of a ``DeviceSeriesSampler`` on
+    the card against the host ``SeriesSampler``'s, bit for bit."""
+    from dlwp_torch import DeviceSeriesSampler
+
+    net, host, _ = train_stack(dev, S)
+    dsam = DeviceSeriesSampler(train_samplers(net, S)[0], device=dev)
+    n = 0
+    for _ in range(2):
+        for i, (x, y) in enumerate(dsam):
+            xh, yh = host[i]
+            if not (torch.equal(x, torch.from_numpy(xh).to(dev))
+                    and torch.equal(y, torch.from_numpy(yh).to(dev))):
+                raise AssertionError(f"S={S}: device batch {i} differs")
+            n += 1
+        host.on_epoch_end()
+    log(f"device_train S={S}: {n} batches of B={TRAIN_B} over 2 epochs "
+        f"({len(dsam)} an epoch, the ragged tail dropped) equal the host "
+        f"sampler's bit for bit")
+    return n
+
+
+def fit_device_vs_cpu(torch, dev, S):
+    """fit_device for TRAIN_EPOCHS epochs with the example's chain and a
+    device validation sampler, on the card (every epoch's step loop under
+    sync-debug 'error', launches counted) and on the CPU from the same
+    weights: epoch losses to TOL_TRAIN['loss'] relative, parameters to
+    TOL_TRAIN['params'] relative RMS."""
+    from dlwp_torch import flax_tree
+    from dlwp_torch.kernels import launch_counts, reset_launch_counts
+
+    runs = {}
+    for name, device in (("card", dev), ("cpu", "cpu")):
+        net, train, val = device_stack(device, S)
+        if name == "card":
+            tree0, record = flax_tree(net.base_model), []
+            n_train, n_val = len(train), len(val)
+            probe_step_loop(torch, net.trainer, True, record)
+            reset_launch_counts()
+        else:
+            net.load_flax_params(tree0)
+        t0 = time.perf_counter()
+        hist = net.fit_generator(train, validation_data=val,
+                                 epochs=TRAIN_EPOCHS, verbose=False)
+        if name == "card":
+            torch.cuda.synchronize()
+            counts = launch_counts()
+        runs[name] = (net, hist, time.perf_counter() - t0,
+                      {k: v.detach().cpu().clone()
+                       for k, v in net.base_model.state_dict().items()})
+    (card, h_card, wall, p_card), (_, h_cpu, cpu_s, p_cpu) = (
+        runs["card"], runs["cpu"])
+    need = fit_launches(len(h_card.epoch), n_train, n_val, S)
+    out = {
+        "epochs": h_card.epoch, "loss_card": h_card.history["loss"],
+        "loss_cpu": h_cpu.history["loss"],
+        "loss_rel": max(abs(a - b) / abs(b) for k in ("loss", "val_loss")
+                        for a, b in zip(h_card.history[k], h_cpu.history[k])),
+        "params_rel_rms": state_rel_rms(p_card, p_cpu),
+        "launches": counts, "launches_need": need,
+        "guarded_epochs": len(record), "steps": [n for _, n in record],
+        "wall_s": wall, "cpu_s": cpu_s,
+        "schedule_count": card.trainer.optimizer.param_groups[0][
+            "schedule_count"],
+    }
+    log(f"device_train S={S}: fit_device {TRAIN_EPOCHS} epochs x "
+        f"{n_train} steps (chain: clip 1.0, adam on a cosine decay) on "
+        f"the card, {wall:.2f} s, every step loop under sync-debug 'error' "
+        f"({len(record)} epochs, no sync); vs the CPU ({cpu_s:.1f} s): "
+        f"epoch losses relative {out['loss_rel']:.3e} (limit "
+        f"{TOL_TRAIN['loss']}), parameters relative RMS "
+        f"{out['params_rel_rms']:.3e} (limit {TOL_TRAIN['params']}); "
+        f"launches {counts}; loss {h_card.history['loss']}, val_loss "
+        f"{h_card.history['val_loss']}")
+    if counts != need:
+        raise AssertionError(f"fit_device S={S} launches {counts} != {need}")
+    if not out["loss_rel"] <= TOL_TRAIN["loss"]:
+        raise AssertionError(f"fit_device S={S} losses: {out}")
+    if not out["params_rel_rms"] <= TOL_TRAIN["params"]:
+        raise AssertionError(f"fit_device S={S} parameters: {out}")
+    if S == 1:
+        _TRAINED["net"] = card
+    return out
+
+
+def fit_device_vs_per_batch(torch, dev):
+    """Shuffle off, S=1, the chain: fit_device against per-batch fit over
+    the same device sampler (forced by a BatchHistory callback), on the
+    card from one seed: bit for bit under cuDNN's deterministic
+    algorithms, within TOL_RESUME_RRMS under its default ones."""
+    from dlwp_torch.train import BatchHistory
+
+    def both():
+        got = []
+        for cbs in ([], [BatchHistory()]):
+            net, train, _ = device_stack(dev, shuffle=False)
+            hist = net.fit_generator(train, epochs=TRAIN_EPOCHS,
+                                     verbose=False, callbacks=cbs)
+            got.append((net.base_model.state_dict(), hist.history["loss"]))
+        (a, la), (b, lb) = got
+        return state_equal(a, b) and la == lb, state_rel_rms(a, b)
+
+    out = {}
+    out["default_bit_equal"], out["default_rel_rms"] = both()
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                    deterministic=True, allow_tf32=False):
+        out["deterministic_bit_equal"], _ = both()
+    log(f"device_train: fit_device vs per-batch fit ({TRAIN_EPOCHS} epochs, "
+        f"shuffle off): default cuDNN bit-equal {out['default_bit_equal']} "
+        f"(relative RMS {out['default_rel_rms']:.3e}), deterministic cuDNN "
+        f"bit-equal {out['deterministic_bit_equal']}")
+    if not (out["deterministic_bit_equal"]
+            and out["default_rel_rms"] <= TOL_RESUME_RRMS):
+        raise AssertionError(f"fit_device vs per-batch fit: {out}")
+    return out
+
+
+def time_fit_device(torch, dev):
+    """fit_generator and fit_device at B=32 over FIT_TIME_EPOCHS epochs of
+    the FIT_TIME_N-sample series (adam, no validation), in turns
+    (generator, device, generator, device) after a warm-up epoch of each,
+    on one model: train samples/s (the windows each trains on: fit_device
+    drops the ragged batch), the device's idle share (device time an
+    epoch of each driver from torch.profiler) and fit_device's host time
+    a step (its step loop, which does not wait for the card)."""
+    from dlwp_torch import DeviceSeriesSampler
+
+    net, train, _ = train_stack(dev, n=FIT_TIME_N)
+    dtrain = DeviceSeriesSampler(train_samplers(net, n=FIT_TIME_N)[0],
+                                 device=dev)
+    record, E = [], FIT_TIME_EPOCHS
+    probe_step_loop(torch, net.trainer, False, record)
+    fits = {"fit_generator": (train, len(train), len(train._indices)),
+            "fit_device": (dtrain, len(dtrain), len(dtrain) * TRAIN_B)}
+    for sampler, _, _ in fits.values():
+        net.fit_generator(sampler, epochs=1, verbose=False)
+    out = {k: {"fit_s": [], "samples_per_s": []} for k in fits}
+    for name in ("fit_generator", "fit_device") * 2:
+        sampler, steps, windows = fits[name]
+        record.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hist = net.fit_generator(sampler, epochs=E, verbose=False)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        if len(hist.epoch) != E:
+            raise AssertionError(f"{name} ran {len(hist.epoch)} epochs")
+        out[name]["fit_s"].append(fit_s)
+        out[name]["samples_per_s"].append(E * windows / fit_s)
+        if name == "fit_device":
+            out[name]["host_ms_per_step"] = [
+                1e3 * sum(t for t, _ in record) / sum(n for _, n in record)]
+    for name, (sampler, steps, windows) in fits.items():
+        dev_ms = profile_device(
+            torch, lambda: net.fit_generator(sampler, epochs=1,
+                                             verbose=False),
+            f"{name} epoch", per=steps, unit="step")
+        r = out[name]
+        r.update(steps_per_epoch=steps, windows_per_epoch=windows,
+                 device_ms_per_step=dev_ms,
+                 idle_share=[1 - E * steps * dev_ms / 1e3 / t
+                             for t in r["fit_s"]])
+        extra = (f"; its step loop {r['host_ms_per_step'][0]:.3f} ms of "
+                 f"host time a step" if "host_ms_per_step" in r else "")
+        log(f"device_train timed {name}: {E} epochs of {windows} windows "
+            f"({steps} steps at B={TRAIN_B}, no validation), two runs in "
+            f"turns: {', '.join(f'{t:.3f}' for t in r['fit_s'])} s host "
+            f"clock -> {', '.join(f'{v:.1f}' for v in r['samples_per_s'])} "
+            f"train samples/s; device {dev_ms:.3f} ms a step (torch."
+            f"profiler), idle {', '.join(f'{100 * v:.1f}' for v in r['idle_share'])}%"
+            f"{extra}")
+    return out
+
+
+def run_device_train(torch, dev):
+    """Device-resident training at full width: batch equality at S=1 and
+    S=2, fit_device against the CPU at S=1 and S=2, against per-batch fit,
+    and timed beside fit_generator."""
+    torch.set_num_threads(os.cpu_count() or 1)
+    out = {"batches_equal": {S: device_batches_equal(torch, dev, S)
+                             for S in (1, 2)}}
+    for S in (1, 2):
+        out[f"S{S}"] = fit_device_vs_cpu(torch, dev, S)
+    out["per_batch"] = fit_device_vs_per_batch(torch, dev)
+    out["timed"] = time_fit_device(torch, dev)
+    return out
+
+
+# Every layer name of the registry the flagship does not use, in one
+# model on a (B, 3, 36, 144) input.
+LAYER_SPECS = [
+    ("slice_layer", (0, 2, 1), None),
+    ("CyclicConv2D", (16, 3), {"impl": "edgefix", "dilation": 2,
+                               "activation": "tanh"}),
+    ("PeriodicPadding2D", ((0, 2),), None),
+    ("ZeroPadding2D", ((1, 0),), None),
+    ("Conv2D", (16, 5), {"activation": "tanh"}),
+    ("TFPadding2D", (((1, 1), (0, 0)),), {"mode": "SYMMETRIC"}),
+    ("Conv2D", (32, 4), {"strides": (2, 2), "padding": "same",
+                         "activation": "tanh"}),
+    ("RowConv2D", (16, 3), {"activation": "tanh"}),
+    ("FillPadding2D", (((1, 1), (1, 1)),), None),
+    ("RowConnected2D", (16, 3), {"lat_mode": "edge", "use_bias": False}),
+    ("Conv2D", (16, 3), {"activation": "tanh"}),
+    ("AveragePooling2D", (2,), None),
+    ("TFPadding2D", (((0, 1), (0, 0)),), {"mode": "REFLECT"}),
+    ("TFPadding2D", (((0, 0), (1, 1)),), {"constant_values": 0.5}),
+    ("AveragePooling2D", (2,), None),
+    ("Reshape", ((-1,),), None),
+    ("Dense", (64,), {"activation": "tanh"}),
+    ("Linear", (64, 32), None),
+    ("TorchReshape", ((-1, 2, 16),), None),
+]
+
+
+def check_layers(torch, dev):
+    """The model of LAYER_SPECS at B=16 from a seed on the card against
+    the CPU with the same weights, fp32 forward within TOL_F32; its
+    forward time; no kernel launch."""
+    from dlwp_torch import build_sequential, flax_tree, load_flax_params
+    from dlwp_torch.kernels import launch_counts, reset_launch_counts
+
+    x = np.random.RandomState(12).randn(16, 3, NLAT, NLON).astype(np.float32)
+    card = build_sequential(LAYER_SPECS, device=dev)
+    card.init(torch.from_numpy(x), seed=5)
+    cpu = build_sequential(LAYER_SPECS, device="cpu")
+    load_flax_params(cpu, flax_tree(card))
+    xd = torch.from_numpy(x).to(dev)
+    reset_launch_counts()
+    with torch.inference_mode():
+        got = card(xd).cpu().numpy()
+        want = cpu(torch.from_numpy(x)).numpy()
+        ms = timed_ms(lambda: card(xd), reps=5, inner=5)
+    counts = launch_counts()
+    err = float(np.abs(got - want).max())
+    out = {"shape": list(got.shape), "max_abs_err": err, "ms": ms,
+           "launches": counts,
+           "layers": [type(l).__name__ for l in card.layers]}
+    log(f"layers: {len(LAYER_SPECS)} specs ({', '.join(out['layers'])}) "
+        f"at B=16 on (3, {NLAT}, {NLON}) -> {tuple(got.shape)}: card vs CPU "
+        f"max abs {err:.3e} (limit {TOL_F32}), {ms:.3f} ms a forward")
+    if not np.isfinite(got).all() or not err <= TOL_F32:
+        raise AssertionError(f"layers: {out}")
+    if set(counts.values()) != {0}:
+        raise AssertionError(f"layers launched kernels: {counts}")
+    return out
+
+
+def skip_specs():
+    """SkipTower(c_out=4, width=32, time_steps=2, lstm_features=8) on the
+    flagship input, its output shaped (B, TD, C, H, W) as the flagship's."""
+    from dlwp_torch import SkipTower
+
+    return [SkipTower(TD * C, width=32, time_steps=TD, lstm_features=8),
+            ("Reshape", ((TD, C, NLAT, NLON),), None)]
+
+
+def run_skip_tower(torch, dev):
+    """SkipTower at the flagship's shapes: predict(32) at B=64 on the card
+    (gate launches counted, no conv-pool) against the CPU with the
+    forecast's fp32 limits, timed (grid points/s, device time, idle);
+    then 3 train steps against the CPU with the training phase's limits,
+    ``TOL_TRAIN``."""
+    from dlwp_torch import TimeSeriesEstimator, flax_tree
+    from dlwp_torch.kernels import launch_counts, reset_launch_counts
+
+    torch.set_num_threads(os.cpu_count() or 1)
+    net, sampler = flagship_stack(dev, specs=skip_specs())
+    net.init(sampler.generate(np.arange(1))[0], seed=0)
+    cpu, cpu_sampler = flagship_stack("cpu", specs=skip_specs())
+    cpu.load_flax_params(flax_tree(net.base_model))
+    est = TimeSeriesEstimator(net, sampler)
+    reset_launch_counts()
+    fc = est.predict(STEPS, samples=np.arange(B))
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    need = expected_counts(lstm_gates=STEPS)
+    log(f"skip_tower: predict({STEPS}) at B={B}: {fc.values.shape}, "
+        f"launches {counts}")
+    if counts != need:
+        raise AssertionError(f"skip_tower launches {counts} != {need}")
+    if fc.values.shape != (STEPS * TD, B, C, NLAT, NLON) or not (
+            np.isfinite(fc.values).all()):
+        raise AssertionError(f"skip_tower forecast {fc.values.shape}")
+    out = {"launches": counts, "forecast_vs_cpu": forecast_vs_cpu(
+        fc, cpu, cpu_sampler, "fp32", "skip_tower forecast")}
+    x0, days, ms, _ = est.prepare_inputs(np.arange(B))
+    rollout = est.rollout_fn(STEPS)
+    elapsed = timed_ms(lambda: rollout(x0, days, ms), reps=5, inner=1,
+                       warmup=1) / 1e3
+    device = profile_steps(torch, est, x0, days, ms, "skip_tower")
+    out.update(elapsed_s=elapsed,
+               grid_points_per_s=B * STEPS * NLAT * NLON / elapsed,
+               device_ms_per_step=device,
+               idle_share=1 - device / (elapsed * 1e3 / STEPS))
+    log(f"skip_tower rollout: {elapsed * 1e3:.2f} ms per predict({STEPS}) at "
+        f"B={B} -> {out['grid_points_per_s'] / 1e6:.2f} Mgp/s; device "
+        f"{device:.3f} ms a step (idle {100 * out['idle_share']:.1f}%)")
+    # The first gradient against the CPU's backward at the card's forward
+    # values: a max-pool window with a near tie, which the two fp32
+    # forwards' last bits resolve differently, routes the gradient to
+    # another input; on an H100 that moves SkipTower's first gradient
+    # 8.5e-5 (relative RMS) from the CPU's own, and 4.2e-7 from the
+    # forced one (both printed, with the pool's differing windows).
+    out["train"] = train_vs_cpu(
+        torch, dev, 1, make_specs=skip_specs, pools=0,
+        label="skip_tower train", force=True,
+        pooled={"layers.0.CyclicConv2D_1": 32})
+    return out
+
+
+VERIFY_FRACTION, VERIFY_ITERS, VERIFY_LATS = 0.2, 6, (20.0, 70.0)
+TOL_VERIFY = 1e-4
+
+
+def validate_rows(torch, dlwp):
+    """``examples/validate.py``'s scoring with its defaults (the last 20%
+    held out, 12 model steps, HGT/500 over 20-70N) on ``dlwp``: the
+    forecast from every validation window, the verification of
+    ``verification_from_series``, and the forecast, persistence,
+    constant-climatology and (over a year or more) monthly-climatology
+    RMSE rows."""
+    from dlwp_torch import SeriesSampler, TimeSeriesEstimator
+    from dlwp_torch.forecast import verify
+
+    data = flagship_dataset(TRAIN_N)
+    n = data.predictors.shape[0]
+    val_data = data.isel_sample(np.arange(n - int(n * VERIFY_FRACTION), n))
+    val_gen = SeriesSampler(val_data, model=dlwp, input_time_steps=TD,
+                            output_time_steps=TD, batch_size=64,
+                            add_insolation=True)
+    est = TimeSeriesEstimator(dlwp, val_gen)
+    t0 = time.perf_counter()
+    forecast = est.predict(VERIFY_ITERS, init_batch_size=256)
+    predict_s = time.perf_counter() - t0
+    steps_out = forecast.values.shape[0]
+    ver, f_hour = verify.verification_from_series(
+        val_data, forecast_steps=steps_out, dt_hours=int(est._dt_hours),
+        init_times=forecast.times, all_data=data)
+    out_idx = val_data.varlev_index(forecast.varlev)
+    ver = ver[:, :, out_idx]
+    lat = np.asarray(data.lat)
+    lat_sel = np.where((lat >= VERIFY_LATS[0]) & (lat <= VERIFY_LATS[1]))[0]
+    fc_v = forecast.values[:, :, 0][..., lat_sel, :]
+    ver_v = ver[:, :, 0][..., lat_sel, :]
+    axis = tuple(range(1, ver_v.ndim))
+    rows = {"forecast_rmse": verify.forecast_error(fc_v, ver_v, "rmse",
+                                                   axis)}
+    init_idx = [int(np.where(np.asarray(val_data.sample) == t)[0][0])
+                for t in forecast.times]
+    init = np.asarray(val_data.predictors)[init_idx][:, out_idx][:, 0]
+    rows["persistence_rmse"] = verify.forecast_error(
+        np.repeat(init[..., lat_sel, :][None], steps_out, axis=0), ver_v,
+        "rmse", axis)
+    series = np.asarray(val_data.predictors)[:, out_idx][:, 0][..., lat_sel, :]
+    rows["climatology_rmse"] = verify.forecast_error(
+        np.broadcast_to(np.nanmean(series, axis=0),
+                        (steps_out,) + ver_v.shape[1:]), ver_v, "rmse", axis)
+    times = np.asarray(data.sample, dtype="datetime64[ns]")
+    if (times.max() - times.min()) / np.timedelta64(1, "D") >= 360.0:
+        full = np.asarray(data.predictors)[:, out_idx][:, 0][..., lat_sel, :]
+        months = times.astype("datetime64[M]").astype(int) % 12
+        climo12 = np.stack([np.nanmean(full[months == m], axis=0)
+                            for m in range(12)])
+        lead = ((np.arange(steps_out) + 1)
+                * int(round(est._dt_hours * 60))).astype("timedelta64[m]")
+        ver_m = (np.asarray(forecast.times, dtype="datetime64[ns]")[None]
+                 + lead[:, None]).astype("datetime64[M]").astype(int) % 12
+        rows["monthly_climo_rmse"] = verify.forecast_error(
+            climo12[ver_m], ver_v, "rmse", axis)
+    return f_hour, rows, len(forecast.times), predict_s
+
+
+def trained_flagship(torch, dev):
+    """device_train's trained model, or the same fit_device run (S=1, the
+    chain, TRAIN_EPOCHS epochs) when that phase did not run."""
+    if "net" not in _TRAINED:
+        net, train, val = device_stack(dev)
+        net.fit_generator(train, validation_data=val, epochs=TRAIN_EPOCHS,
+                          verbose=False)
+        _TRAINED["net"] = net
+    return _TRAINED["net"]
+
+
+def run_verify(torch, dev):
+    """``examples/validate.py``'s flow on the model fit_device trained, on
+    the card and on the CPU with its weights: every RMSE row within
+    TOL_VERIFY relative; the table printed."""
+    from dlwp_torch import flax_tree
+    from dlwp_torch.kernels import launch_counts, reset_launch_counts
+
+    torch.set_num_threads(os.cpu_count() or 1)
+    card = trained_flagship(torch, dev)
+    cpu, _, _ = train_stack("cpu")
+    cpu.load_flax_params(flax_tree(card.base_model))
+    reset_launch_counts()
+    f_hour, rows, n_init, card_s = validate_rows(torch, card)
+    counts = launch_counts()
+    _, rows_cpu, _, cpu_s = validate_rows(torch, cpu)
+    rel = max(float(np.max(np.abs(rows[k] - rows_cpu[k])
+                           / np.abs(rows_cpu[k]))) for k in rows)
+    log(f"verify: validate.py's flow on the trained flagship, {n_init} "
+        f"inits x {len(f_hour)} leads, predict {card_s:.2f} s on the card "
+        f"(launches {counts}), {cpu_s:.1f} s on the CPU; rows card vs CPU "
+        f"max relative {rel:.3e} (limit {TOL_VERIFY})"
+        + ("" if "monthly_climo_rmse" in rows else "; the series spans "
+           "under a year, so no monthly-climatology row (as validate.py)"))
+    log(f"  {'f_hour':>8} " + " ".join(f"{k:>18}" for k in rows))
+    for i, fh in enumerate(f_hour):
+        log(f"  {int(fh):8d} " + " ".join(f"{rows[k][i]:18.6f}"
+                                           for k in rows))
+    if not all(np.isfinite(v).all() for v in rows.values()):
+        raise AssertionError(f"verify rows not finite: {rows}")
+    if not rel <= TOL_VERIFY:
+        raise AssertionError(f"verify rows card vs CPU: {rel}")
+    need = expected_counts(fused_conv_pool=2 * VERIFY_ITERS,
+                           lstm_gates=VERIFY_ITERS)
+    if counts != need:
+        raise AssertionError(f"verify launches {counts} != {need}")
+    return {"f_hour": f_hour.tolist(),
+            "rows": {k: v.tolist() for k, v in rows.items()},
+            "rows_max_rel": rel, "launches": counts, "inits": n_init,
+            "predict_s": card_s}
 
 
 def profile_steps(torch, est, x0, days, ms, tag, steps=4, names=None):
@@ -1933,6 +2528,10 @@ ONLY = {
     "train": run_train_phase,
     "barotropic_kernel": check_barotropic_kernel,
     "barotropic_timing": time_barotropic,
+    "device_train": run_device_train,
+    "layers": check_layers,
+    "skip_tower": run_skip_tower,
+    "verify": run_verify,
 }
 
 
@@ -1998,6 +2597,16 @@ def main(argv=None) -> int:
     baro_launches, baro_path = run_barotropic_path(torch, dev)
     example = run_example_flow(torch, dev)
     baro_timing = time_barotropic(torch, dev)
+    device_train = run_device_train(torch, dev)
+    layers = check_layers(torch, dev)
+    skip_tower = run_skip_tower(torch, dev)
+    verify = run_verify(torch, dev)
+    # Each later path's launches, counted from 0 around its run: fit_device
+    # at S=1 (train steps and validation), the SkipTower forecast and the
+    # verified forecast.
+    later = {"launches_device_train": device_train["S1"]["launches"],
+             "launches_skip_tower": skip_tower["launches"],
+             "launches_verify": verify["launches"]}
 
     kernels = []
     for name, source, replaces in (
@@ -2051,6 +2660,7 @@ def main(argv=None) -> int:
             "bound_by": rows[0]["bound_by"],
             "library_ms": None,
             "per_shape": timing[name],
+            **{k: v[name] for k, v in later.items()},
         }
         if name == "fused_conv_pool":
             # Mean per launch of the two stages, one launch each a step.
@@ -2078,6 +2688,7 @@ def main(argv=None) -> int:
         "unit": "per step",
         "launches_by_form": baro_launches,
         "per_form": baro_timing,
+        **{k: v["barotropic_step"] for k, v in later.items()},
     })
     for name, replaces, run in (
         ("halo_exchange", "dlwp_tpu/parallel/pallas_halo.py:33", "B64"),
@@ -2101,6 +2712,7 @@ def main(argv=None) -> int:
             "library_ms": None,
             "launches_run": f"sharded predict at B={run[1:]}",
             "per_launch": rows,
+            **{k: v[name] for k, v in later.items()},
         }
         profiled = {"halo_exchange": "halo_kernel",
                     "overlap_conv_db": "overlap_db_kernel"}.get(name)
@@ -2124,7 +2736,10 @@ def main(argv=None) -> int:
                     "sharded_launches": sharded_launches,
                     "launches_per_step": per_step,
                     "barotropic_path": baro_path,
-                    "barotropic_example": example, "card": card}))
+                    "barotropic_example": example,
+                    "device_train": device_train, "layers": layers,
+                    "skip_tower": skip_tower, "verify": verify,
+                    "card": card}, default=str))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

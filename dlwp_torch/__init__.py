@@ -2,7 +2,8 @@
 
 The port of ``dlwp_tpu`` (JAX on TPU), module for module, with the same
 NCHW / (B, T, C, H, W) layouts at public functions: the ConvLSTM forecast
-stack and its training (:mod:`dlwp_torch.train`), its lat-band
+stack, its training (:mod:`dlwp_torch.train`, with device-resident
+batches) and verification (:mod:`dlwp_torch.forecast.verify`), its lat-band
 spatial-parallel form (:mod:`dlwp_torch.parallel`) and the spectral
 barotropic core. Entry points run on
 ``cuda`` unless given ``device="cpu"``; see :mod:`dlwp_torch.device`.
@@ -16,6 +17,7 @@ from dlwp_torch.barotropic import (
     BarotropicState,
 )
 from dlwp_torch.data import (
+    DeviceSeriesSampler,
     PredictorDataset,
     SamplesSampler,
     SeriesSampler,
@@ -24,7 +26,12 @@ from dlwp_torch.data import (
 from dlwp_torch.device import resolve_device
 from dlwp_torch.forecast import Forecast, TimeSeriesEstimator
 from dlwp_torch.grid import LatLonGrid
-from dlwp_torch.models import DLWPFunctional, DLWPNeuralNet, build_sequential
+from dlwp_torch.models import (
+    DLWPFunctional,
+    DLWPNeuralNet,
+    SkipTower,
+    build_sequential,
+)
 from dlwp_torch.spectral import SphericalHarmonics
 from dlwp_torch.train import TrainConfig, Trainer
 from dlwp_torch.utils import load_model, save_model
@@ -33,6 +40,7 @@ from dlwp_torch.weights import (
     flax_tree,
     load_flax_params,
     load_optax_adam_state,
+    load_optax_state,
     tree_from_leaves,
 )
 
@@ -42,11 +50,13 @@ __all__ = [
     "BarotropicState",
     "DLWPFunctional",
     "DLWPNeuralNet",
+    "DeviceSeriesSampler",
     "Forecast",
     "LatLonGrid",
     "PredictorDataset",
     "SamplesSampler",
     "SeriesSampler",
+    "SkipTower",
     "SphericalHarmonics",
     "TimeSeriesEstimator",
     "TrainConfig",
@@ -58,6 +68,7 @@ __all__ = [
     "load_flax_params",
     "load_model",
     "load_optax_adam_state",
+    "load_optax_state",
     "resolve_device",
     "save_model",
     "tree_from_leaves",

@@ -1,5 +1,7 @@
-"""Autoregressive forecasting (port of ``dlwp_tpu.forecast``)."""
+"""Autoregressive forecasting and verification (port of
+``dlwp_tpu.forecast``)."""
 
+from dlwp_torch.forecast import verify
 from dlwp_torch.forecast.rollout import Forecast, TimeSeriesEstimator
 
-__all__ = ["Forecast", "TimeSeriesEstimator"]
+__all__ = ["Forecast", "TimeSeriesEstimator", "verify"]

@@ -4,19 +4,24 @@ from dlwp_torch.models.api import DLWPFunctional, DLWPNeuralNet, shape_series
 from dlwp_torch.models.cnn import LAYER_REGISTRY, SequentialModel, build_sequential
 from dlwp_torch.models.layers import (
     Activation,
+    AvgPool2D,
     ConvLSTM2D,
     CyclicConv2D,
     FusedConvPool2D,
     Identity,
     MaxPool2D,
     Reshape,
+    RowConv2D,
+    SplitConvPool2D,
     UpConv2D,
     UpSampling2D,
     get_activation,
 )
+from dlwp_torch.models.unet import SkipTower, SliceChannels
 
 __all__ = [
     "Activation",
+    "AvgPool2D",
     "ConvLSTM2D",
     "CyclicConv2D",
     "DLWPFunctional",
@@ -26,7 +31,11 @@ __all__ = [
     "LAYER_REGISTRY",
     "MaxPool2D",
     "Reshape",
+    "RowConv2D",
     "SequentialModel",
+    "SkipTower",
+    "SliceChannels",
+    "SplitConvPool2D",
     "UpConv2D",
     "UpSampling2D",
     "build_sequential",

@@ -8,11 +8,16 @@ Weights keep the flax names and shapes (``kernel`` OIHW and ``bias``;
 
 As in flax, a layer learns its input channel count from its first input:
 parameters exist after :meth:`SequentialModel.init` (random, from a
-``torch.Generator``) or after ``load_flax_params``.
+``torch.Generator``) or after ``load_flax_params``. ``init`` runs the
+model's forward under :func:`initializing`, in which each parameter layer
+creates its parameters from the generator at its first input, so layers
+nested in other modules (``SkipTower``) are built the same way.
 """
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import math
 
 import torch
@@ -21,8 +26,14 @@ import torch.nn.functional as F
 
 from dlwp_torch.kernels import fused_conv_pool, lstm_gates
 from dlwp_torch.kernels.lstm_gates import ACT_CODES, gate_chain, hard_sigmoid
-from dlwp_torch.ops.conv import conv_after_upsample2, cyclic_conv2d
-from dlwp_torch.ops.pooling import max_pool2d, upsample2d
+from dlwp_torch.ops.conv import (
+    conv_after_upsample2,
+    conv_pool2_even_dilation,
+    cyclic_conv2d,
+    cyclic_conv2d_edgefix,
+    row_conv2d,
+)
+from dlwp_torch.ops.pooling import avg_pool2d, max_pool2d, upsample2d
 
 _ACTIVATIONS = {
     "linear": lambda x: x,
@@ -62,12 +73,23 @@ def pair(v) -> tuple[int, int]:
     return (v, v) if isinstance(v, int) else tuple(v)
 
 
-def _glorot(shape, gen, dtype, device):
-    """flax glorot_uniform(in_axis=1, out_axis=0) on an OIHW shape."""
-    receptive = math.prod(shape[2:])
-    limit = math.sqrt(6.0 / (shape[0] * receptive + shape[1] * receptive))
+def _glorot(shape, gen, dtype, device, in_axis=1, out_axis=0):
+    """flax glorot_uniform(in_axis, out_axis): the receptive field is the
+    product of the other axes (OIHW by default)."""
+    receptive = math.prod(shape) // (shape[in_axis] * shape[out_axis])
+    limit = math.sqrt(6.0 / (shape[out_axis] * receptive
+                             + shape[in_axis] * receptive))
     u = torch.rand(shape, generator=gen, dtype=torch.float64)
     return ((2 * u - 1) * limit).to(dtype=dtype, device=device)
+
+
+def _lecun_normal(shape, gen, dtype, device):
+    """flax lecun_normal on an (in, out) kernel: a normal truncated at two
+    standard deviations, scaled to variance 1 / fan_in."""
+    std = math.sqrt(1.0 / shape[0]) / 0.87962566103423978
+    t = torch.empty(shape, dtype=torch.float64)
+    nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
+    return (t * std).to(dtype=dtype, device=device)
 
 
 def _zeros(shape, gen, dtype, device):
@@ -86,21 +108,45 @@ def _orthogonal(shape, gen, dtype, device):
     return q.T.reshape(shape).to(dtype=dtype, device=device)
 
 
-class ParamLayer(nn.Module):
-    """A layer whose parameter shapes depend on its input channel count."""
+_INIT_GENERATORS: list = []
 
-    def param_shapes(self, c_in: int) -> dict[str, tuple]:
+
+@contextlib.contextmanager
+def initializing(gen: torch.Generator):
+    """Inside, a parameter layer without parameters creates them from
+    ``gen`` at its first input (the flax ``init`` shape pass)."""
+    _INIT_GENERATORS.append(gen)
+    try:
+        yield
+    finally:
+        _INIT_GENERATORS.pop()
+
+
+class ParamLayer(nn.Module):
+    """A layer whose parameter shapes depend on its input: by default its
+    channel count (axis -3), :meth:`in_channels`."""
+
+    def param_shapes(self, c_in) -> dict[str, tuple]:
         raise NotImplementedError
+
+    def param_names(self) -> tuple[str, ...]:
+        return tuple(self.param_shapes(1))
+
+    def flax_dims(self, shapes: dict[str, tuple]):
+        """The :meth:`in_channels` value that flax leaves of these shapes
+        were made for (``load_flax_params`` checks every shape with it)."""
+        k = shapes.get("input_kernel", shapes.get("kernel"))
+        return k[1] if k is not None and len(k) > 1 else -1
 
     def _initializer(self, name: str):
         return _zeros if name == "bias" else _glorot
 
-    def in_channels(self, x: torch.Tensor) -> int:
+    def in_channels(self, x: torch.Tensor):
         return x.shape[-3]
 
     @property
     def built(self) -> bool:
-        return all(getattr(self, n) is not None for n in self.param_shapes(1))
+        return all(getattr(self, n) is not None for n in self.param_names())
 
     def materialize(self, x: torch.Tensor, gen: torch.Generator) -> None:
         """Create random parameters for input ``x`` (no-op when built)."""
@@ -110,12 +156,16 @@ class ParamLayer(nn.Module):
             val = self._initializer(name)(shape, gen, x.dtype, x.device)
             setattr(self, name, nn.Parameter(val, requires_grad=False))
 
-    def _require_built(self):
-        if not self.built:
-            raise RuntimeError(
-                f"{type(self).__name__} has no parameters: call "
-                "SequentialModel.init or load_flax_params first"
-            )
+    def _require_built(self, x: torch.Tensor):
+        if self.built:
+            return
+        if _INIT_GENERATORS:
+            self.materialize(x, _INIT_GENERATORS[-1])
+            return
+        raise RuntimeError(
+            f"{type(self).__name__} has no parameters: call "
+            "SequentialModel.init or load_flax_params first"
+        )
 
 
 class _ConvBase(ParamLayer):
@@ -147,22 +197,80 @@ class CyclicConv2D(_ConvBase):
 
     ``spatial``: an optional
     :class:`~dlwp_torch.parallel.spatial.SpatialSharding`; the conv then
-    takes its lat-band sharded path whenever the shapes admit it."""
+    takes its lat-band sharded path whenever the shapes admit it.
+    ``impl='edgefix'`` runs :func:`~dlwp_torch.ops.conv.cyclic_conv2d_edgefix`
+    at stride 1 with a zero latitude boundary (elsewhere the 'pad' form),
+    as the JAX layer does."""
 
     def __init__(self, features, kernel_size=3, strides=(1, 1), dilation=1,
                  activation="linear", lat_mode="zero", use_bias=True,
-                 spatial=None):
+                 impl="pad", spatial=None):
         super().__init__(features, kernel_size, dilation, activation, use_bias)
+        if impl not in ("pad", "edgefix"):
+            raise ValueError(f"impl must be 'pad' or 'edgefix', got {impl!r}")
         self.strides = pair(strides)
         self.lat_mode = lat_mode
+        self.impl = impl
         self.spatial = spatial
 
     def forward(self, x):
-        self._require_built()
-        conv = cyclic_conv2d if self.spatial is None else self.spatial.conv
-        y = conv(x, self.kernel, strides=self.strides,
-                 lat_mode=self.lat_mode, dilation=self.dilation)
+        self._require_built(x)
+        if self.spatial is not None:
+            y = self.spatial.conv(x, self.kernel, strides=self.strides,
+                                  lat_mode=self.lat_mode,
+                                  dilation=self.dilation)
+        elif (self.impl == "edgefix" and self.strides == (1, 1)
+              and self.lat_mode == "zero"):
+            y = cyclic_conv2d_edgefix(x, self.kernel, dilation=self.dilation)
+        else:
+            y = cyclic_conv2d(x, self.kernel, strides=self.strides,
+                              lat_mode=self.lat_mode, dilation=self.dilation)
         return self._finish(y)
+
+
+class RowConv2D(ParamLayer):
+    """Latitude-dependent convolution (``layers.py:137``, the reference's
+    ``RowConnected2D``): a filter bank per output row, ``kernel`` (H, O,
+    C, kh, kw) and ``bias`` (H, O). H is ``nlat``, or the input's rows."""
+
+    def __init__(self, features, kernel_size=3, nlat=None,
+                 activation="linear", lat_mode="zero", use_bias=True):
+        super().__init__()
+        self.features = features
+        self.kernel_size = pair(kernel_size)
+        self.nlat = nlat
+        self.activation = activation
+        self.lat_mode = lat_mode
+        self.use_bias = use_bias
+        self.register_parameter("kernel", None)
+        self.register_parameter("bias", None)
+
+    def in_channels(self, x):
+        return (x.shape[-3], self.nlat or x.shape[-2])
+
+    def param_names(self):
+        return ("kernel", "bias") if self.use_bias else ("kernel",)
+
+    def flax_dims(self, shapes):
+        k = shapes.get("kernel")
+        return (k[2], k[0]) if k is not None and len(k) == 5 else (-1, -1)
+
+    def param_shapes(self, dims):
+        c_in, H = dims
+        shapes = {"kernel": (H, self.features, c_in) + self.kernel_size}
+        if self.use_bias:
+            shapes["bias"] = (H, self.features)
+        return shapes
+
+    def _initializer(self, name):
+        if name == "kernel":
+            return functools.partial(_glorot, in_axis=2, out_axis=1)
+        return super()._initializer(name)
+
+    def forward(self, x):
+        self._require_built(x)
+        y = row_conv2d(x, self.kernel, self.bias, lat_mode=self.lat_mode)
+        return get_activation(self.activation)(y)
 
 
 class FusedConvPool2D(_ConvBase):
@@ -202,12 +310,51 @@ class FusedConvPool2D(_ConvBase):
         )
 
     def forward(self, x):
-        self._require_built()
+        self._require_built(x)
         if self.uses_kernel(x):
             return fused_conv_pool(x, self.kernel, self.bias,
                                    dilation=self.dilation[0])
         y = self._finish(cyclic_conv2d(x, self.kernel, dilation=self.dilation))
         return max_pool2d(y, (2, 2))
+
+
+class SplitConvPool2D(_ConvBase):
+    """CyclicConv2D + channel split + MaxPool2D(2) on the kept half
+    (``layers.py:522``): the first ``keep`` channels go down through the
+    pool, the rest come back at full resolution as a skip. Returns
+    ``(pooled, skip)``. For even dilations on an even grid with a
+    nondecreasing activation the pooled half runs on the quarter-grid
+    parity planes (:func:`~dlwp_torch.ops.conv.conv_pool2_even_dilation`),
+    else conv -> bias -> activation -> pool. Parameters are a
+    ``CyclicConv2D(features)``'s."""
+
+    def __init__(self, features, keep, kernel_size=3, dilation=1,
+                 activation="tanh", use_bias=True):
+        super().__init__(features, kernel_size, dilation, activation, use_bias)
+        self.keep = keep
+
+    def forward(self, x):
+        self._require_built(x)
+        k, d = self.keep, self.dilation
+        act = get_activation(self.activation)
+
+        def finish(y, bias):
+            return act(y if bias is None else y + bias[:, None, None])
+
+        bias = self.bias
+        skip = finish(cyclic_conv2d(x, self.kernel[k:], dilation=d),
+                      None if bias is None else bias[k:])
+        kept = None if bias is None else bias[:k]
+        if (d[0] % 2 == 0 and d[1] % 2 == 0 and x.shape[-1] % 2 == 0
+                and x.shape[-2] % 2 == 0
+                and self.activation in MONOTONE_ACTIVATIONS):
+            pooled = finish(conv_pool2_even_dilation(x, self.kernel[:k],
+                                                     dilation=d), kept)
+        else:
+            pooled = max_pool2d(
+                finish(cyclic_conv2d(x, self.kernel[:k], dilation=d), kept),
+                (2, 2))
+        return pooled, skip
 
 
 class UpConv2D(_ConvBase):
@@ -225,7 +372,7 @@ class UpConv2D(_ConvBase):
         self.input_small = input_small
 
     def forward(self, x):
-        self._require_built()
+        self._require_built(x)
         if self.emit_small:
             y = cyclic_conv2d(x, self.kernel)
         else:
@@ -304,7 +451,7 @@ class ConvLSTM2D(ParamLayer):
         )
 
     def forward(self, x):
-        self._require_built()
+        self._require_built(x)
         B, T, C, H, W = x.shape
         gd = self.gate_dtype
         act = get_activation(self.activation)
@@ -352,6 +499,15 @@ class MaxPool2D(nn.Module):
 
     def forward(self, x):
         return max_pool2d(x, self.window)
+
+
+class AvgPool2D(nn.Module):
+    def __init__(self, window=2):
+        super().__init__()
+        self.window = pair(window)
+
+    def forward(self, x):
+        return avg_pool2d(x, self.window)
 
 
 class UpSampling2D(nn.Module):

@@ -59,7 +59,7 @@ class LatitudeWeightedLoss:
             shape = [1] * like.ndim
             shape[self.lat_axis] = self.weights.shape[0]
             wb = torch.as_tensor(self.weights).reshape(shape).to(
-                device=like.device, dtype=like.dtype)
+                device=like.device, dtype=like.dtype, non_blocking=True)
             self._cache[key] = wb
         return wb
 

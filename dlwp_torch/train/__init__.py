@@ -8,7 +8,13 @@ from dlwp_torch.train.callbacks import (
     RunHistory,
 )
 from dlwp_torch.train.checkpoint import restore_checkpoint, save_checkpoint
-from dlwp_torch.train.optim import OPTIMIZERS, add_decayed_weights
+from dlwp_torch.train.optim import (
+    OPTIMIZERS,
+    add_decayed_weights,
+    chain,
+    clip_by_global_norm,
+    cosine_decay_schedule,
+)
 from dlwp_torch.train.trainer import (
     EarlyStoppingMin,
     History,
@@ -29,6 +35,9 @@ __all__ = [
     "TrainConfig",
     "Trainer",
     "add_decayed_weights",
+    "chain",
+    "clip_by_global_norm",
+    "cosine_decay_schedule",
     "resolve_loss",
     "resolve_optimizer",
     "restore_checkpoint",

@@ -23,11 +23,27 @@ Each step computes the update u of the rule and sets p = p + (-lr) u, as
 ``optax.apply_updates`` adds the scaled update. :func:`add_decayed_weights`
 is optax's transform of the same name, chained in front of any optimizer:
 it adds ``weight_decay * p`` to each gradient before the step.
+
+The learning rate is a number or a schedule, a callable of the step count
+that returns a number (:func:`cosine_decay_schedule`): as optax's
+``scale_by_schedule``, step n uses ``schedule(n)`` with n counted from 0,
+and the count is the optimizer's state (its ``param_groups``, so it is in
+``state_dict`` and in checkpoints). It stays a Python int, so evaluating
+the schedule reads nothing back from a card.
+
+:func:`chain` puts gradient transforms (:func:`clip_by_global_norm`) in
+front of a rule factory such as :func:`adam`, as ``optax.chain`` does.
+The result is the ``params -> Optimizer`` factory that ``Trainer``
+takes, so the chain of ``examples/train_convlstm.py --cosine-decay`` is::
+
+    chain(clip_by_global_norm(1.0),
+          adam(cosine_decay_schedule(lr, steps, 0.05)))
 """
 
 from __future__ import annotations
 
 import functools
+import math
 from typing import Callable
 
 import torch
@@ -37,15 +53,34 @@ class _OptaxRule(torch.optim.Optimizer):
     """One optax rule over every parameter. A parameter without a
     gradient steps as if its gradient were zero, as optax updates every
     leaf (JAX gives an unused parameter a zero gradient): its weight decay
-    still applies and its moments and count still advance."""
+    still applies and its moments and count still advance.
+
+    ``lr``: a number, or a schedule of the step count (each group then
+    keeps its ``schedule_count``). ``_transforms``: gradient transforms
+    applied, in order, to the list of every gradient before the rule
+    (set by :func:`chain`)."""
 
     def __init__(self, params, lr, **defaults):
+        self._schedule = lr if callable(lr) else None
+        if self._schedule is not None:
+            defaults["schedule_count"] = 0
+            lr = self._schedule(0)
         if not (isinstance(lr, (int, float)) and lr >= 0):
-            raise ValueError(f"learning rate must be a number >= 0, got {lr!r}")
+            raise ValueError(
+                f"learning rate must be a number >= 0 or a schedule, got {lr!r}")
         super().__init__(params, dict(lr=float(lr), **defaults))
+        self._transforms: tuple = ()
 
     def _update(self, g, p, state, group):
         raise NotImplementedError
+
+    def _step_lr(self, group) -> float:
+        """This step's learning rate; a schedule's count advances."""
+        if self._schedule is None:
+            return group["lr"]
+        group["lr"] = float(self._schedule(group["schedule_count"]))
+        group["schedule_count"] += 1
+        return group["lr"]
 
     @torch.no_grad()
     def step(self, closure=None):
@@ -53,11 +88,17 @@ class _OptaxRule(torch.optim.Optimizer):
         if closure is not None:
             with torch.enable_grad():
                 loss = closure()
+        params = [p for group in self.param_groups for p in group["params"]]
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+                 for p in params]
+        for transform in self._transforms:
+            grads = transform(grads)
+        grads = iter(grads)
         for group in self.param_groups:
+            lr = self._step_lr(group)
             for p in group["params"]:
-                g = p.grad if p.grad is not None else torch.zeros_like(p)
-                u = self._update(g, p, self.state[p], group)
-                p.add_(u * (-group["lr"]))
+                u = self._update(next(grads), p, self.state[p], group)
+                p.add_(u * (-lr))
         return loss
 
 
@@ -180,6 +221,66 @@ def add_decayed_weights(params, weight_decay: float) -> None:
                   else p.grad + weight_decay * p)
 
 
+def adam(learning_rate, **kwargs) -> Callable:
+    """optax ``adam`` as a factory ``params -> Adam`` (``learning_rate`` a
+    number or a schedule), for :func:`chain`."""
+    return lambda params: Adam(params, learning_rate, **kwargs)
+
+
+def cosine_decay_schedule(init_value: float, decay_steps: int,
+                          alpha: float = 0.0,
+                          exponent: float = 1.0) -> Callable[[int], float]:
+    """optax ``cosine_decay_schedule``: ``count -> init_value * ((1 -
+    alpha) * (0.5 (1 + cos(pi c / decay_steps)))**exponent + alpha)`` with
+    c the count clamped at ``decay_steps``; Python floats."""
+    if not decay_steps > 0:
+        raise ValueError("The cosine_decay_schedule requires positive "
+                         f"decay_steps, got decay_steps={decay_steps!r}.")
+    decay_steps = float(decay_steps)
+
+    def schedule(count) -> float:
+        c = min(float(count), decay_steps)
+        cosine = 0.5 * (1 + math.cos(math.pi * c / decay_steps))
+        return init_value * ((1 - alpha) * cosine ** exponent + alpha)
+
+    return schedule
+
+
+def clip_by_global_norm(max_norm: float) -> Callable:
+    """optax ``clip_by_global_norm``, a gradient transform for
+    :func:`chain`: with n the global norm of every gradient, each g stays
+    g when n < max_norm and becomes (g / n) * max_norm otherwise. The
+    choice is made on the device (``torch.where``), so it reads nothing
+    back to the host."""
+
+    def transform(grads: list) -> list:
+        norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+        keep = norm < max_norm
+        return [torch.where(keep, g, (g / norm.to(g.dtype)) * max_norm)
+                for g in grads]
+
+    return transform
+
+
+def chain(*parts) -> Callable:
+    """optax ``chain`` of gradient transforms ending in a rule factory
+    (:func:`adam`): a factory ``params -> Optimizer`` whose
+    step runs the transforms, in order, on the gradients before the rule."""
+    if not parts or not callable(parts[-1]):
+        raise ValueError("chain needs a rule factory last")
+    *transforms, make = parts
+
+    def build(params):
+        opt = make(params)
+        if not isinstance(opt, _OptaxRule):
+            raise TypeError("the last part of a chain must be a rule factory "
+                            "such as adam(learning_rate)")
+        opt._transforms = tuple(transforms) + opt._transforms
+        return opt
+
+    return build
+
+
 __all__ = [
     "OPTIMIZERS",
     "Adagrad",
@@ -187,5 +288,9 @@ __all__ = [
     "Lion",
     "RMSprop",
     "SGD",
+    "adam",
     "add_decayed_weights",
+    "chain",
+    "clip_by_global_norm",
+    "cosine_decay_schedule",
 ]

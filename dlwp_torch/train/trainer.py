@@ -11,7 +11,12 @@ on the model's device:
   JAX package's ``jax.checkpoint``): its activations are recomputed in the
   backward;
 - early stopping with a minimum-epoch floor and best-weights restore;
-- checkpoints every few epochs and resume from the latest.
+- checkpoints every few epochs and resume from the latest;
+- :meth:`Trainer.fit_device`, the epoch driver for a
+  :class:`~dlwp_torch.data.device_sampler.DeviceSeriesSampler`: the
+  shuffled window starts go to the card once an epoch, each batch is
+  gathered there, and the step loop reads nothing back to the host; the
+  losses come down once at the epoch's end.
 
 Kernels: every forward of a train step runs the ``lstm_gates`` kernel
 (kernel forward, plain VJP), and so does checkpoint's recompute; the
@@ -30,7 +35,6 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from dlwp_torch.models.layers import ParamLayer
 from dlwp_torch.ops import losses as loss_lib
 from dlwp_torch.train.optim import OPTIMIZERS, add_decayed_weights
 
@@ -183,10 +187,7 @@ class Trainer:
     def params(self):
         """The model's state dict (live tensors), or None before
         parameters exist."""
-        if not all(layer.built for layer in self.model.layers
-                   if isinstance(layer, ParamLayer)):
-            return None
-        return self.model.state_dict()
+        return self.model.state_dict() if self.model.built else None
 
     # ------------------------------------------------------------------ core
     def init(self, sample_x):
@@ -297,6 +298,78 @@ class Trainer:
                 "cards waits with it: build the model without a mesh to "
                 "train it")
 
+    def _stopper(self):
+        cfg = self.config
+        return (EarlyStoppingMin(cfg.monitor, cfg.min_epochs, cfg.patience,
+                                 cfg.restore_best_weights)
+                if cfg.early_stopping else None)
+
+    def _resume(self, checkpoint_dir, resume, verbose) -> int:
+        """Restore the latest checkpoint of ``checkpoint_dir`` when asked;
+        returns the epoch to start from."""
+        if not (checkpoint_dir and resume):
+            return 0
+        from dlwp_torch.train.checkpoint import restore_checkpoint
+
+        try:
+            state, meta = restore_checkpoint(checkpoint_dir,
+                                             device=self.device)
+        except FileNotFoundError:
+            return 0
+        self.model.load_state_dict(state["params"])
+        self.optimizer.load_state_dict(state["opt_state"])
+        start_epoch = int(meta.get("epoch", -1)) + 1
+        if verbose:
+            print(f"resumed from epoch {start_epoch}")
+        return start_epoch
+
+    def _end_epoch(self, run: dict, epoch: int, metrics: dict,
+                   t0: float) -> bool:
+        """What follows an epoch's steps in both drivers: the non-finite
+        loss check, validation, the history, callbacks, the checkpoint and
+        early stopping. Returns True when training stops."""
+        stopper = run["stopper"]
+
+        def restore_best():
+            if (stopper is not None and stopper.restore_best_weights
+                    and stopper.best_params is not None):
+                self.model.load_state_dict(stopper.best_params)
+
+        if not np.isfinite(metrics.get("loss", 0.0)):
+            print(f"non-finite loss at epoch {epoch + 1}; stopping")
+            restore_best()
+            run["history"].append(epoch, metrics)
+            return True
+        if run["validation_data"] is not None:
+            metrics.update({
+                f"val_{k}": v for k, v in self.evaluate(
+                    run["validation_data"],
+                    batch_size=run["eval_batch_size"]).items()
+            })
+        metrics["time"] = time.time() - t0
+        run["history"].append(epoch, metrics)
+        for cb in run["callbacks"]:
+            cb(epoch, metrics, self.params)
+        if (run["checkpoint_dir"]
+                and (epoch + 1) % run["checkpoint_every"] == 0):
+            from dlwp_torch.train.checkpoint import save_checkpoint
+
+            save_checkpoint(
+                run["checkpoint_dir"], self.model.state_dict(),
+                self.optimizer.state_dict(), step=epoch,
+                metadata={"epoch": epoch, **metrics},
+            )
+        if run["verbose"]:
+            desc = " ".join(f"{k}={v:.6g}" for k, v in metrics.items())
+            print(f"epoch {epoch + 1}/{run['epochs']}: {desc}")
+        if stopper is not None and stopper.update(
+                epoch, metrics, self.model.state_dict()):
+            restore_best()
+            if run["verbose"]:
+                print(f"early stopping at epoch {epoch + 1}")
+            return True
+        return False
+
     # ------------------------------------------------------------------ API
     def fit(
         self,
@@ -316,11 +389,14 @@ class Trainer:
 
         ``generator`` yields (x_batch, y_batch) and supports len() and
         re-iteration each epoch (the Keras ``Sequence`` protocol, as
-        :class:`~dlwp_torch.data.sampler.SeriesSampler`). Array batches
-        come in the order of ``np.random.RandomState(config.seed)``
-        shuffles. ``validation_data`` is (x, y) arrays or a generator.
-        The epoch metric is the unweighted mean of the batch losses.
-        Training stops on a non-finite epoch loss.
+        :class:`~dlwp_torch.data.sampler.SeriesSampler`). A
+        :class:`~dlwp_torch.data.device_sampler.DeviceSeriesSampler` goes
+        to :meth:`fit_device`, unless a callback has ``on_batch`` (which
+        reads each batch's loss). Array batches come in the order of
+        ``np.random.RandomState(config.seed)`` shuffles.
+        ``validation_data`` is (x, y) arrays or a generator. The epoch
+        metric is the unweighted mean of the batch losses. Training stops
+        on a non-finite epoch loss.
 
         ``checkpoint_dir``: save the parameters and optimizer state every
         ``checkpoint_every`` epochs; with ``resume=True``, restore the
@@ -330,16 +406,21 @@ class Trainer:
         once per completed epoch (as the JAX package's ``fit_device``
         realigns its shuffle; its per-batch ``fit`` does not).
         """
+        if generator is not None and hasattr(generator, "gather") and not any(
+                hasattr(cb, "on_batch") for cb in callbacks or []):
+            return self.fit_device(
+                generator, epochs=epochs, verbose=verbose,
+                callbacks=callbacks, validation_data=validation_data,
+                checkpoint_dir=checkpoint_dir,
+                checkpoint_every=checkpoint_every, resume=resume)
         self._check_unsharded()
         cfg = self.config
-        epochs = epochs or cfg.epochs
         batch_size = batch_size or cfg.batch_size
-        history = History()
-        stopper = (
-            EarlyStoppingMin(cfg.monitor, cfg.min_epochs, cfg.patience,
-                             cfg.restore_best_weights)
-            if cfg.early_stopping else None
-        )
+        run = dict(epochs=epochs or cfg.epochs, history=History(),
+                   stopper=self._stopper(), callbacks=callbacks or [],
+                   validation_data=validation_data,
+                   eval_batch_size=batch_size, checkpoint_dir=checkpoint_dir,
+                   checkpoint_every=checkpoint_every, verbose=verbose)
         rng = np.random.RandomState(cfg.seed)
 
         if self.optimizer is None:
@@ -350,30 +431,15 @@ class Trainer:
                 x0 = x[:1]
             self.init(x0)
 
-        start_epoch = 0
-        if checkpoint_dir and resume:
-            from dlwp_torch.train.checkpoint import restore_checkpoint
-
-            try:
-                state, meta = restore_checkpoint(checkpoint_dir,
-                                                 device=self.device)
-            except FileNotFoundError:
-                pass
-            else:
-                self.model.load_state_dict(state["params"])
-                self.optimizer.load_state_dict(state["opt_state"])
-                start_epoch = int(meta.get("epoch", -1)) + 1
-                if verbose:
-                    print(f"resumed from epoch {start_epoch}")
-                for _ in range(start_epoch):
-                    if generator is None and cfg.shuffle:
-                        rng.shuffle(np.arange(len(x)))
-                    elif generator is not None and hasattr(generator,
-                                                           "on_epoch_end"):
-                        generator.on_epoch_end()
+        start_epoch = self._resume(checkpoint_dir, resume, verbose)
+        for _ in range(start_epoch):
+            if generator is None and cfg.shuffle:
+                rng.shuffle(np.arange(len(x)))
+            elif generator is not None and hasattr(generator, "on_epoch_end"):
+                generator.on_epoch_end()
 
         n = None if x is None else len(x)
-        for epoch in range(start_epoch, epochs):
+        for epoch in range(start_epoch, run["epochs"]):
             t0 = time.time()
             train_metrics: dict[str, list] = {}
             if generator is not None:
@@ -390,45 +456,79 @@ class Trainer:
                 m = self.train_step(xb, yb)
                 for k, v in m.items():
                     train_metrics.setdefault(k, []).append(v)
-                for cb in callbacks or []:
+                for cb in run["callbacks"]:
                     if hasattr(cb, "on_batch"):
                         cb.on_batch(float(m["loss"]))
             metrics = {k: _mean(vs) for k, vs in train_metrics.items()}
-            if not np.isfinite(metrics.get("loss", 0.0)):
-                print(f"non-finite loss at epoch {epoch + 1}; stopping")
-                if (stopper is not None and stopper.restore_best_weights
-                        and stopper.best_params is not None):
-                    self.model.load_state_dict(stopper.best_params)
-                history.append(epoch, metrics)
+            if self._end_epoch(run, epoch, metrics, t0):
                 break
-            if validation_data is not None:
-                metrics.update({
-                    f"val_{k}": v for k, v in self.evaluate(
-                        validation_data, batch_size=batch_size).items()
-                })
-            metrics["time"] = time.time() - t0
-            history.append(epoch, metrics)
-            for cb in callbacks or []:
-                cb(epoch, metrics, self.params)
-            if checkpoint_dir and (epoch + 1) % checkpoint_every == 0:
-                from dlwp_torch.train.checkpoint import save_checkpoint
+        return run["history"]
 
-                save_checkpoint(
-                    checkpoint_dir, self.model.state_dict(),
-                    self.optimizer.state_dict(), step=epoch,
-                    metadata={"epoch": epoch, **metrics},
-                )
-            if verbose:
-                desc = " ".join(f"{k}={v:.6g}" for k, v in metrics.items())
-                print(f"epoch {epoch + 1}/{epochs}: {desc}")
-            if stopper is not None and stopper.update(
-                    epoch, metrics, self.model.state_dict()):
-                if stopper.restore_best_weights and stopper.best_params is not None:
-                    self.model.load_state_dict(stopper.best_params)
-                if verbose:
-                    print(f"early stopping at epoch {epoch + 1}")
+    def fit_device(
+        self,
+        sampler,
+        epochs: int | None = None,
+        verbose: bool = True,
+        callbacks: list | None = None,
+        validation_data=None,
+        checkpoint_dir: str | None = None,
+        checkpoint_every: int = 1,
+        resume: bool = False,
+    ) -> History:
+        """Train over a :class:`~dlwp_torch.data.device_sampler.
+        DeviceSeriesSampler` whose series lives on the model's device.
+
+        Each epoch the window starts of ``sampler._index_pool``, shuffled
+        by the wrapped sampler's own RNG when its ``shuffle`` is on, go to
+        the device once as one (batches, B) int32 tensor; then
+        :meth:`_device_epoch` gathers each batch there and steps on it,
+        reading nothing back to the host. The per-step losses come down
+        once, at the epoch's end; their mean is the epoch's loss, and a
+        non-finite one stops training. The ragged last batch is dropped.
+        Validation, callbacks, checkpoints and early stopping run as in
+        :meth:`fit`. A resumed run advances the RNG once per completed
+        epoch, so it sees the batches the uninterrupted run would have.
+        """
+        self._check_unsharded()
+        cfg = self.config
+        base = getattr(sampler, "sampler", None)
+        if base is not None and hasattr(base, "_shuffle"):
+            do_shuffle, rng = bool(base._shuffle), base._rng
+        else:
+            do_shuffle, rng = cfg.shuffle, np.random.RandomState(cfg.seed)
+        if self.optimizer is None:
+            self.init(sampler[0][0])
+        nb, bsz = len(sampler), sampler._batch
+        if nb < 1:
+            raise ValueError("sampler yields no full batches")
+        run = dict(epochs=epochs or cfg.epochs, history=History(),
+                   stopper=self._stopper(), callbacks=callbacks or [],
+                   validation_data=validation_data, eval_batch_size=bsz,
+                   checkpoint_dir=checkpoint_dir,
+                   checkpoint_every=checkpoint_every, verbose=verbose)
+        start_epoch = self._resume(checkpoint_dir, resume, verbose)
+        base_idx = np.asarray(sampler._index_pool, dtype=np.int32)
+        if do_shuffle:
+            for _ in range(start_epoch):
+                rng.shuffle(base_idx.copy())
+        for epoch in range(start_epoch, run["epochs"]):
+            t0 = time.time()
+            idx = base_idx.copy()
+            if do_shuffle:
+                rng.shuffle(idx)
+            idx = torch.from_numpy(idx[:nb * bsz].reshape(nb, bsz)).to(
+                self.device)
+            steps = self._device_epoch(sampler, idx)
+            metrics = {k: _mean([m[k] for m in steps]) for k in steps[0]}
+            if self._end_epoch(run, epoch, metrics, t0):
                 break
-        return history
+        return run["history"]
+
+    def _device_epoch(self, sampler, idx: torch.Tensor) -> list[dict]:
+        """The train steps of one epoch, a batch gathered on the device for
+        each row of ``idx`` (window starts on the device): each step's
+        metrics as 0-d tensors on the device. Nothing is read back."""
+        return [self.train_step(*sampler.gather(samples)) for samples in idx]
 
     def evaluate(self, data, batch_size: int = 64) -> dict[str, float]:
         """Mean over batches of the loss and metrics, without gradients

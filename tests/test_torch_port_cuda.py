@@ -542,3 +542,150 @@ def test_device_prefetch_on_card(dev):
         assert gx.device == torch.empty(0, device=dev).device
         np.testing.assert_array_equal(gx.cpu().numpy(), wx)
         np.testing.assert_array_equal(gy.cpu().numpy(), wy)
+
+
+# ------------------------------------------- device-resident training
+def _series_data(n, seed=8):
+    from dlwp_torch import PredictorDataset
+
+    return PredictorDataset(
+        predictors=np.random.RandomState(seed).randn(n, 2, 8, 16)
+        .astype(np.float32),
+        sample=(np.datetime64("2007-01-01")
+                + np.arange(n) * np.timedelta64(6, "h")),
+        varlev=["HGT/500", "THICK/300-700"],
+        lat=np.linspace(87.5, 0.0, 8), lon=np.arange(16) * 22.5)
+
+
+def test_device_sampler_on_card_equals_host(dev):
+    """Two shuffled epochs of sequence batches gathered on the card equal
+    the host sampler's bit for bit."""
+    from dlwp_torch import DeviceSeriesSampler, SeriesSampler
+
+    data = _series_data(30)
+    kw = dict(input_time_steps=2, output_time_steps=2, sequence=2,
+              add_insolation=True, batch_size=4, shuffle=True, seed=3,
+              is_recurrent=True)
+    host = SeriesSampler(data, **kw)
+    dsam = DeviceSeriesSampler(SeriesSampler(data, **kw), device=dev)
+    for _ in range(2):
+        for i, (x, y) in enumerate(dsam):
+            xh, yh = host[i]
+            assert x.device == torch.empty(0, device=dev).device
+            assert torch.equal(x.cpu(), torch.from_numpy(xh))
+            assert torch.equal(y.cpu(), torch.from_numpy(yh))
+        host.on_epoch_end()
+
+
+def test_fit_device_on_card_reads_nothing_back(dev):
+    """fit_device of the flagship at 8x16, S=2 with the insolation splice
+    and the example's chain: every epoch's step loop runs under
+    torch.cuda.set_sync_debug_mode('error'); the gate kernel launches in
+    every train step (forward and checkpoint's recompute), the conv-pool
+    kernel only in validation."""
+    from dlwp_torch import DeviceSeriesSampler, SeriesSampler
+    from dlwp_torch.train import chain, clip_by_global_norm
+    from dlwp_torch.train import cosine_decay_schedule
+    from dlwp_torch.train.optim import adam
+
+    data = _series_data(40)
+    net = DLWPNeuralNet(time_dim=2, is_recurrent=True, scaler_type=None,
+                        device=dev)
+    kw = dict(input_time_steps=2, output_time_steps=2, sequence=2,
+              add_insolation=True, batch_size=4)
+    host = SeriesSampler(data, model=net, shuffle=True, **kw)
+    train = DeviceSeriesSampler(host, device=dev)
+    val = DeviceSeriesSampler(SeriesSampler(data, model=net, **kw),
+                              device=dev)
+    net.build_model(
+        convlstm_specs(8, 16), sequence_steps=2,
+        splice_fn=lambda inp, pred, k: torch.cat([pred, inp[:, :, 2:]], 2),
+        optimizer=chain(clip_by_global_norm(1.0),
+                        adam(cosine_decay_schedule(1e-3, 2 * len(train),
+                                                   0.05))))
+    net.init(host.generate(np.arange(1))[0], seed=0)
+    real, steps = net.trainer._device_epoch, []
+
+    def guarded(sampler, idx):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = real(sampler, idx)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        steps.append(len(out))
+        return out
+
+    net.trainer._device_epoch = guarded
+    reset_launch_counts()
+    hist = net.fit_generator(train, validation_data=val, epochs=2,
+                             verbose=False)
+    assert steps == [len(train)] * 2
+    assert np.isfinite(hist.history["loss"]).all()
+    assert launch_counts()["lstm_gates"] == 2 * (4 * len(train)
+                                                 + 2 * len(val))
+    assert launch_counts()["fused_conv_pool"] == 2 * 4 * len(val)
+
+
+# Newly registered layers, at 8x16 (chip_smoke.py's phase at 36x144).
+NEW_LAYER_SPECS = [
+    ("slice_layer", (0, 2, 1), None),
+    ("CyclicConv2D", (8, 3), {"impl": "edgefix", "dilation": 2,
+                              "activation": "tanh"}),
+    ("PeriodicPadding2D", ((0, 2),), None),
+    ("ZeroPadding2D", ((1, 0),), None),
+    ("Conv2D", (8, 5), {"activation": "tanh"}),
+    ("TFPadding2D", (((1, 1), (0, 0)),), {"mode": "SYMMETRIC"}),
+    ("Conv2D", (8, 4), {"strides": (2, 2), "padding": "same"}),
+    ("RowConv2D", (8, 3), {"activation": "tanh"}),
+    ("FillPadding2D", (1,), None),
+    ("AveragePooling2D", (2,), None),
+    ("Reshape", ((-1,),), None),
+    ("Dense", (16,), {"activation": "tanh"}),
+    ("Linear", (16, 6), None),
+]
+
+
+def test_new_layers_on_card_match_cpu(dev):
+    from dlwp_torch import flax_tree, load_flax_params
+
+    x = np.random.RandomState(9).randn(4, 3, 8, 16).astype(np.float32)
+    card = build_sequential(NEW_LAYER_SPECS, device=dev)
+    card.init(torch.from_numpy(x), seed=1)
+    cpu = build_sequential(NEW_LAYER_SPECS, device="cpu")
+    load_flax_params(cpu, flax_tree(card))
+    with torch.inference_mode():
+        got = card(torch.from_numpy(x).to(dev)).cpu()
+        want = cpu(torch.from_numpy(x))
+    assert got.shape == (4, 6)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+
+
+def test_skip_tower_on_card_matches_cpu(dev):
+    """SkipTower with the ConvLSTM front end: forward (one gate launch) and
+    one train step's parameters on the card against the CPU."""
+    from dlwp_torch import SkipTower, flax_tree, load_flax_params
+    from dlwp_torch.train import TrainConfig, Trainer
+
+    rng = np.random.RandomState(10)
+    x = rng.randn(4, 2, 3, 16, 32).astype(np.float32)
+    y = rng.randn(4, 4, 16, 32).astype(np.float32)
+    card = build_sequential([SkipTower(4, width=16, time_steps=2,
+                                       lstm_features=8)], device=dev)
+    card.init(torch.from_numpy(x), seed=2)
+    cpu = build_sequential([SkipTower(4, width=16, time_steps=2,
+                                      lstm_features=8)], device="cpu")
+    load_flax_params(cpu, flax_tree(card))
+    reset_launch_counts()
+    with torch.inference_mode():
+        got = card(torch.from_numpy(x).to(dev)).cpu()
+    assert launch_counts()["lstm_gates"] == 1
+    torch.testing.assert_close(got, cpu(torch.from_numpy(x)).detach(),
+                               rtol=0, atol=1e-5)
+    params = {}
+    for name, model in (("card", card), ("cpu", cpu)):
+        tr = Trainer(model, TrainConfig())
+        tr.init(x)
+        tr.train_step(x, y)
+        params[name] = {k: v.detach().cpu()
+                        for k, v in model.state_dict().items()}
+    assert _rel_rms(params["card"], params["cpu"]) <= 2e-4
