@@ -123,7 +123,29 @@ Phases, each raising on failure:
     ``TimeSeriesEstimator.predict``, ``verification_from_series``, the
     RMSE rows) on the model phase 13 trained, on the card against the CPU
     (1e-4 relative), the table printed;
-17. a ``{"kernels": [...]}`` line, then the last line
+17. ``--only fold``: ``SphericalHarmonics.build(fold=True)`` against the
+    unfolded engine at T72 on 73x144 and T170 on 361x720 (every public
+    transform, 1e-5 of scale; the scalar and vector round trips as
+    projections, 1e-4) and the round trips' times, one and 16 fields;
+18. ``--only spherical``: ``examples/train_spherical.py``'s stack at
+    ``bench.py``'s width (B=64, 3 channels on 73x144, b_in 36, truncation
+    12, 16 features, Linear 9216 -> 31536): forward and 3 Adam steps
+    against the CPU, the forward rate, the train step's time and device
+    time by kernel (no hand kernel: none launched);
+19. ``--only sharded_spectral``: ``ShardedSphericalHarmonics`` and
+    ``ShardedBarotropicModel`` on two virtual lat shards of the card
+    (Gaussian 72x144, T71), folded and not, against the unsharded engine
+    and 20 steps of the unsharded model, with ms a step of each;
+20. ``--only paper_run``: ``docs/DEPLOY.md``'s paper run (the two-truth
+    archive, ``Preprocessor.data_to_series``, the pole crop,
+    ``train_convlstm.py``'s tower through ``fit_device`` at B=32, S=2,
+    ``validate.py``'s rows with the vrt barotropic baseline), cut to
+    ``--paper-years`` (1) and ``--paper-epochs`` (10): the archive's
+    seconds and ms a step, a short archive against the CPU, the train
+    rate, idle share and launches, the RMSE table, the skill criterion
+    and the growing barotropic row, both kernels at 72x144 against their
+    plain versions;
+21. a ``{"kernels": [...]}`` line, then the last line
     ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without printing a result when no CUDA device is present.
@@ -1245,16 +1267,16 @@ def run_train_phase(torch, dev):
 
 # ---------------------------------------------------------------------------
 # Device-resident training, the remaining layers, SkipTower, verification.
-def chain_optimizer(steps):
+def chain_optimizer(steps, lr=TRAIN_LR):
     """``examples/train_convlstm.py --cosine-decay``'s optimizer in the
     port: the global norm clipped at 1, then adam on a cosine decay from
-    the learning rate over ``steps`` to 5% of it."""
+    the learning rate ``lr`` over ``steps`` to 5% of it."""
     from dlwp_torch.train import chain, clip_by_global_norm
     from dlwp_torch.train import cosine_decay_schedule
     from dlwp_torch.train.optim import adam
 
     return chain(clip_by_global_norm(1.0),
-                 adam(cosine_decay_schedule(TRAIN_LR, steps, 0.05)))
+                 adam(cosine_decay_schedule(lr, steps, 0.05)))
 
 
 def device_stack(device, S=1, shuffle=True):
@@ -1608,28 +1630,32 @@ def run_skip_tower(torch, dev):
 
 
 VERIFY_FRACTION, VERIFY_ITERS, VERIFY_LATS = 0.2, 6, (20.0, 70.0)
+VERIFY_INIT_BATCH = 256
 TOL_VERIFY = 1e-4
 
 
-def validate_rows(torch, dlwp):
-    """``examples/validate.py``'s scoring with its defaults (the last 20%
-    held out, 12 model steps, HGT/500 over 20-70N) on ``dlwp``: the
-    forecast from every validation window, the verification of
-    ``verification_from_series``, and the forecast, persistence,
-    constant-climatology and (over a year or more) monthly-climatology
-    RMSE rows."""
+def validate_rows(torch, dlwp, data=None, fraction=VERIFY_FRACTION,
+                  iters=VERIFY_ITERS, barotropic=None, device=None):
+    """``examples/validate.py``'s scoring on ``dlwp`` (by default with its
+    defaults on the flagship dataset: the last 20% held out, 12 model
+    steps): the forecast from every validation window in init batches of
+    256, the verification of ``verification_from_series``, and the
+    forecast, persistence, constant-climatology, (over a year or more)
+    monthly-climatology and, with ``barotropic`` (a form), barotropic
+    RMSE rows of HGT/500 over 20-70N, in the data's scaled units. Returns
+    (f_hour, rows, inits, predict seconds, masked (init, lead) pairs)."""
     from dlwp_torch import SeriesSampler, TimeSeriesEstimator
     from dlwp_torch.forecast import verify
 
-    data = flagship_dataset(TRAIN_N)
+    data = flagship_dataset(TRAIN_N) if data is None else data
     n = data.predictors.shape[0]
-    val_data = data.isel_sample(np.arange(n - int(n * VERIFY_FRACTION), n))
+    val_data = data.isel_sample(np.arange(n - int(n * fraction), n))
     val_gen = SeriesSampler(val_data, model=dlwp, input_time_steps=TD,
                             output_time_steps=TD, batch_size=64,
                             add_insolation=True)
     est = TimeSeriesEstimator(dlwp, val_gen)
     t0 = time.perf_counter()
-    forecast = est.predict(VERIFY_ITERS, init_batch_size=256)
+    forecast = est.predict(iters, init_batch_size=VERIFY_INIT_BATCH)
     predict_s = time.perf_counter() - t0
     steps_out = forecast.values.shape[0]
     ver, f_hour = verify.verification_from_series(
@@ -1637,28 +1663,31 @@ def validate_rows(torch, dlwp):
         init_times=forecast.times, all_data=data)
     out_idx = val_data.varlev_index(forecast.varlev)
     ver = ver[:, :, out_idx]
+    v = forecast.varlev.index("HGT/500")
     lat = np.asarray(data.lat)
     lat_sel = np.where((lat >= VERIFY_LATS[0]) & (lat <= VERIFY_LATS[1]))[0]
-    fc_v = forecast.values[:, :, 0][..., lat_sel, :]
-    ver_v = ver[:, :, 0][..., lat_sel, :]
+    fc_v = forecast.values[:, :, v][..., lat_sel, :]
+    ver_v = ver[:, :, v][..., lat_sel, :]
     axis = tuple(range(1, ver_v.ndim))
     rows = {"forecast_rmse": verify.forecast_error(fc_v, ver_v, "rmse",
                                                    axis)}
     init_idx = [int(np.where(np.asarray(val_data.sample) == t)[0][0])
                 for t in forecast.times]
-    init = np.asarray(val_data.predictors)[init_idx][:, out_idx][:, 0]
+    init = np.asarray(val_data.predictors)[init_idx][:, out_idx][:, v]
     rows["persistence_rmse"] = verify.forecast_error(
         np.repeat(init[..., lat_sel, :][None], steps_out, axis=0), ver_v,
         "rmse", axis)
-    series = np.asarray(val_data.predictors)[:, out_idx][:, 0][..., lat_sel, :]
+    series = np.asarray(val_data.predictors)[:, out_idx][:, v][..., lat_sel, :]
     rows["climatology_rmse"] = verify.forecast_error(
         np.broadcast_to(np.nanmean(series, axis=0),
                         (steps_out,) + ver_v.shape[1:]), ver_v, "rmse", axis)
     times = np.asarray(data.sample, dtype="datetime64[ns]")
     if (times.max() - times.min()) / np.timedelta64(1, "D") >= 360.0:
-        full = np.asarray(data.predictors)[:, out_idx][:, 0][..., lat_sel, :]
+        full = np.asarray(data.predictors)[:, out_idx][:, v][..., lat_sel, :]
         months = times.astype("datetime64[M]").astype(int) % 12
         climo12 = np.stack([np.nanmean(full[months == m], axis=0)
+                            if (months == m).any()
+                            else np.full(full.shape[1:], np.nan)
                             for m in range(12)])
         lead = ((np.arange(steps_out) + 1)
                 * int(round(est._dt_hours * 60))).astype("timedelta64[m]")
@@ -1666,7 +1695,49 @@ def validate_rows(torch, dlwp):
                  + lead[:, None]).astype("datetime64[M]").astype(int) % 12
         rows["monthly_climo_rmse"] = verify.forecast_error(
             climo12[ver_m], ver_v, "rmse", axis)
-    return f_hour, rows, len(forecast.times), predict_s
+    if barotropic:
+        rows["barotropic_rmse"] = barotropic_baseline(
+            data, val_data, forecast, ver, v, est._dt_hours, steps_out,
+            lat_sel, form=barotropic, device=device)
+    masked = int(np.isnan(ver).all(axis=(2, 3, 4)).sum())
+    return f_hour, rows, len(forecast.times), predict_s, masked
+
+
+def barotropic_baseline(data, val_data, forecast, ver, v, dt_hours,
+                        steps_out, lat_sel=slice(None), form="psi",
+                        truncation=None, device=None):
+    """``examples/validate.py``'s barotropic physics baseline
+    (``_barotropic_baseline``) in the port: from the unscaled variable
+    ``v`` at each init time, a float32 core (T42 or ``truncation``, dt
+    1800 s, damping 5e-6; the archive's regular grid, or the pole-cropped
+    coordinates as given) run to every lead on ``device`` (None ->
+    ``cuda``), scaled back and scored as the RMSE row over ``lat_sel``."""
+    import torch
+
+    from dlwp_torch import BarotropicModel, BarotropicModelPsi, LatLonGrid
+    from dlwp_torch.forecast import verify
+
+    out_idx = val_data.varlev_index(forecast.varlev)
+    lat, lon = np.asarray(data.lat), np.asarray(data.lon)
+    if abs(abs(lat[0]) - 90.0) < 1e-6:
+        grid = LatLonGrid.regular(len(lat), len(lon))
+    else:
+        grid = LatLonGrid.from_coords(lat, lon)
+    init_idx = [int(np.where(np.asarray(val_data.sample) == t)[0][0])
+                for t in forecast.times]
+    z0_scaled = np.asarray(val_data.predictors)[init_idx][:, out_idx][:, v]
+    mean = data.mean[out_idx][v] if data.mean is not None else 0.0
+    std = data.std[out_idx][v] if data.std is not None else 1.0
+    z0 = z0_scaled * std + mean
+    dt = 1800.0
+    cls = BarotropicModel if form == "vrt" else BarotropicModelPsi
+    model = cls(grid, truncation or min(42, grid.nlat - 2), dt=dt,
+                damping_coefficient=5e-6, dtype=torch.float32, device=device)
+    every = max(1, int(dt_hours * 3600.0 / dt))
+    _, _, zs = model.run_with_snapshots(model.from_z(z0), steps_out, every)
+    zs = ((zs.cpu().numpy() - mean) / std)[..., lat_sel, :]
+    return verify.forecast_error(zs, ver[:, :, v][..., lat_sel, :],
+                                 method="rmse", axis=tuple(range(1, zs.ndim)))
 
 
 def trained_flagship(torch, dev):
@@ -1692,9 +1763,9 @@ def run_verify(torch, dev):
     cpu, _, _ = train_stack("cpu")
     cpu.load_flax_params(flax_tree(card.base_model))
     reset_launch_counts()
-    f_hour, rows, n_init, card_s = validate_rows(torch, card)
+    f_hour, rows, n_init, card_s, _ = validate_rows(torch, card)
     counts = launch_counts()
-    _, rows_cpu, _, cpu_s = validate_rows(torch, cpu)
+    _, rows_cpu, _, cpu_s, _ = validate_rows(torch, cpu)
     rel = max(float(np.max(np.abs(rows[k] - rows_cpu[k])
                            / np.abs(rows_cpu[k]))) for k in rows)
     log(f"verify: validate.py's flow on the trained flagship, {n_init} "
@@ -2520,6 +2591,550 @@ def device_ms_per_call(torch, fn, calls=10):
     raise AssertionError("the profiler saw no device time")
 
 
+# ------------------------------------------------------------------ fold
+# Folded against unfolded engines (fp32 on the card): T72 on the archive's
+# 73x144 grid and T170 on the 0.5-degree 361x720 grid. Limits, each as max
+# abs over the output's max abs: fold vs unfolded 1e-5 (the fold adds the
+# mirrored rows before the contraction: another fp32 summation order);
+# round trips grid -> spec -> grid -> spec and winds -> (vrt, div) ->
+# winds -> (vrt, div) 1e-4 (fp32 transforms; the JAX package measured
+# 2.5e-7 at T170 for one scalar round trip at full precision).
+FOLD_GRIDS = ((73, 144, 72), (361, 720, 170))
+TOL_FOLD, TOL_FOLD_TRIP = 1e-5, 1e-4
+FOLD_BATCH = 16
+
+
+def scaled_err(got, want):
+    return ((got - want).abs().max() / want.abs().max()).item()
+
+
+def random_spec(torch, dev, lead, T, seed=0):
+    """Band-limited random coefficients (real m = 0 column), complex64."""
+    rs = np.random.RandomState(seed)
+    M = T + 1
+    c = rs.randn(*lead, M, M) + 1j * rs.randn(*lead, M, M)
+    c = c * (np.arange(M)[None, :] >= np.arange(M)[:, None])
+    c[..., 0, :] = c[..., 0, :].real
+    return torch.as_tensor(c.astype(np.complex64), device=dev)
+
+
+def run_fold(torch, dev):
+    """``fold=True`` against the unfolded engine on the card: every public
+    transform, the two round trips, and the time of a scalar round trip
+    (synthesize + analyze) and of a vector one (winds and back) for one
+    field and for FOLD_BATCH fields, both engines in turns."""
+    from dlwp_torch import LatLonGrid, SphericalHarmonics
+    from dlwp_torch.kernels import launch_counts, reset_launch_counts
+
+    reset_launch_counts()
+    out = {}
+    for nlat, nlon, T in FOLD_GRIDS:
+        grid = LatLonGrid.regular(nlat, nlon)
+        t0 = time.perf_counter()
+        eng = {f: SphericalHarmonics.build(grid, T, fold=f, device=dev)
+               for f in (False, True)}
+        build_s = time.perf_counter() - t0
+        spec = random_spec(torch, dev, (2,), T)
+        field = torch.randn(2, nlat, nlon, device=dev,
+                            generator=torch.Generator(device=dev).manual_seed(1))
+        res = {}
+        for name, fn in (
+                ("synthesize", lambda e: (e.synthesize(spec),)),
+                ("analyze", lambda e: (e.analyze(field),)),
+                ("gradients", lambda e: e.gradients(spec)),
+                ("uv_from_vrtdiv", lambda e: e.uv_from_vrtdiv(spec,
+                                                              0.5 * spec)),
+                ("vrtdiv_from_uv", lambda e: e.vrtdiv_from_uv(field,
+                                                              field.flip(-1)))):
+            res[name] = max(scaled_err(a, b) for a, b in
+                            zip(fn(eng[True]), fn(eng[False])))
+        # Round trips as projections: analysis is the weighted pseudo-
+        # inverse of synthesis, so analyze(synthesize(analyze(f))) equals
+        # analyze(f) on any grid, also where the grid cannot resolve every
+        # coefficient (m = 1 at T = nlat - 1 on a pole-inclusive grid); the
+        # winds' the same below the Nyquist wavenumber, whose imaginary
+        # part irfft drops (m = 72 at T72 on 144 columns).
+        u, v = field, field.flip(-1)
+        sub = (torch.arange(T + 1, device=dev) < nlon // 2)[:, None]
+        trips = {}
+        for f, e in eng.items():
+            s1 = e.analyze(field)
+            vrt, div = (w * sub for w in e.vrtdiv_from_uv(u, v))
+            vrt2, div2 = e.vrtdiv_from_uv(*e.uv_from_vrtdiv(vrt, div))
+            trips[f] = max(scaled_err(e.analyze(e.synthesize(s1)), s1),
+                           scaled_err(vrt2, vrt), scaled_err(div2, div))
+        times = {}
+        for batch in (1, FOLD_BATCH):
+            s = random_spec(torch, dev, (batch,), T, seed=2)
+            for f in (False, True, True, False):
+                e = eng[f]
+                key = f"{'fold' if f else 'unfolded'} B={batch}"
+                times.setdefault(key, []).append(dict(
+                    scalar_ms=timed_ms(lambda: e.analyze(e.synthesize(s)),
+                                       reps=3, inner=5),
+                    vector_ms=timed_ms(lambda: e.vrtdiv_from_uv(
+                        *e.uv_from_vrtdiv(s, s)), reps=3, inner=5)))
+        times = {k: {m: float(np.mean([r[m] for r in v])) for m in v[0]}
+                 for k, v in times.items()}
+        tag = f"T{T} {nlat}x{nlon}"
+        log(f"fold {tag}: tables built in {build_s:.1f} s (both engines); "
+            f"fold vs unfolded max err / scale "
+            + ", ".join(f"{k} {v:.2e}" for k, v in res.items())
+            + f" (limit {TOL_FOLD}); round trips unfolded "
+            f"{trips[False]:.2e}, fold {trips[True]:.2e} (limit "
+            f"{TOL_FOLD_TRIP})")
+        for k, v in times.items():
+            log(f"  fold timing {tag} {k}: scalar round trip "
+                f"{v['scalar_ms']:.4f} ms, vector round trip "
+                f"{v['vector_ms']:.4f} ms (CUDA events, mean of 2 turns)")
+        bad = {k: v for k, v in res.items() if not v <= TOL_FOLD}
+        if bad or not max(trips.values()) <= TOL_FOLD_TRIP:
+            raise AssertionError(f"fold {tag}: {res} {trips}")
+        out[tag] = {"fold_vs_unfolded": res, "round_trip": {
+            "unfolded": trips[False], "fold": trips[True]},
+            "times_ms": times, "build_s": build_s}
+    out["launches"] = launch_counts()
+    if out["launches"] != expected_counts():
+        raise AssertionError(f"fold launches {out['launches']}")
+    return out
+
+
+# ------------------------------------------------------------- spherical
+# bench.py's spherical stack (examples/train_spherical.py's architecture,
+# train_torch.py:100-114) at its width: B=64, 3 channels on 73x144, b_in
+# 36, truncation 12, 16 features, Linear 9216 -> 31536 (290.6 M
+# parameters). Card vs CPU (fp32, same weights): the forward to 1e-5 x its
+# scale, and 3 Adam steps (lr 1e-3) at TOL_TRAIN's limits.
+SPH = dict(b=64, c=3, nlat=73, nlon=144, b_in=36, trunc=12, feat=16)
+SPH_STEPS, TOL_SPH = 3, 1e-5
+
+
+def spherical_specs():
+    """``examples/train_spherical.py``'s ``build_layer_specs`` at
+    bench_spherical's sizes."""
+    from dlwp_torch.models import s2_near_identity_grid
+
+    s = SPH
+    g = s2_near_identity_grid(max_beta=0.2, n_alpha=12, n_beta=1)
+    flat = s["feat"] * (2 * s["trunc"]) ** 2
+    return [
+        ("S2Convolution", (s["c"], s["feat"], s["b_in"], s["trunc"], g),
+         {"mean_gamma": True, "activation": "tanh"}),
+        ("S2Convolution", (s["feat"], s["feat"], s["trunc"], s["trunc"], g),
+         {"mean_gamma": True, "activation": "tanh"}),
+        ("TorchReshape", ((-1, flat),), None),
+        ("Linear", (flat, s["c"] * s["nlat"] * s["nlon"]), None),
+        ("TorchReshape", ((-1, s["c"], s["nlat"], s["nlon"]),), None),
+    ]
+
+
+def spherical_net(device):
+    from dlwp_torch import DLWPNeuralNet
+
+    net = DLWPNeuralNet(is_convolutional=True, time_dim=1, scaler_type=None,
+                        device=device)
+    net.build_model(spherical_specs(), loss="mse", optimizer="adam",
+                    learning_rate=1e-3, seed=0)
+    return net
+
+
+def run_spherical(torch, dev):
+    """The spherical stack on the card: forward and 3 train steps against
+    the CPU from the same weights; the forward rate, the train step's time
+    and its device time by kernel (no hand kernel: cuBLAS with TF32 off)."""
+    from dlwp_torch import flax_tree
+    from dlwp_torch.kernels import launch_counts, reset_launch_counts
+
+    torch.set_num_threads(os.cpu_count() or 1)
+    s = SPH
+    rs = np.random.RandomState(0)
+    shape = (s["b"], s["c"], s["nlat"], s["nlon"])
+    x = rs.randn(*shape).astype(np.float32)
+    ys = [(0.5 * x + 0.1 * rs.randn(*shape)).astype(np.float32)
+          for _ in range(SPH_STEPS)]
+    reset_launch_counts()
+    card = spherical_net(dev)
+    card.init(x[:1], seed=0)
+    tree = flax_tree(card.base_model)
+    n_params = sum(p.numel() for p in card.base_model.parameters())
+    cpu = spherical_net("cpu")
+    cpu.load_flax_params(tree)
+    xd = torch.as_tensor(x, device=dev)
+    with torch.no_grad():
+        y_card = card.base_model(xd)
+        y_cpu = cpu.base_model(torch.as_tensor(x))
+    fwd_err = scaled_err(y_card.cpu(), y_cpu)
+    losses = {"card": [], "cpu": []}
+    grads = {}
+    for name, net in (("card", card), ("cpu", cpu)):
+        tr = net.trainer
+        tr.init(x[:1])
+        for k, y in enumerate(ys):
+            losses[name].append(float(tr.train_step(x, y)["loss"]))
+            if k == 0:
+                grads[name] = {n: p.grad.detach().cpu().clone()
+                               for n, p in net.base_model.named_parameters()}
+    loss_rel = max(abs(a - b) / abs(b)
+                   for a, b in zip(losses["card"], losses["cpu"]))
+    grad_rel = state_rel_rms(grads["card"], grads["cpu"])
+    params_rel = state_rel_rms(
+        {k: v.detach() for k, v in card.base_model.state_dict().items()},
+        cpu.base_model.state_dict())
+    counts = launch_counts()
+    with torch.no_grad():
+        fwd_ms = timed_ms(lambda: card.base_model(xd), reps=3, inner=5)
+    yd = torch.as_tensor(ys[0], device=dev)
+    step_ms = timed_ms(lambda: card.trainer.train_step(xd, yd), reps=3,
+                       inner=3, warmup=1)
+    names = {}
+    dev_ms = profile_device(torch, lambda: card.trainer.train_step(xd, yd),
+                            "spherical train step", names=names)
+    opt_ms = sum(ms for k, (ms, _) in names.items()
+                 if "foreach" in k or "elementwise" in k or "vectorized" in k)
+    gemm_ms = sum(ms for k, (ms, _) in names.items()
+                  if "gemm" in k.lower() or "sgemm" in k or "cutlass" in k)
+    mgps = s["b"] * s["nlat"] * s["nlon"] / fwd_ms / 1e3
+    out = {"params": n_params, "forward_err": fwd_err,
+           "losses_card": losses["card"], "losses_cpu": losses["cpu"],
+           "loss_rel": loss_rel, "grad_rel_rms": grad_rel,
+           "params_rel_rms": params_rel, "launches": counts,
+           "forward_ms": fwd_ms, "forward_mgps": mgps,
+           "train_step_ms": step_ms, "train_step_device_ms": dev_ms,
+           "elementwise_device_ms": opt_ms, "gemm_device_ms": gemm_ms,
+           "param_bytes": 4 * n_params}
+    log(f"spherical: {n_params} parameters ({4 * n_params / 1e9:.3f} GB "
+        f"fp32), B={s['b']} {s['c']}x{s['nlat']}x{s['nlon']}; forward card vs "
+        f"CPU {fwd_err:.2e} of scale (limit {TOL_SPH}); {SPH_STEPS} adam "
+        f"steps: loss {loss_rel:.2e} (limit {TOL_TRAIN['loss']}), first "
+        f"gradient {grad_rel:.2e} (limit {TOL_TRAIN['grad']}), parameters "
+        f"{params_rel:.2e} (limit {TOL_TRAIN['params']}) relative RMS; "
+        f"forward {fwd_ms:.3f} ms = {mgps:.2f} Mgp/s, train step "
+        f"{step_ms:.3f} ms (device {dev_ms:.3f}: GEMMs {gemm_ms:.3f}, "
+        f"elementwise {opt_ms:.3f}); launches {counts}")
+    if counts != expected_counts():
+        raise AssertionError(f"spherical launches {counts}")
+    if not (fwd_err <= TOL_SPH and loss_rel <= TOL_TRAIN["loss"]
+            and grad_rel <= TOL_TRAIN["grad"]
+            and params_rel <= TOL_TRAIN["params"]):
+        raise AssertionError(f"spherical card vs CPU: {out}")
+    return out
+
+
+# -------------------------------------------------------- sharded spectral
+# A lat=2 mesh repeating the card, on a 72x144 Gaussian grid at T71 (72
+# rows and 72 wavenumbers both divide by 2). Sharded vs unsharded on the
+# card, fp32: transforms 1e-6 x the output's scale (only where the sums
+# run differs), 20 barotropic steps 1e-5 relative RMS.
+SHARD_GRID, TOL_SHARD, TOL_SHARD_BARO, SHARD_STEPS = (72, 144, 71), 1e-6, \
+    1e-5, 20
+
+
+def run_sharded_spectral(torch, dev):
+    """ShardedSphericalHarmonics and ShardedBarotropicModel on two virtual
+    lat shards of the card, folded and not, against the unsharded engine
+    and model; ms a step of each."""
+    from dlwp_torch import BarotropicModel, LatLonGrid, SphericalHarmonics
+    from dlwp_torch.kernels import launch_counts, reset_launch_counts
+    from dlwp_torch.parallel import (ShardedBarotropicModel,
+                                     ShardedSphericalHarmonics)
+
+    reset_launch_counts()
+    nlat, nlon, T = SHARD_GRID
+    grid = LatLonGrid.gaussian(nlat, nlon)
+    mesh = virtual_mesh(dev, 1, 2)
+    out = {}
+    for fold in (False, True):
+        sh = SphericalHarmonics.build(grid, T, fold=fold, device=dev)
+        ssh = ShardedSphericalHarmonics(sh, mesh)
+        spec = random_spec(torch, dev, (4,), T)
+        field = sh.synthesize(spec)
+        errs = {
+            "analyze": scaled_err(ssh.analyze(field), sh.analyze(field)),
+            "synthesize": scaled_err(ssh.synthesize(spec),
+                                     sh.synthesize(spec)),
+            "uv_from_vrtdiv": max(scaled_err(a, b) for a, b in zip(
+                ssh.uv_from_vrtdiv(spec, spec), sh.uv_from_vrtdiv(spec, spec))),
+            "vrtdiv_from_uv": max(scaled_err(a, b) for a, b in zip(
+                ssh.vrtdiv_from_uv(field, field), sh.vrtdiv_from_uv(field,
+                                                                   field))),
+        }
+        kw = dict(dt=1800.0, damping_coefficient=5e-6, fold=fold, device=dev)
+        ref = BarotropicModel(grid, T, **kw)
+        shd = ShardedBarotropicModel(grid, T, mesh=mesh, **kw)
+        state = ref.from_z(bench_height(grid))
+        want = ref.run(state, SHARD_STEPS)
+        got = shd.run_sharded(state, SHARD_STEPS)
+        baro = rel_rms(got.vrt_spec, want.vrt_spec)
+        finite = bool(torch.isfinite(torch.view_as_real(got.vrt_spec)).all())
+        ms = {"unsharded": timed_ms(lambda: ref.run(state, SHARD_STEPS),
+                                    reps=3, inner=1) / SHARD_STEPS,
+              "sharded": timed_ms(lambda: shd.run_sharded(state, SHARD_STEPS),
+                                  reps=3, inner=1) / SHARD_STEPS}
+        key = "fold" if fold else "unfolded"
+        log(f"sharded_spectral {key}: lat=2 on one card, Gaussian "
+            f"{nlat}x{nlon} T{T}; sharded vs unsharded max err / scale "
+            + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+            + f" (limit {TOL_SHARD}); {SHARD_STEPS} barotropic steps relative "
+            f"RMS {baro:.2e} (limit {TOL_SHARD_BARO}), finite {finite}; ms a "
+            f"step: unsharded {ms['unsharded']:.4f}, sharded "
+            f"{ms['sharded']:.4f} (CUDA events)")
+        if not (max(errs.values()) <= TOL_SHARD and baro <= TOL_SHARD_BARO
+                and finite):
+            raise AssertionError(f"sharded_spectral {key}: {errs} {baro}")
+        out[key] = {"errors": errs, "barotropic_rel_rms": baro,
+                    "ms_per_step": ms}
+    out["launches"] = launch_counts()
+    if out["launches"] != expected_counts():
+        raise AssertionError(f"sharded_spectral launches {out['launches']}")
+    return out
+
+
+# ------------------------------------------------------------- paper run
+# docs/DEPLOY.md's paper run: the two-truth archive (T72 truth on 73x144,
+# band-limited to T42 on 73x144, vrt form, dt 1800 s, 92-day segments),
+# Preprocessor.data_to_series(HGT/500, VRT/500), the pole crop to 72x144,
+# train_convlstm.py's tower with --device-resident --sequence 2
+# --cosine-decay at 2e-3, B=32, latitude-weighted MSE, the last 25% held
+# out, early stopping (min 20 epochs, patience 6); validate.py's rows with
+# 12 forecast steps and the vrt-form barotropic baseline over 20-70N. Cut
+# (by default) to PAPER_YEARS and PAPER_EPOCHS: --paper-years 4
+# --paper-epochs 50 runs the full configuration.
+PAPER_ARCHIVE = dict(nlat=73, nlon=144, truncation=42, truth_truncation=72,
+                     truth_nlat=73, truth_nlon=144, dt=1800.0,
+                     segment_days=92, form="vrt", seed=0)
+PAPER = {"years": 1.0, "epochs": 10}
+PAPER_B, PAPER_LR, PAPER_VAL, PAPER_LEADS = 32, 2e-3, 0.25, 12
+# The card's archive vs the CPU's: 2 segments of 3 days, relative RMS of
+# the difference over the field's anomaly RMS (fp32, summation order, grown
+# by 240 steps of chaotic dynamics).
+TOL_ARCHIVE_RRMS = 1e-3
+
+
+def paper_specs(c_in, c_out, nlat, nlon, lstm_features):
+    """``examples/train_convlstm.py``'s ``convlstm_tower``, its reshapes
+    fixed to the grid as the example fixes them."""
+    return [
+        ("ConvLSTM2D", (lstm_features, 3),
+         {"dilation": 2, "activation": "tanh", "return_sequences": True}),
+        ("Reshape", ((TD * lstm_features, nlat, nlon),), None),
+        ("CyclicConv2D", (32, 3), {"dilation": 2, "activation": "tanh"}),
+        ("MaxPooling2D", (2,), None),
+        ("CyclicConv2D", (64, 3), {"activation": "tanh"}),
+        ("UpSampling2D", (2,), None),
+        ("CyclicConv2D", (32, 3), {"dilation": 2, "activation": "tanh"}),
+        ("CyclicConv2D", (TD * c_out, 5), {"activation": "linear"}),
+        ("Reshape", ((TD, c_out, nlat, nlon),), None),
+    ]
+
+
+def archive_vs_cpu(torch, dev):
+    """A short archive (2 segments of 3 days) on the card and on the CPU:
+    NaN rows in the same places, fields within TOL_ARCHIVE_RRMS."""
+    from dlwp_torch.data import BarotropicArchiveSource
+
+    kw = dict(PAPER_ARCHIVE, n_samples=25, segment_days=3)
+    srcs = {d: BarotropicArchiveSource(device=d, **kw) for d in (dev, "cpu")}
+    out = {}
+    for var in ("HGT", "VRT"):
+        got, want = (srcs[d].field(var, 500) for d in (dev, "cpu"))
+        nan = np.isnan(want)
+        same_nan = bool((np.isnan(got) == nan).all())
+        ok = want[~nan]
+        rrms = float(np.sqrt(np.mean((got[~nan] - ok) ** 2))
+                     / np.sqrt(np.mean((ok - ok.mean()) ** 2)))
+        out[var] = {"same_nan_rows": same_nan, "rel_rms": rrms,
+                    "marker_rows": nan.all(axis=(1, 2)).nonzero()[0].tolist()}
+    log(f"paper_run archive card vs CPU (2 segments of 3 days, "
+        f"{srcs[dev].n_segments} segments): {out} (limit {TOL_ARCHIVE_RRMS})")
+    if not all(v["same_nan_rows"] and v["rel_rms"] <= TOL_ARCHIVE_RRMS
+               and v["marker_rows"] == [12] for v in out.values()):
+        raise AssertionError(f"paper_run archive vs CPU: {out}")
+    return out
+
+
+def paper_kernels(torch, dev, nlat, nlon, c_pool, lstm_features):
+    """Both kernels against their plain versions at the 72x144 shapes the
+    paper run gives them: B=32 (train steps, validation batches) and the
+    forecast's init batch."""
+    from dlwp_torch.kernels import (fused_conv_pool, fused_conv_pool_plain,
+                                    lstm_gates, lstm_gates_plain)
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    errs = {}
+    for b in (PAPER_B, VERIFY_INIT_BATCH):
+        x = torch.randn(b, c_pool, nlat, nlon, device=dev, generator=g)
+        k = torch.randn(32, c_pool, 3, 3, device=dev,
+                        generator=g) / (9 * c_pool) ** 0.5
+        bias = 0.1 * torch.randn(32, device=dev, generator=g)
+        y = fused_conv_pool(x, k, bias, 2)
+        err = (y - fused_conv_pool_plain(x, k, bias, 2)).abs().max().item()
+        errs[f"fused_conv_pool B={b}"] = err
+        f = lstm_features
+        zx, zh = (torch.randn(b, 4 * f, nlat, nlon, device=dev, generator=g)
+                  for _ in range(2))
+        cc = torch.randn(b, f, nlat, nlon, device=dev, generator=g)
+        h1, c1 = lstm_gates(zx, zh, cc, "tanh", "hard_sigmoid", None)
+        h2, c2 = lstm_gates_plain(zx, zh, cc, "tanh", "hard_sigmoid", None)
+        errs[f"lstm_gates B={b}"] = max((h1 - h2).abs().max().item(),
+                                        (c1 - c2).abs().max().item())
+    log(f"paper_run kernels at {nlat}x{nlon} (conv-pool ({c_pool} -> 32, "
+        f"d=2), gates F={lstm_features}): max|kernel - plain| {errs} "
+        f"(limit {TOL_F32})")
+    if not max(errs.values()) <= TOL_F32:
+        raise AssertionError(f"paper_run kernels: {errs}")
+    return errs
+
+
+def run_paper_run(torch, dev):
+    """The paper run on the card (see PAPER_ARCHIVE): archive, series,
+    fit_device, validation with the baseline; the skill criterion, the
+    chaos check, launch counts, the kernels at 72x144 and the archive
+    against the CPU."""
+    from dlwp_torch import DeviceSeriesSampler, DLWPNeuralNet, SeriesSampler
+    from dlwp_torch.data import BarotropicArchiveSource, Preprocessor
+    from dlwp_torch.kernels import launch_counts, reset_launch_counts
+    from dlwp_torch.ops.losses import latitude_weighted_loss, mse
+    from dlwp_torch.utils import train_test_split_ind
+
+    torch.set_num_threads(os.cpu_count() or 1)
+    out = {"config": dict(PAPER_ARCHIVE, **PAPER)}
+    out["archive_vs_cpu"] = archive_vs_cpu(torch, dev)
+    n_samples = int(PAPER["years"] * 365.25 * 4)
+    src = BarotropicArchiveSource(n_samples=n_samples, device=dev,
+                                  **PAPER_ARCHIVE)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    src.field("HGT", 500)
+    archive_s = time.perf_counter() - t0
+    model = src._model()
+    state = model.from_z(src._initial_z())
+    step_ms = timed_ms(lambda: model.run(state, 24), reps=3, inner=1) / 24
+    n_steps = (int(round(src.spinup_days * 86400.0 / src.dt))
+               + src.per_segment * int(round(src.snapshot_hours * 3600.0
+                                             / src.dt)))
+    log(f"paper_run archive: {n_samples} rows, {src.n_segments} segments "
+        f"integrated as one batch at T{src._run_truncation} on "
+        f"{src._run_grid.nlat}x{src._run_grid.nlon} ({n_steps} steps), "
+        f"band-limited to T{src.truncation}: {archive_s:.2f} s; plain engine "
+        f"{step_ms:.4f} ms a step of the {src.n_segments}-member state")
+    t0 = time.perf_counter()
+    data = Preprocessor(src).data_to_series(["HGT", "VRT"], [500, 500],
+                                            pairwise=True)
+    series_s = time.perf_counter() - t0
+    data.predictors = data.predictors[..., 1:, :]  # the pole crop
+    data.lat = data.lat[1:]
+    n = data.predictors.shape[0]
+    tr_idx, _ = train_test_split_ind(n, int(n * PAPER_VAL), method="last")
+    train_data = data.isel_sample(tr_idx)
+    val_data = data.isel_sample(np.arange(len(tr_idx), n))
+    net = DLWPNeuralNet(is_recurrent=True, time_dim=TD, scaler_type=None,
+                        device=dev)
+    kw = dict(input_time_steps=TD, output_time_steps=TD, sequence=2,
+              add_insolation=True, batch_size=PAPER_B)
+    train = SeriesSampler(train_data, model=net, shuffle=True, seed=0, **kw)
+    val = SeriesSampler(val_data, model=net, **kw)
+    T_, c_in, nlat, nlon = train.convolution_shape
+    c_out = train.output_convolution_shape[1]
+    lstm_features = 4 * c_in
+    net.build_model(paper_specs(c_in, c_out, nlat, nlon, lstm_features),
+                    loss=latitude_weighted_loss(mse, train_data.lat),
+                    learning_rate=PAPER_LR, sequence_steps=2,
+                    splice_fn=splice_insolation, early_stopping=True,
+                    min_epochs=20, patience=6)
+    net.init(train.generate(np.arange(1))[0], seed=0)
+    dtrain = DeviceSeriesSampler(train, device=dev)
+    dval = DeviceSeriesSampler(val, device=dev)
+    net.trainer.make_optimizer = chain_optimizer(len(dtrain) * PAPER["epochs"],
+                                                 PAPER_LR)
+    record = []
+    probe_step_loop(torch, net.trainer, False, record)
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hist = net.fit_generator(dtrain, validation_data=dval,
+                             epochs=PAPER["epochs"], verbose=False)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    fit_counts = launch_counts()
+    epochs = len(hist.epoch)
+    need = fit_launches(epochs, len(dtrain), len(dval), S=2, pools=1)
+    loop_s = sum(t for t, _ in record)
+    samples_s = epochs * len(dtrain) * PAPER_B / loop_s
+    log(f"paper_run fit_device: {epochs} epochs x {len(dtrain)} steps (B="
+        f"{PAPER_B}, S=2) + {len(dval)} validation batches, {fit_s:.2f} s "
+        f"(the step loops {loop_s:.2f} s: {samples_s:.1f} train samples/s); "
+        f"loss {hist.history['loss'][0]:.4e} -> {hist.history['loss'][-1]:.4e},"
+        f" val_loss {hist.history['val_loss'][-1]:.4e}; launches "
+        f"{fit_counts} (need {need})")
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    f_hour, rows, n_init, predict_s, masked = validate_rows(
+        torch, net, data, PAPER_VAL, PAPER_LEADS // TD, barotropic="vrt",
+        device=dev)
+    val_s = time.perf_counter() - t0
+    val_counts = launch_counts()
+    std = float(data.std[data.varlev.index("HGT/500")])
+    rows = {k[:-len("_rmse")]: np.asarray(r) * std for k, r in rows.items()}
+    chunks = -(-n_init // VERIFY_INIT_BATCH)
+    val_need = expected_counts(
+        fused_conv_pool=chunks * PAPER_LEADS // TD,
+        lstm_gates=chunks * (TD - 1) * PAPER_LEADS // TD)
+    log(f"paper_run validation: {n_init} inits x {len(f_hour)} leads "
+        f"(forecast {predict_s:.2f} s, launches {val_counts}; the rows "
+        f"with the barotropic baseline {val_s:.2f} s), {masked} (init, "
+        f"lead) pairs across "
+        f"a restart masked; RMSE of HGT/500 over 20-70N, m:")
+    log(f"  {'f_hour':>8} " + " ".join(f"{k:>14}" for k in rows))
+    for i, fh in enumerate(f_hour):
+        log(f"  {int(fh):8d} " + " ".join(f"{rows[k][i]:14.3f}"
+                                           for k in rows))
+    lead12 = np.asarray(f_hour) >= 12
+    skill = bool(np.all(rows["forecast"][lead12]
+                        < rows["persistence"][lead12])
+                 and np.all(rows["forecast"] < rows["climatology"]))
+    chaos = bool(np.all(np.diff(rows["barotropic"]) > 0))
+    log(f"paper_run criterion: forecast below persistence at every lead >= "
+        f"12 h and below climatology at every lead: {skill}; barotropic row "
+        f"grows with lead: {chaos}")
+    # The idle share: one more epoch timed, then its device time.
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    net.fit_generator(dtrain, epochs=1, verbose=False)
+    torch.cuda.synchronize()
+    epoch_s = time.perf_counter() - t0
+    dev_ms = profile_device(torch, lambda: net.fit_generator(
+        dtrain, epochs=1, verbose=False), "paper_run fit_device epoch",
+        per=len(dtrain), unit="step")
+    idle = 1 - len(dtrain) * dev_ms / 1e3 / epoch_s
+    log(f"paper_run epoch alone: {epoch_s:.3f} s, device {dev_ms:.3f} ms a "
+        f"step, idle {100 * idle:.1f}%")
+    kernels = paper_kernels(torch, dev, nlat, nlon, TD * lstm_features,
+                            lstm_features)
+    out.update({
+        "archive_s": archive_s, "archive_step_ms": step_ms,
+        "archive_steps": n_steps, "segments": src.n_segments,
+        "series_s": series_s, "epochs": epochs, "fit_s": fit_s,
+        "step_loop_s": loop_s, "train_samples_per_s": samples_s,
+        "loss": hist.history["loss"], "val_loss": hist.history["val_loss"],
+        "fit_launches": fit_counts, "validation_launches": val_counts,
+        "f_hour": np.asarray(f_hour).tolist(),
+        "rows_m": {k: r.tolist() for k, r in rows.items()},
+        "inits": n_init, "masked_pairs": masked, "skill": skill,
+        "barotropic_grows": chaos, "epoch_s": epoch_s,
+        "device_ms_per_step": dev_ms, "idle_share": idle,
+        "kernel_errs": kernels,
+        "launches": {k: fit_counts[k] + val_counts[k] for k in fit_counts},
+    })
+    if fit_counts != need or val_counts != val_need:
+        raise AssertionError(f"paper_run launches {fit_counts} / "
+                             f"{val_counts} != {need} / {val_need}")
+    if not all(np.isfinite(r).all() for r in rows.values()):
+        raise AssertionError(f"paper_run rows not finite: {rows}")
+    if not (skill and chaos):
+        raise AssertionError(f"paper_run skill {skill}, chaos {chaos}")
+    return out
+
+
 # Phases that run alone with --only, to iterate on one part on the card:
 # name -> (function of (torch, dev)).
 ONLY = {
@@ -2532,6 +3147,10 @@ ONLY = {
     "layers": check_layers,
     "skip_tower": run_skip_tower,
     "verify": run_verify,
+    "fold": run_fold,
+    "spherical": run_spherical,
+    "sharded_spectral": run_sharded_spectral,
+    "paper_run": run_paper_run,
 }
 
 
@@ -2545,7 +3164,15 @@ def main(argv=None) -> int:
         "--only", default="",
         help="comma-separated phases to run alone, without the result lines "
              f"({', '.join(ONLY)}); default: every phase")
-    only = [p for p in parser.parse_args(argv).only.split(",") if p]
+    parser.add_argument(
+        "--paper-years", type=float, default=PAPER["years"],
+        help="the paper run's archive length (docs/DEPLOY.md: 4)")
+    parser.add_argument(
+        "--paper-epochs", type=int, default=PAPER["epochs"],
+        help="the paper run's epochs (docs/DEPLOY.md: 50)")
+    args = parser.parse_args(argv)
+    PAPER.update(years=args.paper_years, epochs=args.paper_epochs)
+    only = [p for p in args.only.split(",") if p]
     unknown = sorted(set(only) - set(ONLY))
     if unknown:
         parser.error(f"unknown phases {unknown}")
@@ -2601,12 +3228,22 @@ def main(argv=None) -> int:
     layers = check_layers(torch, dev)
     skip_tower = run_skip_tower(torch, dev)
     verify = run_verify(torch, dev)
+    fold = run_fold(torch, dev)
+    spherical = run_spherical(torch, dev)
+    sharded_spectral = run_sharded_spectral(torch, dev)
+    paper_run = run_paper_run(torch, dev)
     # Each later path's launches, counted from 0 around its run: fit_device
-    # at S=1 (train steps and validation), the SkipTower forecast and the
-    # verified forecast.
+    # at S=1 (train steps and validation), the SkipTower forecast, the
+    # verified forecast, the spherical stack's forward and train steps,
+    # the fold and sharded spectral phases (no model: none), and the paper
+    # run's fit_device and validation.
     later = {"launches_device_train": device_train["S1"]["launches"],
              "launches_skip_tower": skip_tower["launches"],
-             "launches_verify": verify["launches"]}
+             "launches_verify": verify["launches"],
+             "launches_spherical": spherical["launches"],
+             "launches_fold": fold["launches"],
+             "launches_sharded_spectral": sharded_spectral["launches"],
+             "launches_paper_run": paper_run["launches"]}
 
     kernels = []
     for name, source, replaces in (
@@ -2739,7 +3376,9 @@ def main(argv=None) -> int:
                     "barotropic_example": example,
                     "device_train": device_train, "layers": layers,
                     "skip_tower": skip_tower, "verify": verify,
-                    "card": card}, default=str))
+                    "fold": fold, "spherical": spherical,
+                    "sharded_spectral": sharded_spectral,
+                    "paper_run": paper_run, "card": card}, default=str))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -17,6 +17,11 @@ from dlwp_torch.models.layers import (
     UpSampling2D,
     get_activation,
 )
+from dlwp_torch.models.spherical import (
+    S2Convolution,
+    SO3Convolution,
+    s2_near_identity_grid,
+)
 from dlwp_torch.models.unet import SkipTower, SliceChannels
 
 __all__ = [
@@ -32,6 +37,8 @@ __all__ = [
     "MaxPool2D",
     "Reshape",
     "RowConv2D",
+    "S2Convolution",
+    "SO3Convolution",
     "SequentialModel",
     "SkipTower",
     "SliceChannels",
@@ -40,5 +47,6 @@ __all__ = [
     "UpSampling2D",
     "build_sequential",
     "get_activation",
+    "s2_near_identity_grid",
     "shape_series",
 ]

@@ -6,9 +6,10 @@ reference's layer-tuple config language, or module instances (such as
 every name of the JAX package's registry: the fused spherical layers, the
 reference's Keras and ``DLWP.custom`` names (padding layers, ``Conv2D``,
 ``Dense``, pooling, ``slice_layer``) and its torch names (``Linear``,
-``TorchReshape``). ``S2Convolution`` and ``SO3Convolution`` raise until
-the spherical layers are ported. :func:`build_sequential` applies the same
-parameter-preserving peephole fusions as the JAX ``build_sequential``,
+``TorchReshape``); ``S2Convolution`` and ``SO3Convolution`` are the
+spectral layers of :mod:`dlwp_torch.models.spherical`.
+:func:`build_sequential` applies the same parameter-preserving peephole
+fusions as the JAX ``build_sequential``,
 with :class:`Identity` fillers, so layer ``i`` of the port holds the
 weights of the flax ``layers_{i}`` slot.
 """
@@ -250,10 +251,13 @@ def _slice_layer(*args, **kw):
 
 
 def _spherical(name):
+    """The reference spec tuples (train_torch.py:103-110): positional
+    (nfeature_in, nfeature_out, b_in, b_out, grid), kwargs mean_gamma /
+    activation."""
     def build(*args, **kw):
-        raise NotImplementedError(
-            f"{name} needs the spherical layers, which are not ported yet "
-            "(ROADMAP.md section 1, item 4)")
+        from dlwp_torch.models import spherical
+
+        return getattr(spherical, name)(*args, **kw)
 
     return build
 

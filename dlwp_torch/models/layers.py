@@ -124,7 +124,11 @@ def initializing(gen: torch.Generator):
 
 class ParamLayer(nn.Module):
     """A layer whose parameter shapes depend on its input: by default its
-    channel count (axis -3), :meth:`in_channels`."""
+    channel count (axis -3), :meth:`in_channels`. ``param_dtype``: the
+    dtype of its parameters whatever the input's or the loaded tree's
+    (None: theirs)."""
+
+    param_dtype = None
 
     def param_shapes(self, c_in) -> dict[str, tuple]:
         raise NotImplementedError
@@ -153,7 +157,9 @@ class ParamLayer(nn.Module):
         if self.built:
             return
         for name, shape in self.param_shapes(self.in_channels(x)).items():
-            val = self._initializer(name)(shape, gen, x.dtype, x.device)
+            val = self._initializer(name)(shape, gen,
+                                          self.param_dtype or x.dtype,
+                                          x.device)
             setattr(self, name, nn.Parameter(val, requires_grad=False))
 
     def _require_built(self, x: torch.Tensor):

@@ -1,5 +1,5 @@
-"""Parallelism: device meshes, lat-band halo exchange, sharded convs (port
-of ``dlwp_tpu.parallel``, without its spectral and barotropic parts).
+"""Parallelism: device meshes, lat-band halo exchange, sharded convs and
+the sharded spectral and barotropic core (port of ``dlwp_tpu.parallel``).
 
 One program drives a mesh of devices, which may repeat one card (see
 :mod:`dlwp_torch.parallel.mesh`):
@@ -8,18 +8,23 @@ One program drives a mesh of devices, which may repeat one card (see
 - ``lat`` mesh axis: latitude-band domain decomposition, with neighbour
   halo exchange for stencils: plain PyTorch (``halo``), or hand-written
   CUDA kernels (``pallas_halo``, ``pallas_overlap``; the names follow the
-  JAX modules they port).
+  JAX modules they port); and latitude-band grids with zonal-wavenumber
+  band spectra for the spectral core (``spectral``, ``barotropic``).
 """
 
+from dlwp_torch.parallel.barotropic import ShardedBarotropicModel
 from dlwp_torch.parallel.halo import halo_exchange_lat, sharded_cyclic_conv2d
 from dlwp_torch.parallel.mesh import Mesh, MeshConfig, build_mesh
 from dlwp_torch.parallel.pallas_halo import pallas_sharded_cyclic_conv2d
 from dlwp_torch.parallel.pallas_overlap import overlapped_cyclic_conv2d
 from dlwp_torch.parallel.spatial import SpatialSharding
+from dlwp_torch.parallel.spectral import ShardedSphericalHarmonics
 
 __all__ = [
     "Mesh",
     "MeshConfig",
+    "ShardedBarotropicModel",
+    "ShardedSphericalHarmonics",
     "SpatialSharding",
     "build_mesh",
     "halo_exchange_lat",

@@ -19,12 +19,18 @@ Coefficient layout: dense complex ``[..., m, n]`` of shape (T+1, T+1) with
 zeros for n < m; ``m`` is the one-sided (rfft) zonal wavenumber, ``n`` the
 total degree.
 
-``fold=True`` (the hemisphere-parity fold, a TPU tiling option) is not
-ported yet: it raises ``NotImplementedError`` (ROADMAP.md, section 1,
-"Spectral and barotropic").
+``fold=True``, the hemisphere-parity fold: associated Legendre functions
+satisfy P(m, n, -mu) = (-1)^(n+m) P(m, n, mu), so on an equatorially
+symmetric grid each scalar and vector Legendre stage splits into a
+latitude-symmetric and an antisymmetric half over half the rows and half
+the degrees. The packed north-half tables are built on the host in float64
+from the unfolded ones, after a guard that every table carries the declared
+parity (:func:`fold_tables`).
 """
 
 from __future__ import annotations
+
+import copy
 
 import numpy as np
 import torch
@@ -185,6 +191,81 @@ def host_tables(grid: LatLonGrid, T: int) -> dict[str, np.ndarray]:
     }
 
 
+def check_parity(t: np.ndarray, p: int, j_axis: int, name: str) -> None:
+    """Raise unless table ``t`` (``[m, j, n]`` with ``j_axis=1``, ``[m, n,
+    j]`` with ``j_axis=2``) has hemisphere parity with offset ``p``: the
+    entries with (n + m + p) even are latitude-symmetric, the others
+    antisymmetric. The WLS inverses inherit it on symmetric grids and
+    weights, since the least-squares problem decouples by parity."""
+    M, N = t.shape[0], t.shape[2] if j_axis == 1 else t.shape[1]
+    scale = np.abs(t).max() or 1.0
+    flipped = np.flip(t, axis=j_axis)
+    for m in range(0, M, max(1, M // 4)):
+        for n in range(m, N):
+            idx = (m, slice(None), n) if j_axis == 1 else (m, n)
+            sgn = 1.0 if (n + m + p) % 2 == 0 else -1.0
+            if not np.allclose(flipped[idx], sgn * t[idx],
+                               atol=1e-10 * scale):
+                raise ValueError(f"{name} lacks hemisphere parity (p={p}); "
+                                 "fold=True is not valid on this grid")
+
+
+def pack_syn(t: np.ndarray, p: int, h: int, K: int):
+    """(M, J, N) synthesis table -> the north-half (M, h, K) pair (sym,
+    anti): per m, the degrees n = 2k + (m + p) % 2 of the symmetric class
+    and the others."""
+    M, _, N = t.shape
+    sym, anti = np.zeros((M, h, K)), np.zeros((M, h, K))
+    for m in range(M):
+        off = (m + p) % 2
+        for k in range(K):
+            if 2 * k + off < N:
+                sym[m, :, k] = t[m, :h, 2 * k + off]
+            if 2 * k + 1 - off < N:
+                anti[m, :, k] = t[m, :h, 2 * k + 1 - off]
+    return sym, anti
+
+
+def pack_ana(t: np.ndarray, p: int, h: int, K: int):
+    """(M, N, J) analysis table -> the north-half (M, K, h) pair (sym,
+    anti), as :func:`pack_syn`."""
+    M, N, _ = t.shape
+    sym, anti = np.zeros((M, K, h)), np.zeros((M, K, h))
+    for m in range(M):
+        off = (m + p) % 2
+        for k in range(K):
+            if 2 * k + off < N:
+                sym[m, k, :] = t[m, 2 * k + off, :h]
+            if 2 * k + 1 - off < N:
+                anti[m, k, :] = t[m, 2 * k + 1 - off, :h]
+    return sym, anti
+
+
+# The parity offset of each table: P and G are mu-even under (n + m)
+# parity, H = cos * dP/dmu flips it; each analysis table inherits the
+# parity of the synthesis block it inverts.
+FOLD_SYN = (("P", 0), ("G", 0), ("H", 1))
+FOLD_ANA = (("A", 0), ("AuPsi", 1), ("AvPsi", 0), ("AuChi", 0),
+            ("AvChi", 1))
+
+
+def fold_tables(grid: LatLonGrid, tabs: dict[str, np.ndarray]):
+    """The packed hemisphere-parity tables ``{name: (sym, anti, p)}``
+    (float64) of the unfolded host tables, after the parity guard."""
+    mu = np.asarray(grid.mu, np.float64)
+    if not np.allclose(mu, -mu[::-1], atol=1e-12):
+        raise ValueError("fold=True requires an equatorially symmetric grid")
+    N = tabs["P"].shape[2]
+    h, K = (grid.nlat + 1) // 2, (N + 1) // 2
+    out = {}
+    for names, j_axis, pack in ((FOLD_SYN, 1, pack_syn),
+                                (FOLD_ANA, 2, pack_ana)):
+        for name, p in names:
+            check_parity(tabs[name], p, j_axis, name)
+            out[name] = (*pack(tabs[name], p, h, K), p)
+    return out
+
+
 class SphericalHarmonics:
     """Spectral transform engine for a fixed grid + triangular truncation.
 
@@ -199,7 +280,8 @@ class SphericalHarmonics:
               "n_total", "mask", "m_vals", "laplacian_eig",
               "inv_laplacian_eig")
 
-    def __init__(self, grid, truncation, dtype, fourier, device, tables):
+    def __init__(self, grid, truncation, dtype, fourier, device, tables,
+                 fold_tabs=None):
         self.grid = grid
         self.truncation = int(truncation)
         self.dtype = dtype
@@ -213,6 +295,13 @@ class SphericalHarmonics:
         self._HG = torch.cat([self.H, self.G], dim=1)
         self._Au = torch.cat([self.AuPsi, self.AuChi], dim=1)  # (m, 2N, j)
         self._Av = torch.cat([self.AvPsi, self.AvChi], dim=1)
+        self.fold = fold_tabs is not None
+        self.fold_tabs = None if fold_tabs is None else {
+            k: (torch.as_tensor(s, dtype=dtype, device=device),
+                torch.as_tensor(a, dtype=dtype, device=device), p)
+            for k, (s, a, p) in fold_tabs.items()}
+        self.even_m = None if fold_tabs is None else torch.as_tensor(
+            (np.arange(self.truncation + 1) % 2 == 0)[:, None], device=device)
 
     @classmethod
     def build(
@@ -228,11 +317,6 @@ class SphericalHarmonics:
         ``device`` (``None`` -> ``cuda``) in ``dtype``."""
         if fourier not in ("fft", "matmul"):
             raise ValueError("fourier must be 'fft' or 'matmul'")
-        if fold:
-            raise NotImplementedError(
-                "fold=True (hemisphere-parity fold) is not ported yet; see "
-                "ROADMAP.md section 1, 'Spectral and barotropic'"
-            )
         dtype = real_dtype(dtype)
         device = resolve_device(device)
         if truncation is None:
@@ -250,9 +334,28 @@ class SphericalHarmonics:
         tabs = host_tables(grid, T)
         if fourier == "matmul":
             tabs["dft_fwd"], tabs["dft_inv"] = dft_tables(grid.nlon, T + 1)
+        folded = fold_tables(grid, tabs) if fold else None
         tensors = {k: torch.as_tensor(v, dtype=dtype, device=device)
                    for k, v in tabs.items()}
-        return cls(grid, T, dtype, fourier, device, tensors)
+        return cls(grid, T, dtype, fourier, device, tensors, folded)
+
+    def to(self, device) -> "SphericalHarmonics":
+        """A copy whose tables live on ``device`` (the same engine when
+        they already do): how the sharded engine gives each mesh device
+        its own tables without building them again."""
+        device = torch.device(device)
+        if (device.type, device.index or 0) == (self.device.type,
+                                                self.device.index or 0):
+            return self
+        out = copy.copy(self)
+        out.device = device
+        for name, val in vars(self).items():
+            if isinstance(val, torch.Tensor):
+                setattr(out, name, val.to(device))
+        if self.fold:
+            out.fold_tabs = {k: (s.to(device), a.to(device), p)
+                             for k, (s, a, p) in self.fold_tabs.items()}
+        return out
 
     # -------------------------------------------------------------- internals
     @property
@@ -305,6 +408,70 @@ class SphericalHarmonics:
         """(..., m, j) Fourier modes -> (..., m, n) coeffs via real table."""
         return self._complex_contract("mnj,...mj->...mn", table, Fm)
 
+    # ----------------------------------------------- hemisphere-parity fold
+    def _fold_rows(self, x: torch.Tensor):
+        """(..., J) latitude rows -> (sym, anti) half-row combinations; the
+        equator row of odd J enters the symmetric part once and the
+        antisymmetric part as zero."""
+        J = self.grid.nlat
+        h = (J + 1) // 2
+        north = x[..., :h]
+        tail = torch.flip(x[..., h:], dims=(-1,))
+        if J % 2 == 1:
+            tail = torch.nn.functional.pad(tail, (0, 1))
+        return north + tail, north - tail
+
+    def _unfold_rows(self, e: torch.Tensor, o: torch.Tensor) -> torch.Tensor:
+        """(sym, anti) half rows -> full (..., J) latitude rows."""
+        J = self.grid.nlat
+        h = (J + 1) // 2
+        south = torch.flip((e - o)[..., :J - h], dims=(-1,))
+        return torch.cat([e + o, south], dim=-1)
+
+    def _sym_selector(self, p: int, even_m=None) -> torch.Tensor:
+        """(M, 1) bool: does the symmetric class occupy the even-n slots?"""
+        em = self.even_m if even_m is None else even_m
+        return em if p == 0 else ~em
+
+    def _legendre_syn_folded(self, name, spec, tabs=None, even_m=None):
+        """Folded synthesis through packed table ``name``: (..., m, n)
+        complex -> (..., m, J) complex modes. ``tabs`` / ``even_m``
+        override the full-m entry with an m-band slice (the sharded
+        engine's Legendre stage sees all J but only its wavenumbers)."""
+        N = self.truncation + 1
+        K = (N + 1) // 2
+        Tsym, Tanti, p = self.fold_tabs[name] if tabs is None else tabs
+        ri = torch.stack([spec.real, spec.imag]).to(self.dtype)
+        xe = ri[..., 0::2]  # n even, width K
+        xo = ri[..., 1::2]  # n odd, width N - K
+        if xo.shape[-1] < K:
+            xo = torch.nn.functional.pad(xo, (0, K - xo.shape[-1]))
+        sel = self._sym_selector(p, even_m)
+        xs = torch.where(sel, xe, xo)
+        xa = torch.where(sel, xo, xe)
+        e = torch.einsum("mjk,z...mk->z...mj", Tsym, xs)
+        o = torch.einsum("mjk,z...mk->z...mj", Tanti, xa)
+        out = self._unfold_rows(e, o)
+        return torch.complex(out[0], out[1])
+
+    def _legendre_ana_folded(self, name, Fm, tabs=None, even_m=None):
+        """Folded analysis through packed table ``name``: (..., m, J)
+        modes -> (..., m, n) complex; ``tabs`` / ``even_m`` as in
+        :meth:`_legendre_syn_folded`."""
+        N = self.truncation + 1
+        K = (N + 1) // 2
+        Tsym, Tanti, p = self.fold_tabs[name] if tabs is None else tabs
+        ri = torch.stack([Fm.real, Fm.imag]).to(self.dtype)
+        Fs, Fa = self._fold_rows(ri)
+        xs = torch.einsum("mkj,z...mj->z...mk", Tsym, Fs)
+        xa = torch.einsum("mkj,z...mj->z...mk", Tanti, Fa)
+        # Interleave the parity classes back into dense n.
+        sel = self._sym_selector(p, even_m)
+        out = xs.new_zeros(xs.shape[:-1] + (N,))
+        out[..., 0::2] = torch.where(sel, xs, xa)
+        out[..., 1::2] = torch.where(sel, xa, xs)[..., :N - K]
+        return torch.complex(out[0], out[1])
+
     def _im_over_a(self) -> torch.Tensor:
         return (1j * self.m_vals / self.grid.radius).to(self.cdtype)  # [m]
 
@@ -312,12 +479,16 @@ class SphericalHarmonics:
     def analyze(self, field: torch.Tensor) -> torch.Tensor:
         """Grid (..., nlat, nlon) -> spectral (..., T+1, T+1) complex."""
         Fm = self._fourier(field.to(self.dtype))
+        if self.fold:
+            return self._legendre_ana_folded("A", Fm)
         return self._legendre_ana(self.A, Fm)
 
     def synthesize(self, spec: torch.Tensor) -> torch.Tensor:
         """Spectral (..., T+1, T+1) -> grid (..., nlat, nlon) real."""
-        Fm = self._legendre_syn(self.P, spec.to(self.cdtype))
-        return self._inv_fourier(Fm)
+        spec = spec.to(self.cdtype)
+        if self.fold:
+            return self._inv_fourier(self._legendre_syn_folded("P", spec))
+        return self._inv_fourier(self._legendre_syn(self.P, spec))
 
     def laplacian_spec(self, spec):
         """Spectral Laplacian: multiply by -n(n+1)/a^2."""
@@ -338,6 +509,11 @@ class SphericalHarmonics:
         spec = spec.to(self.cdtype)
         a = self.grid.radius
         J = self.grid.nlat
+        if self.fold:
+            dx_m = self._im_over_a()[:, None] * self._legendre_syn_folded(
+                "G", spec)
+            dy_m = self._legendre_syn_folded("H", spec) / a
+            return self._inv_fourier(dx_m), self._inv_fourier(dy_m)
         both = self._legendre_syn(self._GH, spec)
         dx_m = self._im_over_a()[:, None] * both[..., :J]
         dy_m = both[..., J:] / a
@@ -352,6 +528,12 @@ class SphericalHarmonics:
         a = self.grid.radius
         im = self._im_over_a()[:, None]
         J = self.grid.nlat
+        if self.fold:
+            both_H = self._legendre_syn_folded("H", torch.stack([psi, chi]))
+            both_G = self._legendre_syn_folded("G", torch.stack([psi, chi]))
+            u_m = -both_H[0] / a + im * both_G[1]
+            v_m = im * both_G[0] + both_H[1] / a
+            return self._inv_fourier(u_m), self._inv_fourier(v_m)
         both = self._legendre_syn(self._HG, torch.stack([psi, chi]))
         psi_H, psi_G = both[0][..., :J], both[0][..., J:]
         chi_H, chi_G = both[1][..., :J], both[1][..., J:]
@@ -364,6 +546,12 @@ class SphericalHarmonics:
         WLS inverse of the joint (u, v) synthesis."""
         u_m = self._fourier(u.to(self.dtype))
         v_m = self._fourier(v.to(self.dtype))
+        if self.fold:
+            psi = (self._legendre_ana_folded("AuPsi", u_m)
+                   + 1j * self._legendre_ana_folded("AvPsi", v_m))
+            chi = (1j * self._legendre_ana_folded("AuChi", u_m)
+                   + self._legendre_ana_folded("AvChi", v_m))
+            return psi * self.laplacian_eig, chi * self.laplacian_eig
         N = self.truncation + 1
         both_u = self._legendre_ana(self._Au, u_m)
         both_v = self._legendre_ana(self._Av, v_m)

@@ -70,7 +70,10 @@ def _nest(flat: dict) -> dict:
 def load_flax_params(model, params, dtype=torch.float32) -> None:
     """Fill ``model`` (a port ``SequentialModel``) from a flax tree given as
     nested dicts of numpy arrays. Raises on a missing leaf, an extra leaf
-    or a wrong shape; tensors land on ``model.device`` in ``dtype``."""
+    or a wrong shape; tensors land on ``model.device`` in ``dtype`` (in the
+    layer's ``param_dtype`` where it has one: the spherical layers' float32
+    ``spectral_kernel`` (n_deg, C_in, C_out) and ``bias``, whose degree
+    count the shape check reads from the tree)."""
     flat = _flatten(params.get("params", params))
     layers = _param_layers(model)
     slots = {path + (n,) for path, layer in layers.items()
@@ -95,8 +98,8 @@ def load_flax_params(model, params, dtype=torch.float32) -> None:
                     f"{tuple(shape) if have is None else tuple(have.shape)}"
                 )
             staged[(layer, name)] = torch.tensor(
-                np.asarray(flat[path + (name,)]), dtype=dtype,
-                device=model.device)
+                np.asarray(flat[path + (name,)]),
+                dtype=layer.param_dtype or dtype, device=model.device)
     for (layer, name), val in staged.items():
         setattr(layer, name, nn.Parameter(val, requires_grad=False))
 

@@ -277,8 +277,10 @@ def test_step_impl_names_and_dtype_rules():
     with pytest.raises(ValueError):
         port_baro.BarotropicModel(grid, T, dt=1800.0, dtype=torch.float64,
                                   step_impl="kernel", device="cpu")
-    with pytest.raises(NotImplementedError):
-        port_baro.BarotropicModel(grid, T, dt=1800.0, fold=True, device="cpu")
+    # fold=True (ported since) reaches the engine; its parity tests are in
+    # tests/test_torch_port_fold.py.
+    assert port_baro.BarotropicModel(grid, T, dt=1800.0, fold=True,
+                                     device="cpu").sh.fold
 
 
 def test_wrapper_checks_operands():

@@ -24,7 +24,11 @@ full-width flagship train step against the CPU (loss 1e-5 relative,
 gradient 2e-5 and parameters 2e-4 relative RMS, the limits of
 ``chip_smoke.py``'s training phase), a FusedConvPool2D's composition
 under a gradient against its kernel under no_grad (1e-5), and the
-kernels launched by ``fit_generator`` and the forecast after it.
+kernels launched by ``fit_generator`` and the forecast after it. The
+spectral side: ``fold=True`` against the unfolded engine, an S2Convolution
+at the reference stack's width against the CPU, a two-truth archive
+against the CPU's, and the sharded barotropic model on two virtual shards
+against the unsharded one.
 """
 
 import numpy as np
@@ -689,3 +693,78 @@ def test_skip_tower_on_card_matches_cpu(dev):
         params[name] = {k: v.detach().cpu()
                         for k, v in model.state_dict().items()}
     assert _rel_rms(params["card"], params["cpu"]) <= 2e-4
+
+
+def _scaled(got, want):
+    return float((got.cpu() - want).abs().max() / want.abs().max())
+
+
+def test_fold_on_card_matches_unfolded(dev):
+    """fold=True on the card against the unfolded engine: fp32, 1e-5 of
+    the output's scale (chip_smoke.py's fold limit)."""
+    from dlwp_torch import SphericalHarmonics
+
+    grid = LatLonGrid.regular(73, 144)
+    fold = SphericalHarmonics.build(grid, 72, fold=True, device=dev)
+    flat = SphericalHarmonics.build(grid, 72, device="cpu")
+    x = torch.from_numpy(np.random.RandomState(11).randn(2, 73, 144)
+                         .astype(np.float32))
+    spec = flat.analyze(x)
+    assert _scaled(fold.analyze(x.to(dev)), spec) <= 1e-5
+    assert _scaled(fold.synthesize(spec.to(dev)), flat.synthesize(spec)) <= 1e-5
+    for got, want in zip(fold.uv_from_vrtdiv(spec.to(dev), spec.to(dev)),
+                         flat.uv_from_vrtdiv(spec, spec)):
+        assert _scaled(got, want) <= 1e-5
+
+
+def test_spherical_layer_on_card_matches_cpu(dev):
+    from dlwp_torch import flax_tree, load_flax_params
+    from dlwp_torch.models import S2Convolution
+
+    x = np.random.RandomState(12).randn(4, 3, 73, 144).astype(np.float32)
+    card = build_sequential([S2Convolution(3, 8, 36, 12, None,
+                                           activation="tanh")], device=dev)
+    card.init(torch.from_numpy(x), seed=3)
+    cpu = build_sequential([S2Convolution(3, 8, 36, 12, None,
+                                          activation="tanh")], device="cpu")
+    load_flax_params(cpu, flax_tree(card))
+    reset_launch_counts()
+    with torch.inference_mode():
+        got = card(torch.from_numpy(x).to(dev))
+        want = cpu(torch.from_numpy(x))
+    assert got.shape == (4, 8, 24, 24)
+    assert _scaled(got, want) <= 1e-5
+    assert sum(launch_counts().values()) == 0  # no hand kernel on this path
+
+
+def test_archive_on_card_matches_cpu(dev):
+    """A two-truth archive of 2 segments of 2 days: NaN rows in the same
+    places, fields within 1e-3 of the anomaly RMS (chip_smoke.py's
+    paper-run limit)."""
+    from dlwp_torch.data import BarotropicArchiveSource
+
+    kw = dict(n_samples=17, nlat=37, nlon=72, truncation=20,
+              truth_truncation=30, truth_nlat=37, truth_nlon=72,
+              segment_days=2, spinup_days=0.5)
+    got = BarotropicArchiveSource(device=dev, **kw).field("HGT", 500)
+    want = BarotropicArchiveSource(device="cpu", **kw).field("HGT", 500)
+    nan = np.isnan(want)
+    assert (np.isnan(got) == nan).all() and nan.all(axis=(1, 2))[8]
+    ok = want[~nan]
+    assert (np.sqrt(np.mean((got[~nan] - ok) ** 2))
+            <= 1e-3 * np.sqrt(np.mean((ok - ok.mean()) ** 2)))
+
+
+def test_sharded_barotropic_on_card_matches_unsharded(dev):
+    from dlwp_torch.parallel import ShardedBarotropicModel
+
+    grid = LatLonGrid.gaussian(32, 64)
+    mesh = build_mesh(MeshConfig(data=1, lat=2), devices=[dev] * 2)
+    ref = BarotropicModel(grid, 15, dt=1800.0, device=dev)
+    shd = ShardedBarotropicModel(grid, 15, dt=1800.0, device=dev, mesh=mesh)
+    lat = np.radians(grid.lat)[:, None]
+    z = (5500.0 - 300.0 * np.sin(lat) ** 2 + 0.0 * grid.lon[None, :])
+    state = ref.from_z(z.astype(np.float32))
+    want = ref.run(state, 20).vrt_spec
+    got = shd.run_sharded(state, 20).vrt_spec
+    assert float((got - want).abs().max() / want.abs().max()) <= 1e-5

@@ -130,10 +130,19 @@ def test_cyclic_conv2d_edgefix_matches_jax(ksize, d):
 # ------------------------------------------------------------ registry
 def test_registry_has_every_jax_name():
     assert set(LAYER_REGISTRY) == set(JAX_REGISTRY)
+    # The spherical names build the spectral layers and match JAX at fp32
+    # limits (their own tests: tests/test_torch_port_spherical.py).
+    x = rand(2, 1, 16, 16).astype(np.float32)
     for name in ("S2Convolution", "SO3Convolution"):
-        with pytest.raises(NotImplementedError, match="item 4"):
-            build_sequential([(name, (1, 1, 8, 8, "dh"), None)],
-                             device="cpu")
+        spec = [(name, (1, 1, 8, 8, "dh"), None)]
+        jm = jax_build(spec)
+        params = jax.tree.map(np.asarray, jm.init(jax.random.PRNGKey(0),
+                                                  jnp.asarray(x)))
+        model = build_sequential(spec, device="cpu")
+        load_flax_params(model, params)
+        want = np.asarray(jm.apply(params, jnp.asarray(x)))
+        np.testing.assert_allclose(model(torch.from_numpy(x)).numpy(), want,
+                                   rtol=0, atol=2e-5 * np.abs(want).max())
     for build in (jax_build, lambda s: build_sequential(s, device="cpu")):
         with pytest.raises(ValueError, match="lead with -1"):
             build([("TorchReshape", ((4, 3, 8),), None)])

@@ -167,10 +167,19 @@ def test_pack_unpack_round_trip_matches():
     np.testing.assert_array_equal(psh.unpack(packed).numpy(), spec)
 
 
-def test_fold_is_not_ported_yet():
+def test_fold_builds_and_matches_jax():
+    """The call that raised before the fold was ported now builds and
+    round-trips as the JAX engine does (the fold's own tests:
+    ``tests/test_torch_port_fold.py``)."""
     grid = LatLonGrid.regular(19, 36)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SphericalHarmonics.build(grid, 12, fold=True, device="cpu")
+    psh = SphericalHarmonics.build(grid, 12, dtype=torch.float64, fold=True,
+                                   device="cpu")
+    jsh = JaxSH.build(JaxGrid.regular(19, 36), 12, dtype=jnp.float64,
+                      fold=True)
+    spec = _spec(np.random.RandomState(5), (2,), 12)
+    _close(psh.synthesize(torch.from_numpy(spec)),
+           jsh.synthesize(jnp.asarray(spec)))
+    _close(psh.analyze(psh.synthesize(torch.from_numpy(spec))), spec)
 
 
 def test_build_rejects_what_the_jax_package_rejects():
