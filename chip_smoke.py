@@ -145,7 +145,22 @@ Phases, each raising on failure:
     rate, idle share and launches, the RMSE table, the skill criterion
     and the growing barotropic row, both kernels at 72x144 against their
     plain versions;
-21. a ``{"kernels": [...]}`` line, then the last line
+21. ``--only serve``: the flagship forecast's rollout (B=64, 32 steps)
+    exported with ``dlwp_torch.serve.export_program`` on the CPU from CPU
+    weights and on the card, serialized and loaded on the card: launches
+    per call equal to the eager path's (both kernels through their custom
+    ops), B=1, 7 and 64 from one artifact against the eager rollout
+    (relative RMS 1e-6), the CPU plain rollout at the forecast's limits,
+    export, serialize and load seconds, size, and the rate in turns with
+    the eager rollout with both idle shares; ``export_rollout`` of a
+    recurrent ``DLWPNeuralNet`` (two channels, a fitted standard scaler,
+    time_steps 64) against the eager ``predict_timeseries``;
+    ``export_barotropic`` of the psi form at T72 (plain engine,
+    ``run_with_snapshots(2, 12)``) exported on the CPU, 1 and 4 members
+    against the eager engine on the card and the CPU; ``opcheck`` of both
+    ops on the card at the flagship's shapes; ``entry()``'s forward
+    exported and run;
+22. a ``{"kernels": [...]}`` line, then the last line
     ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without printing a result when no CUDA device is present.
@@ -3135,6 +3150,322 @@ def run_paper_run(torch, dev):
     return out
 
 
+# ----------------------------------------------------------------- serve
+# Servables against the eager path on the card: the program runs the same
+# ops (and kernels) in the same order, so the relative RMS limit is 1e-6
+# (the JAX package's tests hold their servables to rtol 1e-6); against the
+# CPU, the forecast's and the barotropic path's limits.
+TOL_SERVE_RRMS = 1e-6
+SERVE_BATCHES = (1, 7, B)
+SERVE_REPS = 5
+# The barotropic servable: bench.py's T72 psi configuration through the
+# plain engine, members 1 and 4, cut from run_with_snapshots(24, 12) to
+# (2, 12): export unrolls the steps, and the 288 of the full run took
+# 578.8 s to export and 84.7 s to load on the H100's host (PERF.md
+# section 4).
+SERVE_BARO_BATCHES = (1, 4)
+SERVE_BARO_SNAPS = 2
+
+
+def turns(torch, fns, reps=SERVE_REPS):
+    """Median ms per call of each of ``fns`` (a name -> call dict), timed
+    with CUDA events one call at a time in turns, after a warm-up call."""
+    for fn in fns.values():
+        fn()
+    torch.cuda.synchronize()
+    times = {name: [] for name in fns}
+    for _ in range(reps):
+        for name, fn in fns.items():
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times[name].append(start.elapsed_time(end))
+    return {name: float(np.median(t)) for name, t in times.items()}
+
+
+def serve_forecast(torch, dev):
+    """The flagship forecast's rollout (``TimeSeriesEstimator.rollout_fn``,
+    the program ``bench.py`` times) exported with ``export_program`` on the
+    CPU from CPU weights and on the card, each serialized and loaded on the
+    card: launches per call equal to the eager path's, the output against
+    eager on the card (B=1, 7, 64 from one artifact) and against the CPU
+    plain run, export / load seconds and size, and the rate in turns with
+    the eager rollout, with the servable's idle share."""
+    from torch.export import Dim
+
+    from dlwp_torch import TimeSeriesEstimator, flax_tree
+    from dlwp_torch.kernels import launch_counts, reset_launch_counts
+    from dlwp_torch.serve import Servable, export_program
+
+    dlwp, sampler = flagship_stack(dev)
+    dlwp.init(sampler.generate(np.arange(1))[0], seed=0)
+    cpu, cpu_sampler = flagship_stack("cpu")
+    cpu.load_flax_params(flax_tree(dlwp.base_model))
+    est = TimeSeriesEstimator(dlwp, sampler)
+    cpu_est = TimeSeriesEstimator(cpu, cpu_sampler)
+    batch = Dim("b", max=est.precompute_batch_limit(STEPS))
+    out, servables = {}, {}
+    for where, e in (("cpu", cpu_est), ("card", est)):
+        args = e.prepare_inputs(np.arange(B))[:3]
+        t0 = time.perf_counter()
+        sv = export_program(e.rollout_fn(STEPS), args, batch=batch,
+                            meta={"kind": "forecast", "steps": STEPS})
+        export_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        blob = sv.serialize()
+        serialize_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        servables[where] = Servable.load(blob)
+        load_s = time.perf_counter() - t0
+        tensors = (*sv.program.state_dict.values(),
+                   *sv.program.constants.values())
+        out[f"exported_on_{where}"] = dict(
+            export_s=export_s, serialize_s=serialize_s, load_s=load_s,
+            artifact_mb=len(blob) / 1e6, batch_range=sv.meta["batch_range"],
+            nodes=len(sv.program.graph.nodes),
+            tensor_mb=sum(t.numel() * t.element_size() for t in tensors) / 1e6)
+        log(f"serve forecast exported on the {where}: export {export_s:.2f} "
+            f"s ({out[f'exported_on_{where}']['nodes']} nodes), serialize "
+            f"{serialize_s:.2f} s, {len(blob) / 1e6:.2f} MB (weights and "
+            f"constants {out[f'exported_on_{where}']['tensor_mb']:.2f} MB), "
+            f"load on the card {load_s:.2f} s; batch in "
+            f"{sv.meta['batch_range']}")
+    loaded = servables["cpu"].program
+    where = {t.device.type for t in (*loaded.state_dict.values(),
+                                     *loaded.constants.values())}
+    if where != {dev.type}:
+        raise AssertionError(f"serve: weights or constants on {where}")
+    x0, days, ms, _ = est.prepare_inputs(np.arange(B))
+    eager = est.rollout_fn(STEPS)
+    need = expected_counts(fused_conv_pool=2 * STEPS, lstm_gates=STEPS)
+    errs = {}
+    for b in SERVE_BATCHES:
+        args = (x0[:b], days[:b], ms)
+        reset_launch_counts()
+        want = eager(*args)
+        torch.cuda.synchronize()
+        counts = {"eager": launch_counts()}
+        for name, sv in servables.items():
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            got = sv.call(*args)
+            torch.cuda.synchronize()
+            first_ms = (time.perf_counter() - t0) * 1e3
+            counts[name] = launch_counts()
+            rrms = rel_rms(got, want)
+            equal = bool(torch.equal(got, want))
+            errs[f"{name} B={b}"] = {"rel_rms": rrms, "bit_equal": equal,
+                                     "first_call_ms": first_ms}
+            log(f"serve forecast ({name} export) B={b}: {tuple(got.shape)}, "
+                f"relative RMS vs eager {rrms:.3e}, bit-equal {equal}, "
+                f"first call {first_ms:.1f} ms (host clock), launches "
+                f"{counts[name]}")
+            if got.shape != want.shape or not torch.isfinite(got).all():
+                raise AssertionError(f"serve {name} B={b}: {got.shape}")
+            if not rrms <= TOL_SERVE_RRMS:
+                raise AssertionError(f"serve {name} B={b}: {rrms}")
+        if any(c != need for c in counts.values()):
+            raise AssertionError(f"serve B={b}: launches {counts} != {need}")
+    out["vs_eager"] = errs
+    # The main path of this phase, counted from 0: one call of the
+    # program exported on the CPU at B=64.
+    reset_launch_counts()
+    got = servables["cpu"].call(x0, days, ms)
+    torch.cuda.synchronize()
+    out["launches"] = launch_counts()
+    t0 = time.perf_counter()
+    cx0, cdays, _, _ = cpu_est.prepare_inputs(np.arange(4))
+    ref = cpu_est.rollout_fn(STEPS)(cx0, cdays, ms.cpu())
+    got = got[:, :4].cpu()
+    step1 = (got[0] - ref[0]).abs().max().item()
+    rrms = rel_rms(got, ref)
+    log(f"serve forecast (cpu export, on the card) vs the CPU plain rollout "
+        f"(4 samples, {time.perf_counter() - t0:.1f} s on CPU): step-1 max "
+        f"abs {step1:.3e}, {STEPS}-step relative RMS {rrms:.3e}")
+    if not (step1 <= TOL_STEP1["fp32"] and rrms <= TOL_TRAJ_RRMS["fp32"]):
+        raise AssertionError(f"serve vs CPU: {step1}, {rrms}")
+    out["vs_cpu"] = {"step1_max_abs": step1, "rel_rms": rrms}
+    args = (x0, days, ms)
+    ms_call = turns(torch, {
+        "eager": lambda: eager(*args),
+        "servable (cpu export)": lambda: servables["cpu"].call(*args),
+        "servable (card export)": lambda: servables["card"].call(*args)})
+    out["ms_per_predict"] = ms_call
+    out["mgps"] = {k: B * STEPS * NLAT * NLON / (v / 1e3) / 1e6
+                   for k, v in ms_call.items()}
+    device = {
+        "eager": profile_device(torch, lambda: eager(*args),
+                                f"eager rollout({STEPS})"),
+        "servable (cpu export)": profile_device(
+            torch, lambda: servables["cpu"].call(*args),
+            f"servable rollout({STEPS})")}
+    out["device_ms_per_predict"] = device
+    out["idle_share"] = {k: 1 - v / ms_call[k] for k, v in device.items()}
+    for k, v in ms_call.items():
+        idle = out["idle_share"].get(k)
+        log(f"serve forecast {k}: {v:.3f} ms per predict({STEPS}) at B={B} "
+            f"(CUDA events, median of {SERVE_REPS} in turns) -> "
+            f"{out['mgps'][k]:.2f} Mgp/s"
+            + (f"; device {device[k]:.3f} ms, idle {100 * idle:.1f}%"
+               if idle is not None else ""))
+    return out
+
+
+def serve_rollout(torch, dev):
+    """``export_rollout`` of a recurrent ``DLWPNeuralNet`` with the
+    flagship's layers fed two channels (in equals out), a standard scaler
+    fitted on synthetic data, time_steps=64 (32 iterations) at B=64:
+    ``predict_timeseries`` of the loaded servable against the eager one."""
+    from dlwp_torch import DLWPNeuralNet
+    from dlwp_torch.flagship import convlstm_specs
+    from dlwp_torch.kernels import launch_counts, reset_launch_counts
+    from dlwp_torch.serve import Servable, export_rollout
+
+    rng = np.random.RandomState(11)
+    x = rng.randn(B, TD, C, NLAT, NLON).astype(np.float32)
+    y = (1.5 * rng.randn(B, TD, C, NLAT, NLON) + 0.5).astype(np.float32)
+    net = DLWPNeuralNet(is_recurrent=True, time_dim=TD,
+                        scaler_type="standard", device=dev)
+    net.build_model(convlstm_specs(NLAT, NLON, C, TD))
+    net.init(x, seed=0)
+    net.init_fit(x, y)
+    t0 = time.perf_counter()
+    sv = export_rollout(net, x, TD * STEPS)
+    export_s = time.perf_counter() - t0
+    blob = sv.serialize()
+    t0 = time.perf_counter()
+    sv = Servable.load(blob)
+    load_s = time.perf_counter() - t0
+    reset_launch_counts()
+    got = sv.predict_timeseries(x)
+    counts = launch_counts()
+    want = net.predict_timeseries(x, TD * STEPS)
+    rrms = float(np.sqrt(np.mean((got - want) ** 2))
+                 / np.sqrt(np.mean(want ** 2)))
+    log(f"serve export_rollout: {sv}, export {export_s:.2f} s, "
+        f"{len(blob) / 1e6:.2f} MB, load {load_s:.2f} s; predict_timeseries "
+        f"{got.shape} vs eager relative RMS {rrms:.3e}, bit-equal "
+        f"{np.array_equal(got, want)}, launches {counts}")
+    need = expected_counts(fused_conv_pool=2 * STEPS, lstm_gates=STEPS)
+    if counts != need:
+        raise AssertionError(f"serve export_rollout launches {counts}")
+    if got.shape != want.shape or not rrms <= TOL_SERVE_RRMS:
+        raise AssertionError(f"serve export_rollout: {got.shape}, {rrms}")
+    return {"export_s": export_s, "load_s": load_s,
+            "artifact_mb": len(blob) / 1e6, "rel_rms": rrms,
+            "bit_equal": bool(np.array_equal(got, want)), "launches": counts}
+
+
+def serve_barotropic(torch, dev):
+    """``export_barotropic`` of the psi form at T72 on 73x144 (plain
+    engine, symbolic members) exported on the CPU and loaded on the card,
+    against the eager plain engine on the card and on the CPU, members 1
+    and 4; export seconds, size, load seconds and ms a call."""
+    from dlwp_torch.grid import LatLonGrid
+    from dlwp_torch.serve import Servable, export_barotropic
+
+    cpu = baro_model("psi", 73, 144, 72, "cpu")
+    card = baro_model("psi", 73, 144, 72, None)
+    t0 = time.perf_counter()
+    sv = export_barotropic(cpu, SERVE_BARO_SNAPS, BARO_EVERY, batch="b")
+    export_s = time.perf_counter() - t0
+    blob = sv.serialize()
+    t0 = time.perf_counter()
+    sv = Servable.load(blob)
+    load_s = time.perf_counter() - t0
+    out = {"export_s": export_s, "load_s": load_s,
+           "artifact_mb": len(blob) / 1e6,
+           "nodes": len(sv.program.graph.nodes)}
+    log(f"serve barotropic run_with_snapshots({SERVE_BARO_SNAPS}, "
+        f"{BARO_EVERY}): "
+        f"export on the CPU {export_s:.1f} s ({out['nodes']} nodes), "
+        f"{len(blob) / 1e6:.2f} MB, load on the card {load_s:.1f} s")
+    grid = LatLonGrid.regular(73, 144)
+    for m in SERVE_BARO_BATCHES:
+        z0 = torch.as_tensor(np.stack([perturbed_height(grid, seed=s)
+                                       for s in range(m)]), device=dev)
+        got = sv.call(z0)
+        want = card.run_with_snapshots(card.from_z(z0), SERVE_BARO_SNAPS,
+                                       BARO_EVERY)[2]
+        ref = cpu.run_with_snapshots(cpu.from_z(z0.cpu()), SERVE_BARO_SNAPS,
+                                     BARO_EVERY)[2]
+        card_rrms, cpu_rrms = rel_rms(got, want), rel_rms(got.cpu(), ref)
+        calls = turns(torch, {
+            "servable": lambda: sv.call(z0),
+            "eager": lambda: card.run_with_snapshots(
+                card.from_z(z0), SERVE_BARO_SNAPS, BARO_EVERY)}, reps=3)
+        out[f"members {m}"] = {"rel_rms_vs_card": card_rrms,
+                               "rel_rms_vs_cpu": cpu_rrms,
+                               "bit_equal": bool(torch.equal(got, want)),
+                               "ms_per_call": calls}
+        log(f"serve barotropic {m} member(s): {tuple(got.shape)}, relative "
+            f"RMS vs eager on the card {card_rrms:.3e}, vs the CPU "
+            f"{cpu_rrms:.3e}; ms a call (CUDA events, median of 3 in turns): "
+            + ", ".join(f"{k} {v:.2f}" for k, v in calls.items()))
+        if got.shape != (SERVE_BARO_SNAPS, m, 73, 144) or not (
+                card_rrms <= TOL_BARO_RRMS and cpu_rrms <= TOL_BARO_RRMS):
+            raise AssertionError(f"serve barotropic {m}: {card_rrms}, "
+                                 f"{cpu_rrms}")
+    return out
+
+
+def serve_ops(torch, dev):
+    """``torch.library.opcheck`` of both ops on the card at the flagship's
+    shapes (the gates with operands that require grad: the registered
+    backward too), and ``entry()``'s forward exported and run."""
+    import functools
+
+    from dlwp_torch.entry import entry
+    from dlwp_torch.serve import export_program
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    out = {}
+    for b, c, h, w, o, d in CONV_POOL_CASES[:2]:
+        x = torch.randn(b, c, h, w, device=dev, generator=g)
+        k = torch.randn(o, c, 3, 3, device=dev, generator=g) / (9 * c) ** 0.5
+        bias = torch.randn(o, device=dev, generator=g)
+        out[f"fused_conv_pool {(b, c, h, w, o, d)}"] = torch.library.opcheck(
+            torch.ops.dlwp_torch.fused_conv_pool.default, (x, k, bias, d))
+    zx, zh = (torch.randn(B, 4 * 12, NLAT, NLON, device=dev, generator=g)
+              .requires_grad_() for _ in range(2))
+    cc = torch.randn(B, 12, NLAT, NLON, device=dev,
+                     generator=g).requires_grad_()
+    out[f"lstm_gates {(B, 12, NLAT, NLON)}"] = torch.library.opcheck(
+        torch.ops.dlwp_torch.lstm_gates.default,
+        (zx, zh, cc, "tanh", "hard_sigmoid", None))
+    for name, res in out.items():
+        log(f"serve opcheck {name}: {res}")
+        if set(res.values()) != {"SUCCESS"}:
+            raise AssertionError(f"opcheck {name}: {res}")
+    forward, (params, x) = entry()
+    t0 = time.perf_counter()
+    sv = export_program(functools.partial(forward, params), (x,))
+    export_s = time.perf_counter() - t0
+    xb = torch.randn(x.shape, device=dev, generator=g)
+    got, want = sv.call(xb), forward(params, xb)
+    equal = bool(torch.equal(got, want))
+    log(f"serve entry(): exported in {export_s:.2f} s, {sv}; output "
+        f"{tuple(got.shape)} bit-equal to the forward {equal}")
+    if not equal:
+        raise AssertionError("entry servable differs from its forward")
+    out["entry"] = {"export_s": export_s, "bit_equal": equal}
+    return out
+
+
+def run_serve(torch, dev):
+    """The serving phase: the flagship forecast servable, export_rollout,
+    export_barotropic and the ops' checks."""
+    torch.set_num_threads(os.cpu_count() or 1)
+    out = serve_forecast(torch, dev)
+    out["export_rollout"] = serve_rollout(torch, dev)
+    out["barotropic"] = serve_barotropic(torch, dev)
+    out["ops"] = serve_ops(torch, dev)
+    return out
+
+
 # Phases that run alone with --only, to iterate on one part on the card:
 # name -> (function of (torch, dev)).
 ONLY = {
@@ -3151,6 +3482,7 @@ ONLY = {
     "spherical": run_spherical,
     "sharded_spectral": run_sharded_spectral,
     "paper_run": run_paper_run,
+    "serve": run_serve,
 }
 
 
@@ -3232,18 +3564,21 @@ def main(argv=None) -> int:
     spherical = run_spherical(torch, dev)
     sharded_spectral = run_sharded_spectral(torch, dev)
     paper_run = run_paper_run(torch, dev)
+    serve = run_serve(torch, dev)
     # Each later path's launches, counted from 0 around its run: fit_device
     # at S=1 (train steps and validation), the SkipTower forecast, the
     # verified forecast, the spherical stack's forward and train steps,
     # the fold and sharded spectral phases (no model: none), and the paper
-    # run's fit_device and validation.
+    # run's fit_device and validation, and one call of the forecast
+    # servable exported on the CPU.
     later = {"launches_device_train": device_train["S1"]["launches"],
              "launches_skip_tower": skip_tower["launches"],
              "launches_verify": verify["launches"],
              "launches_spherical": spherical["launches"],
              "launches_fold": fold["launches"],
              "launches_sharded_spectral": sharded_spectral["launches"],
-             "launches_paper_run": paper_run["launches"]}
+             "launches_paper_run": paper_run["launches"],
+             "launches_serve": serve["launches"]}
 
     kernels = []
     for name, source, replaces in (
@@ -3378,7 +3713,8 @@ def main(argv=None) -> int:
                     "skip_tower": skip_tower, "verify": verify,
                     "fold": fold, "spherical": spherical,
                     "sharded_spectral": sharded_spectral,
-                    "paper_run": paper_run, "card": card}, default=str))
+                    "paper_run": paper_run, "serve": serve,
+                    "card": card}, default=str))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

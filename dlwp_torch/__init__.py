@@ -5,7 +5,8 @@ NCHW / (B, T, C, H, W) layouts at public functions: the ConvLSTM forecast
 stack, its training (:mod:`dlwp_torch.train`, with device-resident
 batches) and verification (:mod:`dlwp_torch.forecast.verify`), its lat-band
 spatial-parallel form (:mod:`dlwp_torch.parallel`) and the spectral
-barotropic core. Entry points run on
+barotropic core, and its deployment as ``torch.export`` servables
+(:mod:`dlwp_torch.serve`). Entry points run on
 ``cuda`` unless given ``device="cpu"``; see :mod:`dlwp_torch.device`.
 Hand-written kernels live in ``csrc/`` with their wrappers and plain
 PyTorch versions in :mod:`dlwp_torch.kernels`.

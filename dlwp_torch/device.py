@@ -10,6 +10,8 @@ run fp32 convolutions in TF32 (about three decimal digits).
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 
@@ -27,3 +29,25 @@ def resolve_device(device=None) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def tensor_cache(maxsize: int):
+    """``functools.lru_cache`` for functions that build tensors (index
+    tables, spectral engines), which a trace bypasses: while
+    ``torch.export`` or ``torch.compile`` traces, the function builds a new
+    one, so a traced (fake) tensor never reaches the cache and no later
+    eager call gets it back."""
+
+    def wrap(fn):
+        cached = functools.lru_cache(maxsize=maxsize)(fn)
+
+        @functools.wraps(fn)
+        def call(*args):
+            if torch.compiler.is_compiling():
+                return fn(*args)
+            return cached(*args)
+
+        call.cache_clear = cached.cache_clear
+        return call
+
+    return wrap

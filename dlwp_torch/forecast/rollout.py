@@ -134,6 +134,15 @@ class TimeSeriesEstimator:
         mean_state = x0.mean(dim=(0, 1))
         return x0, init_days, mean_state, init_times
 
+    def precompute_batch_limit(self, steps: int) -> int:
+        """The largest batch whose insolation forcing over ``steps`` steps
+        :meth:`rollout_fn` computes before its loop (the budget
+        :data:`SOL_PRECOMPUTE_BUDGET`); above it, step by step. A program
+        exported from the rollout takes batches up to this size (the
+        branch is decided when it is traced)."""
+        H, W = self._lat.shape[0], self._lon.shape[0]
+        return SOL_PRECOMPUTE_BUDGET // (int(steps) * self._in_ts * H * W * 4)
+
     def rollout_fn(self, steps: int, prefer_first_times: bool = True):
         """``rollout(x0, init_days, mean_state) -> (steps, B, out_ts, C_out,
         H, W)``: the program :meth:`predict` runs, one model application and
@@ -197,7 +206,7 @@ class TimeSeriesEstimator:
             B = x0.shape[0]
             its = torch.arange(steps, dtype=torch.float64, device=self.device)
             sol_all = None
-            if needs_sol and steps * B * in_ts * H * W * 4 <= SOL_PRECOMPUTE_BUDGET:
+            if needs_sol and B <= self.precompute_batch_limit(steps):
                 sol_all = step_sol(its, init_days).to(x0.dtype)
             preds = torch.empty((steps, B, out_ts, n_out, H, W),
                                 dtype=x0.dtype, device=x0.device)

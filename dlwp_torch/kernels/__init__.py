@@ -2,7 +2,10 @@
 
 Each wrapper launches its CUDA kernel for CUDA tensors (building it at first
 use, see :mod:`dlwp_torch.kernels._build`) and takes the plain version for
-CPU tensors. Each keeps a ``launches`` count of kernel launches.
+CPU tensors. Each keeps a ``launches`` count of kernel launches. The two
+kernels of the forecast path, ``fused_conv_pool`` and ``lstm_gates``, are
+torch custom ops (``torch.ops.dlwp_torch.*``), registered when this package
+is imported, so that ``torch.export`` programs hold them.
 """
 
 from dlwp_torch.kernels.barotropic_step import (

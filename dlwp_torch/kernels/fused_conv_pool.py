@@ -3,8 +3,11 @@
 Port of ``dlwp_tpu.ops.fused_stages.fused_conv_pool``, the encoder stages
 of the flagship tower. :func:`fused_conv_pool` launches the CUDA kernel for
 a CUDA tensor, with the tiling of :func:`_plan`, and takes the plain
-PyTorch version, :func:`fused_conv_pool_plain`, for a CPU tensor.
-``fused_conv_pool.launches`` counts kernel launches;
+PyTorch version, :func:`fused_conv_pool_plain`, for a CPU tensor, through
+the torch custom op ``dlwp_torch::fused_conv_pool`` (a fake implementation
+gives its shape, so ``torch.export`` traces it into a program, which then
+launches the kernel on the card). ``fused_conv_pool.launches`` counts kernel
+launches, in the op's CUDA implementation;
 ``fused_conv_pool.last_launch`` holds the plan and grid of the last one.
 """
 
@@ -12,7 +15,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -211,9 +214,8 @@ def _lib():
     return lib
 
 
-def fused_conv_pool(x, kernel, bias=None, dilation: int = 2):
-    """x (B, C, H, W) with H, W even; kernel (O, C, 3, 3); bias (O,) or None.
-    Returns (B, O, H/2, W/2)."""
+def _check_shapes(x, kernel, bias):
+    """Raise on shapes the kernel and its plain version do not take."""
     B, C, H, W = x.shape
     O = kernel.shape[0]
     if kernel.shape != (O, C, 3, 3) or H % 2 or W % 2:
@@ -221,19 +223,39 @@ def fused_conv_pool(x, kernel, bias=None, dilation: int = 2):
             f"fused_conv_pool needs a (O, {C}, 3, 3) kernel and even H, W; "
             f"got kernel {tuple(kernel.shape)}, x {tuple(x.shape)}"
         )
-    if x.device.type == "cpu":
-        return fused_conv_pool_plain(x, kernel, bias, dilation)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_conv_pool: unsupported device {x.device}")
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in (x, kernel, bias)):
-        raise NotImplementedError(
-            "fused_conv_pool's kernel is forward only; a backward kernel is "
-            "queued as speed work (ROADMAP.md section 2b), and "
-            "FusedConvPool2D trains through its composition: run under "
-            "torch.no_grad() or with operands that need no gradient")
+    if bias is not None and bias.shape != (O,):
+        raise ValueError(f"fused_conv_pool: bias shape {tuple(bias.shape)}")
+
+
+_FORWARD_ONLY = (
+    "fused_conv_pool's kernel is forward only; a backward kernel is queued "
+    "as speed work (ROADMAP.md section 2b), and FusedConvPool2D trains "
+    "through its composition: run under torch.no_grad() or with operands "
+    "that need no gradient")
+
+
+@torch.library.custom_op("dlwp_torch::fused_conv_pool", mutates_args=(),
+                         device_types="cpu")
+def _op(x: torch.Tensor, kernel: torch.Tensor, bias: Optional[torch.Tensor],
+        dilation: int) -> torch.Tensor:
+    """The op on the CPU: the plain version."""
+    _check_shapes(x, kernel, bias)
+    return fused_conv_pool_plain(x, kernel, bias, dilation)
+
+
+@_op.register_kernel("cuda")
+def _op_cuda(x, kernel, bias, dilation):
+    """The op on the card: checks every operand, then launches the kernel
+    (``fused_conv_pool.launches`` counts it). Exported programs call the op
+    directly, so every check is here; nothing falls back to the plain
+    version. An operand that requires grad is refused: the kernel has no
+    backward, and :func:`fused_conv_pool` hands the op detached operands
+    when no gradient is recorded."""
+    _check_shapes(x, kernel, bias)
+    if any(t is not None and t.requires_grad for t in (x, kernel, bias)):
+        raise NotImplementedError(_FORWARD_ONLY)
     if bias is None:
-        bias = x.new_zeros(O)
+        bias = x.new_zeros(kernel.shape[0])
     for name, t in (("x", x), ("kernel", kernel), ("bias", bias)):
         if t.device != x.device or t.dtype != torch.float32:
             raise ValueError(
@@ -242,10 +264,32 @@ def fused_conv_pool(x, kernel, bias=None, dilation: int = 2):
             )
         if not t.is_contiguous():
             raise ValueError(f"fused_conv_pool: {name} must be contiguous")
-    if bias.shape != (O,):
-        raise ValueError(f"fused_conv_pool: bias shape {tuple(bias.shape)}")
+    B, C, H, W = x.shape
     return _launch(x, kernel, bias, dilation,
-                   _plan(B, C, H, W, O, dilation, sm_count(x.device)))
+                   _plan(B, C, H, W, kernel.shape[0], dilation,
+                         sm_count(x.device)))
+
+
+@_op.register_fake
+def _op_fake(x, kernel, bias, dilation):
+    """Output shape only: the tile plan needs the concrete batch and is
+    made in the CUDA implementation."""
+    B, C, H, W = x.shape
+    return x.new_empty((B, kernel.shape[0], H // 2, W // 2))
+
+
+def fused_conv_pool(x, kernel, bias=None, dilation: int = 2):
+    """x (B, C, H, W) with H, W even; kernel (O, C, 3, 3); bias (O,) or None.
+    Returns (B, O, H/2, W/2) through the op ``dlwp_torch::fused_conv_pool``
+    (the kernel on the card, the plain version on the CPU); forward only."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"fused_conv_pool: unsupported device {x.device}")
+    operands = (x, kernel, bias)
+    if any(t is not None and t.requires_grad for t in operands):
+        if torch.is_grad_enabled():
+            raise NotImplementedError(_FORWARD_ONLY)
+        x, kernel, bias = (t if t is None else t.detach() for t in operands)
+    return _op(x, kernel, bias, int(dilation))
 
 
 def _launch(x, kernel, bias, d, plan: Plan):

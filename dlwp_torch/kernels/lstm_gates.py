@@ -2,17 +2,22 @@
 
 Port of ``dlwp_tpu.ops.lstm_gates.fused_lstm_gates``.
 :func:`lstm_gates` launches the CUDA kernel for CUDA tensors and takes the
-plain PyTorch version, :func:`lstm_gates_plain`, for CPU tensors.
-``lstm_gates.launches`` counts kernel launches.
+plain PyTorch version, :func:`lstm_gates_plain`, for CPU tensors, through
+the torch custom op ``dlwp_torch::lstm_gates`` (a fake implementation gives
+its shapes, so ``torch.export`` traces it into a program, which then
+launches the kernel on the card). ``lstm_gates.launches`` counts kernel
+launches, in the op's CUDA implementation.
 
-It is differentiable as the JAX ``custom_vjp`` is: the backward recomputes
-the gate chain through :func:`lstm_gates_plain` and takes that version's
-vector-Jacobian product (the JAX backward is not a Pallas kernel either).
+It is differentiable as the JAX ``custom_vjp`` is: the op's registered
+backward recomputes the gate chain through :func:`lstm_gates_plain` and
+takes that version's vector-Jacobian product (the JAX backward is not a
+Pallas kernel either).
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -110,67 +115,88 @@ def _launch(zx, zh, c, activation, recurrent_activation, gate_dtype):
     return h_out, c_out
 
 
-def _forward(zx, zh, c, *acts):
-    """The kernel on CUDA, the plain version on the CPU."""
-    if zx.device.type == "cpu":
-        return lstm_gates_plain(zx, zh, c, *acts)
-    return _launch(zx, zh, c, *acts)
-
-
-class _Gates(torch.autograd.Function):
-    """Forward: :func:`_forward`. Backward: the plain version's VJP,
-    recomputed from the saved operands."""
-
-    @staticmethod
-    def forward(ctx, zx, zh, c, activation, recurrent_activation, gate_dtype):
-        ctx.save_for_backward(zx, zh, c)
-        ctx.acts = (activation, recurrent_activation, gate_dtype)
-        return _forward(zx, zh, c, *ctx.acts)
-
-    @staticmethod
-    def backward(ctx, grad_h, grad_c):
-        operands = [t.detach().requires_grad_(need) for t, need in
-                    zip(ctx.saved_tensors, ctx.needs_input_grad[:3])]
-        wrt = [t for t in operands if t.requires_grad]
-        grads = iter(())
-        if wrt:
-            with torch.enable_grad():
-                h, c_new = lstm_gates_plain(*operands, *ctx.acts)
-                grads = iter(torch.autograd.grad((h, c_new), wrt,
-                                                 (grad_h, grad_c)))
-        return tuple(next(grads) if t.requires_grad else None
-                     for t in operands) + (None, None, None)
-
-
-def lstm_gates(zx, zh, c, activation="tanh",
-               recurrent_activation="hard_sigmoid", gate_dtype=None):
-    """zx, zh (B, 4F, H, W) and carry c (B, F, H, W) -> (h', c');
-    differentiable in zx, zh and c."""
+def _check_args(zx, zh, c, activation, recurrent_activation, gate_dtype):
+    """Raise on shapes, activation names and gate dtypes the kernel and its
+    plain version do not take."""
     B, C4, H, W = zx.shape
     if C4 % 4 or zh.shape != zx.shape or c.shape != (B, C4 // 4, H, W):
         raise ValueError(
             f"lstm_gates shapes: zx {tuple(zx.shape)}, zh {tuple(zh.shape)}, "
             f"c {tuple(c.shape)}"
         )
-    # Unknown activation names and gate dtypes raise here.
     _act(activation), _act(recurrent_activation), _gate_dtype(gate_dtype)
+
+
+@torch.library.custom_op("dlwp_torch::lstm_gates", mutates_args=(),
+                         device_types="cpu")
+def _op(zx: torch.Tensor, zh: torch.Tensor, c: torch.Tensor, activation: str,
+        recurrent_activation: str, gate_dtype: Optional[str]
+        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The op on the CPU: the plain version."""
+    _check_args(zx, zh, c, activation, recurrent_activation, gate_dtype)
+    return lstm_gates_plain(zx, zh, c, activation, recurrent_activation,
+                            gate_dtype)
+
+
+@_op.register_kernel("cuda")
+def _op_cuda(zx, zh, c, activation, recurrent_activation, gate_dtype):
+    """The op on the card: checks every operand, then launches the kernel
+    (``lstm_gates.launches`` counts it). Exported programs call the op
+    directly, so every check is here; nothing falls back to the plain
+    version."""
+    _check_args(zx, zh, c, activation, recurrent_activation, gate_dtype)
+    for name, t in (("zx", zx), ("zh", zh), ("c", c)):
+        if t.device != zx.device or t.dtype != torch.float32:
+            raise ValueError(
+                f"lstm_gates: {name} must be float32 on {zx.device}, got "
+                f"{t.dtype} on {t.device}"
+            )
+        if not t.is_contiguous():
+            raise ValueError(f"lstm_gates: {name} must be contiguous")
+    return _launch(zx, zh, c, activation, recurrent_activation, gate_dtype)
+
+
+@_op.register_fake
+def _op_fake(zx, zh, c, activation, recurrent_activation, gate_dtype):
+    return torch.empty_like(c), torch.empty_like(c)
+
+
+def _setup_context(ctx, inputs, output):
+    zx, zh, c, *acts = inputs
+    ctx.save_for_backward(zx, zh, c)
+    ctx.acts = acts
+
+
+def _backward(ctx, grad_h, grad_c):
+    """The plain version's VJP, recomputed from the saved operands, as the
+    JAX ``custom_vjp`` (whose backward is not a Pallas kernel either)."""
+    operands = [t.detach().requires_grad_(need) for t, need in
+                zip(ctx.saved_tensors, ctx.needs_input_grad[:3])]
+    wrt = [t for t in operands if t.requires_grad]
+    grads = iter(())
+    if wrt:
+        with torch.enable_grad():
+            h, c_new = lstm_gates_plain(*operands, *ctx.acts)
+            grads = iter(torch.autograd.grad((h, c_new), wrt,
+                                             (grad_h, grad_c)))
+    return tuple(next(grads) if t.requires_grad else None
+                 for t in operands) + (None, None, None)
+
+
+_op.register_autograd(_backward, setup_context=_setup_context)
+
+
+def lstm_gates(zx, zh, c, activation="tanh",
+               recurrent_activation="hard_sigmoid", gate_dtype=None):
+    """zx, zh (B, 4F, H, W) and carry c (B, F, H, W) -> (h', c') through
+    the op ``dlwp_torch::lstm_gates`` (the kernel on the card, the plain
+    version on the CPU); differentiable in zx, zh and c. ``gate_dtype``:
+    None, ``torch.bfloat16`` or its name."""
+    if isinstance(gate_dtype, torch.dtype):
+        gate_dtype = str(gate_dtype).removeprefix("torch.")
     if zx.device.type not in ("cpu", "cuda"):
         raise ValueError(f"lstm_gates: unsupported device {zx.device}")
-    if zx.device.type == "cuda":
-        for name, t in (("zx", zx), ("zh", zh), ("c", c)):
-            if t.device != zx.device or t.dtype != torch.float32:
-                raise ValueError(
-                    f"lstm_gates: {name} must be float32 on {zx.device}, got "
-                    f"{t.dtype} on {t.device}"
-                )
-            if not t.is_contiguous():
-                raise ValueError(f"lstm_gates: {name} must be contiguous")
-    acts = (activation, recurrent_activation, gate_dtype)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (zx, zh, c)):
-        return _Gates.apply(zx, zh, c, *acts)
-    # No gradient to record: the same forward without the Function's host
-    # work, which a short launch would feel.
-    return _forward(zx, zh, c, *acts)
+    return _op(zx, zh, c, activation, recurrent_activation, gate_dtype)
 
 
 lstm_gates.launches = 0

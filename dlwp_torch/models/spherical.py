@@ -26,19 +26,19 @@ imaginary parts, in full fp32 (TF32 is off on the card,
 
 from __future__ import annotations
 
-import functools
 import math
 import warnings
 
 import numpy as np
 import torch
 
+from dlwp_torch.device import tensor_cache
 from dlwp_torch.grid.latlon import LatLonGrid
 from dlwp_torch.models.layers import ParamLayer, _zeros, get_activation
 from dlwp_torch.spectral.transforms import SphericalHarmonics
 
 
-@functools.lru_cache(maxsize=16)
+@tensor_cache(maxsize=16)
 def _engine(nlat: int, nlon: int, truncation: int,
             device: torch.device) -> SphericalHarmonics:
     """The float32 ``fourier='matmul'`` engine of the pole-inclusive

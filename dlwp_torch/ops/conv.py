@@ -27,12 +27,11 @@ On the card these run through cuDNN with TF32 off (set by
 
 from __future__ import annotations
 
-from functools import lru_cache
-
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from dlwp_torch.device import tensor_cache
 from dlwp_torch.ops.padding import pad_constant, pad_latlon
 from dlwp_torch.ops.pooling import upsample2d
 
@@ -51,7 +50,7 @@ def cyclic_conv2d(x: torch.Tensor, kernel: torch.Tensor, strides=(1, 1),
     return y.reshape(lead + y.shape[1:])
 
 
-@lru_cache(maxsize=32)
+@tensor_cache(maxsize=32)
 def _fold_matrix(k: int, dtype: torch.dtype,
                  device: torch.device) -> torch.Tensor:
     """(2, 3, k) 0/1 map [parity, small-grid tap, tap], cached per device."""

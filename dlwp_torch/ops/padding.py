@@ -21,11 +21,11 @@ axis wraps or reflects again).
 
 from __future__ import annotations
 
-from functools import lru_cache
-
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from dlwp_torch.device import tensor_cache
 
 LAT_MODES = ("zero", "edge", "reflect", "symmetric")
 
@@ -49,7 +49,7 @@ def _source_index(n: int, lo: int, hi: int, mode: str) -> np.ndarray:
     raise ValueError(f"unknown padding mode {mode!r}")
 
 
-@lru_cache(maxsize=256)
+@tensor_cache(maxsize=256)
 def _gather_index(n: int, lo: int, hi: int, mode: str,
                   device: torch.device) -> torch.Tensor:
     """:func:`_source_index` as a tensor, cached per device, so a call

@@ -768,3 +768,55 @@ def test_sharded_barotropic_on_card_matches_unsharded(dev):
     want = ref.run(state, 20).vrt_spec
     got = shd.run_sharded(state, 20).vrt_spec
     assert float((got - want).abs().max() / want.abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("batch", [1, 3, 5])
+def test_servable_exported_on_cpu_runs_the_kernels_on_card(dev, batch):
+    """The 8x16 flagship's rollout exported on the CPU, serialized and
+    loaded on the card: every constant there, both kernels launched per
+    call as the eager model launches them, and the output within 1e-6
+    relative RMS of the eager rollout on the card (the same ops)."""
+    from dlwp_torch import flax_tree
+    from dlwp_torch.serve import Servable, export_rollout
+
+    specs = convlstm_specs(8, 16, 2, 2)
+    x = np.random.RandomState(0).randn(4, 2, 2, 8, 16).astype(np.float32)
+    cpu = DLWPNeuralNet(is_recurrent=True, time_dim=2, scaler_type=None,
+                        device="cpu")
+    cpu.build_model(specs)
+    cpu.init(x, seed=1)
+    card = DLWPNeuralNet(is_recurrent=True, time_dim=2, scaler_type=None,
+                         device=dev)
+    card.build_model(specs)
+    card.load_flax_params(flax_tree(cpu.base_model))
+    servable = Servable.load(export_rollout(cpu, x, 6).serialize())
+    program = servable.program
+    assert {t.device.type for t in (*program.state_dict.values(),
+                                    *program.constants.values())} == {"cuda"}
+    xb = np.random.RandomState(batch).randn(batch, *x.shape[1:]).astype(
+        np.float32)
+    reset_launch_counts()
+    got = servable.predict_timeseries(xb)
+    assert launch_counts()["fused_conv_pool"] == 6
+    assert launch_counts()["lstm_gates"] == 3
+    want = card.predict_timeseries(xb, 6)
+    assert (np.sqrt(np.mean((got - want) ** 2))
+            <= 1e-6 * np.sqrt(np.mean(want ** 2)))
+
+
+def test_custom_ops_opcheck_on_card(dev):
+    """Both ops' schema, fake implementation, autograd registration and
+    AOT dispatch with CUDA tensors (the gates with operands that require
+    grad, through the registered backward)."""
+    x, k, b = (torch.from_numpy(a).to(dev)
+               for a in _conv_pool_operands(4, 3, 24, 12, 32, 32))
+    res = torch.library.opcheck(
+        torch.ops.dlwp_torch.fused_conv_pool.default, (x, k, b, 2))
+    assert set(res.values()) == {"SUCCESS"}
+    ops = [torch.from_numpy(a).to(dev).requires_grad_()
+           for a in _gate_operands(6)]
+    for gd in (None, "bfloat16"):
+        res = torch.library.opcheck(
+            torch.ops.dlwp_torch.lstm_gates.default,
+            (*ops, "tanh", "hard_sigmoid", gd))
+        assert set(res.values()) == {"SUCCESS"}

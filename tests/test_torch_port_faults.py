@@ -10,9 +10,10 @@
   bf16 and activations the kernel lacks go to the composition or the
   plain gate chain, and their forward agrees with the kernel's plain
   version.
-- ``lstm_gates`` is an ``autograd.Function``: gradcheck in float64, and its
-  gradients equal autograd through ``lstm_gates_plain`` (its backward is
-  that version's VJP, so exactly).
+- ``lstm_gates`` is the custom op ``dlwp_torch::lstm_gates`` with a
+  registered backward: gradcheck in float64, and its gradients equal
+  autograd through ``lstm_gates_plain`` (its backward is that version's
+  VJP, so exactly).
 
 The card's side (float64 predict on ``cuda``, the CUDA gate gradient,
 ``fused_conv_pool`` refusing operands that require grad) is in
@@ -172,7 +173,9 @@ def test_lstm_gates_gradcheck(acts):
     ops = [t.requires_grad_() for t in _gate_operands(3, torch.float64,
                                                        scale=0.3)]
     h, _ = lstm_gates(*ops, *acts)
-    assert type(h.grad_fn).__name__ == "_GatesBackward"
+    # The op's registered backward, not autograd through the plain ops.
+    assert type(h.grad_fn).__name__ == (
+        "GeneratedBackwardFor_dlwp_torch_lstm_gates_defaultBackward")
     assert torch.autograd.gradcheck(lambda *a: lstm_gates(*a, *acts), ops)
 
 

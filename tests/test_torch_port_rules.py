@@ -19,8 +19,10 @@ from dlwp_torch import (
     build_sequential,
 )
 from dlwp_torch.device import resolve_device
+from dlwp_torch.entry import entry as port_entry
 from dlwp_torch.flagship import convlstm_specs
 from dlwp_torch.parallel import MeshConfig, SpatialSharding, build_mesh
+from dlwp_torch.serve import Servable, export_program
 
 torch.set_num_threads(2)
 ROOT = pathlib.Path(__file__).resolve().parent.parent
@@ -53,12 +55,17 @@ def test_package_found_its_files():
 
 @pytest.mark.parametrize("entry", ["resolve_device", "build_sequential",
                                    "DLWPNeuralNet", "BarotropicModelPsi",
-                                   "build_mesh"])
+                                   "build_mesh", "Servable.load", "entry"])
 def test_default_device_is_cuda_and_raises_without_a_card(entry, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         if entry == "resolve_device":
             resolve_device()
+        elif entry == "Servable.load":
+            Servable.load(export_program(lambda a: a + 1.0, (torch.ones(2),),
+                                         batch=None).serialize())
+        elif entry == "entry":
+            port_entry()
         elif entry == "build_mesh":
             build_mesh(MeshConfig(data=1, lat=2))
         elif entry == "build_sequential":
