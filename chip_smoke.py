@@ -6,8 +6,9 @@
 Phases, each raising on failure:
 
 1. the card's name and power limit (``nvidia-smi``);
-2. build of every kernel in ``dlwp_torch/csrc`` (``nvcc``, in parallel),
-   with each kernel's registers and spills from ``-Xptxas -v``;
+2. build of every kernel in ``dlwp_torch/csrc`` (``nvcc`` for the CUDA
+   sources and the host C compiler for the batch gather, in parallel),
+   with each CUDA kernel's registers and spills from ``-Xptxas -v``;
 3. each kernel against its plain PyTorch version on the card, at the
    flagship shapes and on odd cases (``fused_conv_pool``: both encoder
    stages, the odd cases of ``CONV_POOL_CASES``, both stages on the
@@ -160,7 +161,24 @@ Phases, each raising on failure:
     against the eager engine on the card and the CPU; ``opcheck`` of both
     ops on the card at the flagship's shapes; ``entry()``'s forward
     exported and run;
-22. a ``{"kernels": [...]}`` line, then the last line
+22. ``--only host_data``: the host data path (about a minute): (a) the
+    native batch gather (``dlwp_torch/csrc/batch_assembler.c``, a host
+    kernel with no TPU counterpart) bit for bit against its numpy version
+    at the flagship's batch (B=32, offsets 0..3, two channels) on 36x144
+    and 72x144, with duplicated and unsorted samples; (b) one batch's
+    assembly both ways and in the sampler's earlier stacked numpy form
+    (host clock), and a batch's ``generate`` by part; (c)
+    ``fit_generator`` at B=32 in four turns (the earlier stacked gather,
+    native, native, stacked), each split into sampler,
+    copies, steps and the rest, the native calls two a batch; one epoch's
+    launches and native calls counted from 0; (d) where h5py imports, the
+    Preprocessor streaming a 36x144 source to a predictor file, read
+    lazily by a shuffled SeriesSampler (batches equal to the in-memory
+    sampler's) that trains one epoch on the card, else file I/O raising
+    the JAX package's RuntimeError; (e) ``CFSReanalysis.retrieve`` against
+    a local ``http.server`` fixture (fetch, retry, warning, idempotent
+    skip);
+23. a ``{"kernels": [...]}`` line, then the last line
     ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without printing a result when no CUDA device is present.
@@ -1142,24 +1160,31 @@ def time_train(torch, dev, S):
     return out
 
 
-def time_fit_generator(torch, dev, device_ms_per_step):
-    """fit_generator's train samples/s at B=32 over FIT_TIME_EPOCHS epochs
-    of a FIT_TIME_N-sample series, without validation, after a one-epoch
+def time_fit_generator(torch, dev, device_ms_per_step=None,
+                       epochs=FIT_TIME_EPOCHS):
+    """fit_generator's train samples/s at B=32 over ``epochs`` epochs of a
+    FIT_TIME_N-sample series, without validation, after a one-epoch
     warm-up; then its host-clock time split into its serial parts, each
     timed alone over the same number of epochs: the sampler's batch
     assembly, each batch's copy to the card (pinning included; synchronized
     once at the end) and the train steps on batches already on the card.
-    The rest is the fit loop's own. The device's idle share in the fit
-    takes the train step's device time (``device_ms_per_step``, from
-    torch.profiler) for each step."""
+    The rest is the fit loop's own. The native batch gather's calls in the
+    timed fit are counted (two a batch when the sampler takes it: inputs
+    and targets). The device's idle share in the fit takes the train
+    step's device time (``device_ms_per_step``, from torch.profiler) for
+    each step, where given."""
+    from dlwp_torch.data import native
+
     net, train, _ = train_stack(dev, n=FIT_TIME_N)
-    tr, E = net.trainer, FIT_TIME_EPOCHS
+    tr, E = net.trainer, epochs
     net.fit_generator(train, epochs=1, verbose=False)
     torch.cuda.synchronize()
+    calls = native.assemble.launches
     t0 = time.perf_counter()
     hist = net.fit_generator(train, epochs=E, verbose=False)
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
+    calls = native.assemble.launches - calls
     if len(hist.epoch) != E:
         raise AssertionError(f"timed fit ran {len(hist.epoch)} epochs")
     steps, windows = E * len(train), E * len(train._indices)
@@ -1183,12 +1208,16 @@ def time_fit_generator(torch, dev, device_ms_per_step):
            "samples_per_s": windows / fit_s, "steps_per_s": steps / fit_s,
            "assembly_s": assembly_s, "copy_s": copy_s, "step_s": step_s,
            "rest_s": fit_s - assembly_s - copy_s - step_s,
-           "idle_share": 1 - steps * device_ms_per_step / 1e3 / fit_s}
+           "native_calls": calls,
+           "idle_share": None if device_ms_per_step is None
+           else 1 - steps * device_ms_per_step / 1e3 / fit_s}
+    idle = ("" if out["idle_share"] is None
+            else f", device idle {100 * out['idle_share']:.1f}%")
     log(f"train fit_generator timed: {E} epochs of {windows // E} windows "
         f"({steps} steps at B={TRAIN_B}, no validation) in {fit_s:.3f} s "
         f"host clock: {out['samples_per_s']:.1f} train samples/s, "
-        f"{out['steps_per_s']:.2f} steps/s, device idle "
-        f"{100 * out['idle_share']:.1f}%. Alone over the same epochs: "
+        f"{out['steps_per_s']:.2f} steps/s{idle}; native gather calls "
+        f"{calls}. Alone over the same epochs: "
         f"sampler assembly {assembly_s:.3f} s "
         f"({100 * assembly_s / fit_s:.1f}%), copies to the card "
         f"{copy_s:.3f} s ({100 * copy_s / fit_s:.1f}%), train steps on "
@@ -3211,7 +3240,9 @@ def serve_forecast(torch, dev):
     for where, e in (("cpu", cpu_est), ("card", est)):
         args = e.prepare_inputs(np.arange(B))[:3]
         t0 = time.perf_counter()
+        # x0 and the insolation days are batched; mean_state is not.
         sv = export_program(e.rollout_fn(STEPS), args, batch=batch,
+                            batched=(0, 1),
                             meta={"kind": "forecast", "steps": STEPS})
         export_s = time.perf_counter() - t0
         t0 = time.perf_counter()
@@ -3466,6 +3497,391 @@ def run_serve(torch, dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# The host data path: the native batch gather, predictor files, acquisition.
+# The gather is checked at the flagship's batch (B=32, offsets 0..3, two
+# channels) on 36x144 and on the paper run's 72x144, over a series of
+# HOST_GATHER_N samples; fit_generator is timed in four turns (numpy,
+# native, native, numpy) of HOST_FIT_EPOCHS epochs each.
+HOST_GATHER_GRIDS = (("flagship 36x144", NLAT, NLON), ("paper run 72x144",
+                                                      72, 144))
+HOST_GATHER_N, HOST_GATHER_REPS, HOST_FIT_EPOCHS = 400, 30, 3
+HOST_GATHER_THREADS = (1, 2, 4, 8)
+
+
+def host_ms(fn, reps=HOST_GATHER_REPS, warmup=3):
+    """Median host-clock ms of ``fn()`` over ``reps`` calls."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def numpy_route():
+    """Within this context the samplers gather as where no C compiler
+    exists: the numpy version."""
+    from unittest import mock
+
+    from dlwp_torch.data import native
+
+    return mock.patch.object(native, "have_native", lambda: False)
+
+
+def stacked_route():
+    """Within this context the series sampler gathers as it did before the
+    native gather: a fancy index and a channel index a time step, a stack,
+    and a cast that copies."""
+    from unittest import mock
+
+    from dlwp_torch.data.sampler import SeriesSampler
+
+    def gather(self, samples, offsets, chan_idx):
+        return np.stack([self._series[samples + n][:, chan_idx]
+                         for n in offsets], axis=1).astype(self._dtype)
+
+    return mock.patch.object(SeriesSampler, "_gather", gather)
+
+
+def check_host_gather(torch):
+    """(a) The native gather against its numpy version, bit for bit, at the
+    flagship's batch on both grids, with duplicated and unsorted samples
+    and channels; (b) one batch's assembly both ways (host clock, median
+    of HOST_GATHER_REPS): the gather alone and the sampler's ``generate``
+    of a B=32 flagship batch (insolation, casts, shaping)."""
+    from dlwp_torch import SeriesSampler
+    from dlwp_torch.data import native
+
+    if not native.have_native():
+        raise AssertionError("host_data: no C compiler for the native gather")
+    rng = np.random.RandomState(11)
+    out = {}
+    offsets = np.arange(2 * TD)
+    for name, h, w in HOST_GATHER_GRIDS:
+        series = rng.randn(HOST_GATHER_N, C, h, w).astype(np.float32)
+        samples = rng.randint(0, HOST_GATHER_N - len(offsets) + 1, TRAIN_B)
+        samples[1::7] = samples[0]  # duplicates, in no order
+        for chans in ([0, 1], [1, 0, 1]):
+            before = native.assemble.launches
+            got = native.assemble(series, samples, offsets, chans)
+            want = native.assemble_plain(series, samples, offsets, chans)
+            if native.assemble.launches != before + 1:
+                raise AssertionError(f"host_data {name}: native did not run")
+            if got.shape != want.shape or not np.array_equal(got, want):
+                raise AssertionError(f"host_data {name} {chans}: differs")
+        chans = [0, 1]
+        ms = host_ms(lambda: native.assemble(series, samples, offsets, chans))
+        plain = host_ms(
+            lambda: native.assemble_plain(series, samples, offsets, chans))
+        # The sampler's numpy gather before the native one (a fancy index
+        # and a channel index a time step, a stack, a cast that copies).
+        stacked = host_ms(lambda: np.stack(
+            [series[samples + n][:, chans] for n in offsets],
+            axis=1).astype(np.float32))
+        threads = {n: host_ms(lambda: native.assemble(
+            series, samples, offsets, chans, n_threads=n))
+            for n in HOST_GATHER_THREADS}
+        mb = 4 * TRAIN_B * len(offsets) * len(chans) * h * w / 1e6
+        out[name] = {"ms": ms, "plain_ms": plain, "stacked_ms": stacked,
+                     "ms_by_threads": threads, "batch_mb": mb,
+                     "native_gb_per_s": 2 * mb / ms, "bit_equal": True}
+        log(f"host_data gather {name}: B={TRAIN_B} x offsets 0..3 x "
+            f"{len(chans)} channels ({mb:.2f} MB) bit-equal to numpy "
+            f"(also with duplicated, unsorted samples and channels [1, 0, "
+            f"1]); host clock, median of {HOST_GATHER_REPS}: native "
+            f"{ms:.3f} ms ({2 * mb / ms:.2f} GB/s read + written), numpy "
+            f"{plain:.3f} ms ({plain / ms:.2f}x), the sampler's earlier "
+            f"stacked numpy form {stacked:.3f} ms ({stacked / ms:.2f}x); "
+            f"native by threads " + ", ".join(
+                f"{n}: {t:.3f} ms" for n, t in threads.items()))
+    sampler = SeriesSampler(flagship_dataset(FIT_TIME_N), input_time_steps=TD,
+                            output_time_steps=TD, add_insolation=True,
+                            batch_size=TRAIN_B, shuffle=True, seed=0,
+                            is_recurrent=True)
+    batch = sampler._indices[:TRAIN_B]
+    native_x, native_y = sampler.generate(batch)
+    ms = host_ms(lambda: sampler.generate(batch))
+    with numpy_route():
+        plain_x, plain_y = sampler.generate(batch)
+        plain = host_ms(lambda: sampler.generate(batch))
+    if not (np.array_equal(native_x, plain_x)
+            and np.array_equal(native_y, plain_y)):
+        raise AssertionError("host_data: sampler batches differ by route")
+    with stacked_route():
+        stacked_x, stacked_y = sampler.generate(batch)
+        stacked = host_ms(lambda: sampler.generate(batch))
+    if not (np.array_equal(native_x, stacked_x)
+            and np.array_equal(native_y, stacked_y)):
+        raise AssertionError("host_data: the earlier gather's batch differs")
+    out["generate"] = {"ms": ms, "plain_ms": plain, "stacked_ms": stacked,
+                       "split_ms": generate_split(sampler, batch)}
+    log(f"host_data one flagship batch's generate (B={TRAIN_B}, insolation, "
+        f"inputs {native_x.shape}, targets {native_y.shape}): native "
+        f"{ms:.3f} ms, numpy {plain:.3f} ms, the earlier stacked form "
+        f"{stacked:.3f} ms (host clock, median of {HOST_GATHER_REPS}); "
+        f"batches bit-equal; its parts alone: "
+        + ", ".join(f"{k} {v:.3f} ms"
+                    for k, v in out["generate"]["split_ms"].items()))
+    return out
+
+
+def generate_split(sampler, batch):
+    """The parts of ``SeriesSampler.generate`` for one batch, each timed
+    alone (host clock, median of HOST_GATHER_REPS): the two native
+    gathers, the insolation channel's stack and its concatenation to the
+    inputs, and the NaN check of inputs and targets."""
+    s, n = sampler, len(batch)
+    t0 = s._in_ts + s._interval - 1
+    p = s._gather(batch, range(s._in_ts), s._input_idx)
+    y = s._gather(batch, range(t0, t0 + s._out_ts), s._output_idx)
+    sol = np.stack([s._insolation[batch + k] for k in range(s._in_ts)],
+                   axis=1)[:, :, None]
+    return {
+        "gather inputs": host_ms(
+            lambda: s._gather(batch, range(s._in_ts), s._input_idx)),
+        "gather targets": host_ms(
+            lambda: s._gather(batch, range(t0, t0 + s._out_ts),
+                              s._output_idx)),
+        "insolation stack": host_ms(lambda: np.stack(
+            [s._insolation[batch + k] for k in range(s._in_ts)],
+            axis=1)[:, :, None]),
+        "concatenate": host_ms(lambda: np.concatenate([p, sol], axis=2)),
+        "NaN check": host_ms(lambda: np.isnan(p.reshape(n, -1)).any(1)
+                             | np.isnan(y.reshape(n, -1)).any(1)),
+    }
+
+
+def host_fit_turns(torch, dev):
+    """(c) fit_generator in turns, the earlier stacked numpy gather,
+    native, native, stacked (``time_fit_generator`` over
+    HOST_FIT_EPOCHS epochs): each turn's native call count (two a batch,
+    or none) and its split into sampler, copies, steps and the rest."""
+    out = {"stacked": [], "native": []}
+    for route in ("stacked", "native", "native", "stacked"):
+        if route == "stacked":
+            with stacked_route():
+                r = time_fit_generator(torch, dev, epochs=HOST_FIT_EPOCHS)
+        else:
+            r = time_fit_generator(torch, dev, epochs=HOST_FIT_EPOCHS)
+        want = 2 * r["steps"] if route == "native" else 0
+        if r["native_calls"] != want:
+            raise AssertionError(f"host_data fit ({route}): native calls "
+                                 f"{r['native_calls']} != {want}")
+        r["split"] = {k: r[f"{k}_s"] / r["fit_s"]
+                      for k in ("assembly", "copy", "step", "rest")}
+        out[route].append(r)
+        log(f"host_data fit_generator ({route} gather): "
+            f"{r['samples_per_s']:.1f} samples/s; sampler / copies / steps "
+            f"/ rest = " + " / ".join(f"{100 * v:.1f}%"
+                                       for v in r["split"].values()))
+    return out
+
+
+def host_main_path(torch, dev):
+    """The phase's path, counted from 0: one fit_generator epoch of the
+    timed flagship (B=32, no validation) through the native gather."""
+    from dlwp_torch.data import native
+    from dlwp_torch.kernels import launch_counts, reset_launch_counts
+
+    net, train, _ = train_stack(dev, n=FIT_TIME_N)
+    net.trainer.init(train[0][0])  # else the fit reads a batch to init
+    reset_launch_counts()
+    native.assemble.launches = 0
+    net.fit_generator(train, epochs=1, verbose=False)
+    torch.cuda.synchronize()
+    counts, calls = launch_counts(), native.assemble.launches
+    if counts != expected_counts(lstm_gates=len(train)):
+        raise AssertionError(f"host_data fit launches {counts}")
+    if calls != 2 * len(train):
+        raise AssertionError(f"host_data native calls {calls} != "
+                             f"{2 * len(train)} (two a batch)")
+    log(f"host_data fit_generator epoch: {len(train)} batches, native "
+        f"gather calls {calls} (inputs and targets), launches {counts}")
+    return counts, calls, len(train)
+
+
+class SyntheticSource:
+    """A DataSource at the flagship's grid: two varlevs of ``n`` 6-hourly
+    fields from ``RandomState(seed)``, in physical units."""
+
+    def __init__(self, n, seed=0):
+        self.times = (np.datetime64("2007-01-01")
+                      + np.arange(n) * np.timedelta64(6, "h"))
+        self.lat = np.linspace(87.5, 0.0, NLAT)
+        self.lon = np.arange(NLON) * (360.0 / NLON)
+        rng = np.random.RandomState(seed)
+        self._f = {("HGT", 500): 5500.0 + 50.0 * rng.randn(n, NLAT, NLON),
+                   ("THICK", "300-700"): 4000.0
+                   + 30.0 * rng.randn(n, NLAT, NLON)}
+
+    def field(self, variable, level):
+        return self._f[variable, level]
+
+
+def host_file_flow(torch, dev):
+    """(d) Where h5py imports: the Preprocessor streams a synthetic 36x144
+    source to a predictor file, ``from_file(load='lazy')``, a shuffled
+    SeriesSampler over it yields the in-memory sampler's batches bit for
+    bit, and one fit_generator epoch trains on the card from it. Where it
+    does not: writing and reading raise the JAX package's RuntimeError."""
+    import tempfile
+
+    from dlwp_torch import PredictorDataset
+    from dlwp_torch.data import Preprocessor, SeriesSampler
+
+    args = (["HGT", "THICK"], [500, "300-700"])
+    src = SyntheticSource(TRAIN_N)
+    try:
+        import h5py
+    except ImportError:
+        h5py = None
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "series.h5")
+        if h5py is None:
+            memory = Preprocessor(src).data_to_series(*args, pairwise=True)
+            for call in (lambda: memory.to_file(path),
+                         lambda: PredictorDataset.from_file(path),
+                         lambda: Preprocessor(src).data_to_series(
+                             *args, pairwise=True, output_file=path)):
+                try:
+                    call()
+                except RuntimeError as e:
+                    if "h5py" not in str(e):
+                        raise
+                else:
+                    raise AssertionError("host_data: file I/O without h5py")
+            log("host_data file flow: h5py does not import on this host; "
+                "to_file, from_file and Preprocessor(output_file=) raise "
+                "RuntimeError('h5py is required for predictor-file I/O'), "
+                "as the JAX package does")
+            return {"h5py": False}
+        t0 = time.perf_counter()
+        lazy = Preprocessor(src).data_to_series(*args, pairwise=True,
+                                                output_file=path)
+        write_s = time.perf_counter() - t0
+        memory = Preprocessor(src).data_to_series(*args, pairwise=True)
+        net, _, _ = train_stack(dev)
+        kw = dict(input_time_steps=TD, output_time_steps=TD,
+                  add_insolation=True, batch_size=TRAIN_B, shuffle=True,
+                  seed=0)
+        from_file = SeriesSampler(lazy, model=net, **kw)
+        if not isinstance(from_file._series, h5py.Dataset):
+            raise AssertionError("host_data: the lazy series was read")
+        for (x, y), (mx, my) in zip(
+                list(SeriesSampler(lazy, model=net, **kw)),
+                list(SeriesSampler(memory, model=net, **kw))):
+            if not (np.array_equal(x, mx) and np.array_equal(y, my)):
+                raise AssertionError("host_data: lazy batches differ")
+        t0 = time.perf_counter()
+        hist = net.fit_generator(from_file, epochs=1, verbose=False)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        loss = hist.history["loss"][-1]
+        lazy.close()
+    if not np.isfinite(loss):
+        raise AssertionError(f"host_data: loss {loss}")
+    log(f"host_data file flow: {TRAIN_N} samples streamed to a predictor "
+        f"file in {write_s:.2f} s, read lazily; batches equal to the "
+        f"in-memory sampler's; one fit_generator epoch on the card in "
+        f"{fit_s:.2f} s, loss {loss:.4e}")
+    return {"h5py": True, "write_s": write_s, "fit_s": fit_s, "loss": loss}
+
+
+def host_retrieve(torch=None, dev=None):
+    """(e) ``CFSReanalysis.retrieve`` against a local ``http.server``
+    fixture (no network): each file fetched, one failing once and retried,
+    one missing (two attempts and a warning, no file left), and a second
+    retrieve sending requests only for the missing one (the present files
+    are skipped)."""
+    import http.server
+    import tempfile
+    import threading
+    import warnings
+    from datetime import datetime
+
+    from dlwp_torch.data.cfs import CFSReanalysis
+
+    requests, files, fail = [], {}, {}
+
+    class Handler(http.server.BaseHTTPRequestHandler):
+        def do_GET(self):
+            requests.append(self.path)
+            if fail.get(self.path, 0) > 0:
+                fail[self.path] -= 1
+                self.send_error(500, "scripted transient failure")
+                return
+            body = files.get(self.path)
+            if body is None:
+                self.send_error(404, "not found")
+                return
+            self.send_response(200)
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def log_message(self, *a):
+            pass
+
+    httpd = http.server.ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    try:
+        with tempfile.TemporaryDirectory() as root:
+            cfs = CFSReanalysis(root_directory=root)
+            cfs.set_dates([datetime(2000, 1, 1), datetime(2000, 1, 2)])
+            cfs._root_url = f"http://127.0.0.1:{httpd.server_address[1]}"
+            rels = [cfs.grib_path(d) for d in cfs.dataset_dates]
+            files.update({f"/{r}": f"grib {r}".encode() for r in rels[1:]})
+            fail[f"/{rels[-1]}"] = 1
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                cfs.retrieve(n_proc=2)
+                first = list(requests)
+                cfs.retrieve(n_proc=2)
+            again = requests[len(first):]
+            present = [os.path.exists(os.path.join(root, r)) for r in rels]
+            ok = all(open(os.path.join(root, r), "rb").read()
+                     == f"grib {r}".encode() for r in rels[1:])
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=10)
+    want = sorted([f"/{rels[0]}"] * 2 + [f"/{rels[-1]}"] * 2
+                  + [f"/{r}" for r in rels[1:-1]])
+    warned = [str(w.message) for w in caught
+              if "failed to download" in str(w.message)]
+    if not (ok and present == [False] + [True] * (len(rels) - 1)
+            and sorted(first) == want and again == [f"/{rels[0]}"] * 2
+            and len(warned) == 2 and all(rels[0] in w for w in warned)):
+        raise AssertionError(f"host_data retrieve: {present} {first} {again} "
+                             f"{warned}")
+    log(f"host_data CFSReanalysis.retrieve against a local HTTP fixture: "
+        f"{len(rels) - 1} of {len(rels)} files fetched ({len(first)} "
+        f"requests: one transient failure retried, one missing file tried "
+        f"twice with a warning), then a second retrieve re-asked only for "
+        f"the missing file")
+    return {"files": len(rels), "requests": len(first),
+            "second_requests": len(again)}
+
+
+def run_host_data(torch, dev):
+    """``--only host_data``: the host data path (a)-(e)."""
+    torch.set_num_threads(os.cpu_count() or 1)
+    t0 = time.perf_counter()
+    out = {"gather": check_host_gather(torch)}
+    out["fit_turns"] = host_fit_turns(torch, dev)
+    out["launches"], out["native_calls"], out["batches"] = host_main_path(
+        torch, dev)
+    out["file_flow"] = host_file_flow(torch, dev)
+    out["retrieve"] = host_retrieve()
+    out["seconds"] = time.perf_counter() - t0
+    log(f"host_data: {out['seconds']:.1f} s")
+    return out
+
+
 # Phases that run alone with --only, to iterate on one part on the card:
 # name -> (function of (torch, dev)).
 ONLY = {
@@ -3483,6 +3899,7 @@ ONLY = {
     "sharded_spectral": run_sharded_spectral,
     "paper_run": run_paper_run,
     "serve": run_serve,
+    "host_data": run_host_data,
 }
 
 
@@ -3526,7 +3943,8 @@ def main(argv=None) -> int:
     dev = resolve_device("cuda")
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
-    log(f"kernel build: {_build.build():.1f} s for {_build.sources()}")
+    log(f"kernel build: {_build.build():.1f} s for "
+        f"{_build.sources() + _build.host_sources()}")
     for name in _build.sources():
         spills, entry = [], ""
         for line in _build.build_log(name).splitlines():
@@ -3565,12 +3983,14 @@ def main(argv=None) -> int:
     sharded_spectral = run_sharded_spectral(torch, dev)
     paper_run = run_paper_run(torch, dev)
     serve = run_serve(torch, dev)
+    host_data = run_host_data(torch, dev)
     # Each later path's launches, counted from 0 around its run: fit_device
     # at S=1 (train steps and validation), the SkipTower forecast, the
     # verified forecast, the spherical stack's forward and train steps,
     # the fold and sharded spectral phases (no model: none), and the paper
-    # run's fit_device and validation, and one call of the forecast
-    # servable exported on the CPU.
+    # run's fit_device and validation, one call of the forecast servable
+    # exported on the CPU, and one fit_generator epoch through the native
+    # batch gather.
     later = {"launches_device_train": device_train["S1"]["launches"],
              "launches_skip_tower": skip_tower["launches"],
              "launches_verify": verify["launches"],
@@ -3578,7 +3998,8 @@ def main(argv=None) -> int:
              "launches_fold": fold["launches"],
              "launches_sharded_spectral": sharded_spectral["launches"],
              "launches_paper_run": paper_run["launches"],
-             "launches_serve": serve["launches"]}
+             "launches_serve": serve["launches"],
+             "launches_host_data": host_data["launches"]}
 
     kernels = []
     for name, source, replaces in (
@@ -3714,7 +4135,7 @@ def main(argv=None) -> int:
                     "fold": fold, "spherical": spherical,
                     "sharded_spectral": sharded_spectral,
                     "paper_run": paper_run, "serve": serve,
-                    "card": card}, default=str))
+                    "host_data": host_data, "card": card}, default=str))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,8 @@
-"""Preprocessing: gridded data -> predictor datasets, in memory (port of
+"""Preprocessing: gridded data -> predictor datasets and files (port of
 ``dlwp_tpu.data.preprocessing``).
 
 The reference's ``Preprocessor`` (``DLWP/model/preprocessing.py``) with its
-two output modes, built in host memory:
+two output modes:
 
 - :meth:`Preprocessor.data_to_series`: one continuous ``predictors``
   series (sample, varlev, lat, lon), the format the series samplers take;
@@ -13,24 +13,47 @@ Both flatten (variable, level) pairs into ``varlev`` names, and de-mean and
 scale each varlev by its streaming mean and std (NaN rows skipped), in the
 JAX package's batch order, so the statistics agree with its to rounding.
 
-Writing predictor files (``output_file=``, :meth:`Preprocessor.to_file`)
-waits for the host-data slice (ROADMAP.md section 1, item 5) and raises.
-The input is any object with ``times`` / ``lat`` / ``lon`` and
-``field(variable, level)`` (:class:`DataSource`), such as
-:class:`~dlwp_torch.data.barotropic_archive.BarotropicArchiveSource`.
+In memory by default; with ``output_file=`` the scaled batches stream into
+a chunked HDF5 predictor file (:mod:`dlwp_torch.data.dataset`'s schema,
+needs h5py) and the dataset returned reads it lazily, so host memory stays
+O(``batch_samples``) however long the series. :meth:`Preprocessor.to_file`
+writes the current dataset. The input is any object with ``times`` /
+``lat`` / ``lon`` and ``field(variable, level)`` (:class:`DataSource`),
+such as :class:`~dlwp_torch.data.barotropic_archive.BarotropicArchiveSource`
+or :class:`~dlwp_torch.data.cfs.CFSReanalysis`.
 """
 
 from __future__ import annotations
 
+import contextlib
+import os
 from typing import Protocol, Sequence
 
 import numpy as np
 
-from dlwp_torch.data.dataset import PredictorDataset
+from dlwp_torch.data.dataset import NO_H5PY, PredictorDataset
 
-FILE_OUTPUT = ("writing predictor files is not ported yet (ROADMAP.md "
-               "section 1, item 5); pass output_file=None for an in-memory "
-               "dataset")
+
+def _h5py():
+    """h5py, imported where a file is written (optional)."""
+    try:
+        import h5py
+    except ImportError:
+        raise RuntimeError(NO_H5PY) from None
+    return h5py
+
+
+def _write_coords(sink, times, varlev, lat, lon, mean, std, attrs):
+    """The predictor file's datasets besides the arrays, and its attrs."""
+    sink.create_dataset(
+        "sample", data=times.astype("datetime64[ns]").astype(np.int64))
+    sink.create_dataset("varlev", data=np.array([v.encode() for v in varlev]))
+    sink.create_dataset("lat", data=np.asarray(lat))
+    sink.create_dataset("lon", data=np.asarray(lon))
+    sink.create_dataset("mean", data=np.asarray(mean))
+    sink.create_dataset("std", data=np.asarray(std))
+    for k, val in attrs.items():
+        sink.attrs[k] = val
 
 
 class DataSource(Protocol):
@@ -83,7 +106,7 @@ def _varlev_names(variables: Sequence[str], levels: Sequence,
 
 
 class Preprocessor:
-    """Build predictor datasets from a data source."""
+    """Build predictor datasets and files from a data source."""
 
     def __init__(self, source: DataSource):
         self.source = source
@@ -95,32 +118,49 @@ class Preprocessor:
                        output_file: str | None = None) -> PredictorDataset:
         """The continuous series (sample, varlev, lat, lon), each varlev
         scaled as (x - mean) / std when ``scale_variables`` (a zero std
-        counts as 1), ``mean`` / ``std`` kept in the dataset."""
-        if output_file is not None:
-            raise NotImplementedError(FILE_OUTPUT)
+        counts as 1), ``mean`` / ``std`` kept in the dataset.
+
+        With ``output_file`` the scaled batches stream into that HDF5
+        file, one chunk per (batch, varlev) write, and the dataset
+        returned reads it lazily."""
         names = _varlev_names(variables, levels, pairwise)
         times = np.asarray(self.source.times)
         lat = np.asarray(self.source.lat)
         lon = np.asarray(self.source.lon)
         n, nv = len(times), len(names)
-        pred = np.empty((n, nv, lat.shape[0], lon.shape[0]), dtype=dtype)
+        shape = (n, nv, lat.shape[0], lon.shape[0])
+        attrs = {"scaling": str(bool(scale_variables)), "format": "series"}
+        if output_file is not None:
+            sink = _h5py().File(output_file, "w")
+            # Every chunk is written exactly once: no read-modify-write.
+            pred = sink.create_dataset(
+                "predictors", shape=shape, dtype=dtype,
+                chunks=(min(batch_samples, n), 1) + shape[2:])
+        else:
+            sink = None
+            pred = np.empty(shape, dtype=dtype)
         mean, std = np.empty(nv), np.empty(nv)
-        for j, (v, lev, _) in enumerate(names):
-            field = self.source.field(v, lev)
-            m, s = streaming_mean_std(lambda a, b: field[a:b], n,
-                                      batch_samples)
-            mean[j], std[j] = m, (s if s > 0 else 1.0)
-            for i in range(0, n, batch_samples):
-                chunk = np.asarray(field[i:i + batch_samples],
-                                   dtype=np.float64)
-                if scale_variables:
-                    chunk = (chunk - mean[j]) / std[j]
-                pred[i:i + batch_samples, j] = chunk.astype(dtype)
+        varlev = [nm for _, _, nm in names]
+        with sink if sink is not None else contextlib.nullcontext():
+            for j, (v, lev, _) in enumerate(names):
+                field = self.source.field(v, lev)
+                m, s = streaming_mean_std(lambda a, b: field[a:b], n,
+                                          batch_samples)
+                mean[j], std[j] = m, (s if s > 0 else 1.0)
+                for i in range(0, n, batch_samples):
+                    chunk = np.asarray(field[i:i + batch_samples],
+                                       dtype=np.float64)
+                    if scale_variables:
+                        chunk = (chunk - mean[j]) / std[j]
+                    pred[i:i + batch_samples, j] = chunk.astype(dtype)
+            if sink is not None:
+                _write_coords(sink, times, varlev, lat, lon, mean, std, attrs)
+        if sink is not None:
+            self.data = PredictorDataset.from_file(output_file, load="lazy")
+            return self.data
         self.data = PredictorDataset(
             predictors=pred, sample=times.astype("datetime64[ns]"),
-            varlev=[nm for _, _, nm in names], lat=lat, lon=lon, mean=mean,
-            std=std, attrs={"scaling": str(bool(scale_variables)),
-                            "format": "series"})
+            varlev=varlev, lat=lat, lon=lon, mean=mean, std=std, attrs=attrs)
         return self.data
 
     def data_to_samples(self, variables: Sequence[str], levels: Sequence,
@@ -130,29 +170,58 @@ class Preprocessor:
                         output_file: str | None = None) -> PredictorDataset:
         """(predictors, targets) of shape (sample, time_step, varlev, lat,
         lon): sample i holds inputs at times [i, i + T) and targets at
-        [i + T, i + 2T), dated by its last input step."""
-        if output_file is not None:
-            raise NotImplementedError(FILE_OUTPUT)
+        [i + T, i + 2T), dated by its last input step.
+
+        With ``output_file`` the series streams through
+        ``output_file + '.series'`` and the samples into ``output_file``,
+        batch by batch; the dataset returned reads the samples lazily."""
+        series_file = None if output_file is None else output_file + ".series"
         series = self.data_to_series(variables, levels, pairwise,
-                                     scale_variables, batch_samples, dtype)
-        arr = series.predictors
+                                     scale_variables, batch_samples, dtype,
+                                     output_file=series_file)
+        arr = series.predictors  # numpy, or lazy h5py when streaming
         T = int(time_steps)
         n = arr.shape[0] - 2 * T + 1
         if n <= 0:
+            if series_file is not None:
+                series.close()
+                os.remove(series_file)
             raise ValueError("not enough samples for requested time_steps")
         shape = (n, T) + tuple(arr.shape[1:])
-        pred, targ = np.empty(shape, dtype=dtype), np.empty(shape, dtype=dtype)
-        for t in range(T):
-            pred[:, t] = arr[t:t + n]
-            targ[:, t] = arr[T + t:T + t + n]
+        if output_file is not None:
+            sink = _h5py().File(output_file, "w")
+            chunk = (min(batch_samples, n), 1) + tuple(arr.shape[1:])
+            pred = sink.create_dataset("predictors", shape=shape, dtype=dtype,
+                                       chunks=chunk)
+            targ = sink.create_dataset("targets", shape=shape, dtype=dtype,
+                                       chunks=chunk)
+        else:
+            sink = None
+            pred, targ = (np.empty(shape, dtype=dtype),
+                          np.empty(shape, dtype=dtype))
+        sample_times = series.sample[T - 1:T - 1 + n]
+        attrs = {"scaling": series.attrs["scaling"], "format": "samples"}
+        with sink if sink is not None else contextlib.nullcontext():
+            for i in range(0, n, batch_samples):
+                b = min(i + batch_samples, n) - i
+                for t in range(T):
+                    pred[i:i + b, t] = arr[i + t:i + t + b]
+                    targ[i:i + b, t] = arr[i + T + t:i + T + t + b]
+            if sink is not None:
+                _write_coords(sink, sample_times, series.varlev, series.lat,
+                              series.lon, series.mean, series.std, attrs)
+        if sink is not None:
+            series.close()
+            self.data = PredictorDataset.from_file(output_file, load="lazy")
+            return self.data
         self.data = PredictorDataset(
-            predictors=pred, targets=targ, sample=series.sample[T - 1:T - 1 + n],
+            predictors=pred, targets=targ, sample=sample_times,
             varlev=series.varlev, lat=series.lat, lon=series.lon,
-            mean=series.mean, std=series.std,
-            attrs={"scaling": series.attrs["scaling"], "format": "samples"})
+            mean=series.mean, std=series.std, attrs=attrs)
         return self.data
 
     def to_file(self, path: str) -> None:
+        """Write the current dataset as a predictor file."""
         if self.data is None:
             raise RuntimeError("run data_to_series/data_to_samples first")
-        raise NotImplementedError(FILE_OUTPUT)
+        self.data.to_file(path)

@@ -11,9 +11,12 @@ model's scaler/imputer. Index arithmetic:
     inputs[i]  = series[i .. i+in_ts-1]
     targets[i, s, n] = series[i + in_ts + interval - 1 + out_ts*s + n]
 
-:class:`SamplesSampler` batches a samples-format dataset with explicit
-targets; :func:`device_prefetch` copies batches onto the card ahead of
-the step that uses them.
+A series read lazily from a predictor file (``from_file(load='lazy')``)
+stays on disk: the NaN scan reads it in chunks and each batch reads its
+rows. An in-memory float32 series is gathered by the native batch gather
+(:mod:`dlwp_torch.data.native`). :class:`SamplesSampler` batches a
+samples-format dataset with explicit targets; :func:`device_prefetch`
+copies batches onto the card ahead of the step that uses them.
 """
 
 from __future__ import annotations
@@ -25,9 +28,13 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from dlwp_torch.data import native
 from dlwp_torch.data.dataset import PredictorDataset
 from dlwp_torch.device import resolve_device
 from dlwp_torch.grid.insolation import day_of_year, insolation
+
+# Rows of the series that the NaN scan reads at a time.
+NAN_SCAN_ROWS = 4096
 
 
 class _EpochBatches:
@@ -117,10 +124,11 @@ class SeriesSampler(_EpochBatches):
         self._rng = np.random.RandomState(seed)
         self._dtype = dtype
 
-        arr = np.asarray(data.predictors)
+        # A lazy (h5py) series stays on disk: batches read their rows.
+        arr = data.predictors
         if data.has_time_step:  # samples-format: last input time step
-            arr = arr[:, -1]
-        self._series = arr  # (N, V, H, W)
+            arr = np.asarray(arr)[:, -1]
+        self._series = arr  # (N, V, H, W), numpy or h5py
         seq = sequence if sequence is not None else 1
         self._n_sample = (arr.shape[0] - self._in_ts - self._out_ts * seq
                           + 2 - interval)
@@ -143,11 +151,16 @@ class SeriesSampler(_EpochBatches):
     def _valid_windows(self):
         """Window starts whose selected input channels and target channels
         hold no NaN (the joint criterion of :meth:`generate`), or None when
-        every window is valid."""
+        every window is valid. The series is scanned in chunks of
+        ``NAN_SCAN_ROWS`` rows, so a lazy one is read a chunk at a time."""
         N = self._series.shape[0]
-        nan = np.isnan(self._series)
-        row_in = nan[:, self._input_idx].reshape(N, -1).any(axis=1)
-        row_out = nan[:, self._output_idx].reshape(N, -1).any(axis=1)
+        row_in = np.zeros(N, dtype=np.int64)
+        row_out = np.zeros(N, dtype=np.int64)
+        for i in range(0, N, NAN_SCAN_ROWS):
+            nan = np.isnan(np.asarray(self._series[i:i + NAN_SCAN_ROWS]))
+            n = len(nan)
+            row_in[i:i + n] = nan[:, self._input_idx].reshape(n, -1).any(1)
+            row_out[i:i + n] = nan[:, self._output_idx].reshape(n, -1).any(1)
         if not (row_in.any() or row_out.any()):
             return None
         cs_in = np.concatenate([[0], np.cumsum(row_in)])
@@ -192,10 +205,18 @@ class SeriesSampler(_EpochBatches):
 
     # ------------------------------------------------------------- assembly
     def _gather(self, samples, offsets, chan_idx):
-        """(B, T, C_sel, H, W) of time-shifted slices."""
-        return np.stack(
-            [self._series[samples + n][:, chan_idx] for n in offsets], axis=1
-        )
+        """(B, T, C_sel, H, W) of time-shifted slices. An in-memory series
+        goes to :func:`dlwp_torch.data.native.assemble`: the native gather
+        for a C-contiguous float32 series, else its numpy version. A lazy
+        (h5py) series reads each time step's rows sorted and unique, as
+        h5py requires, then restores the batch's order and duplicates."""
+        arr = self._series
+        if isinstance(arr, np.ndarray):
+            return native.assemble(arr, samples,
+                                   np.arange(offsets.start, offsets.stop),
+                                   chan_idx)
+        return np.stack([_read_rows(arr, samples + n)[:, chan_idx]
+                         for n in offsets], axis=1)
 
     def generate(self, samples=(), scale_and_impute: bool = True,
                  return_indices: bool = False):
@@ -206,7 +227,7 @@ class SeriesSampler(_EpochBatches):
                    else np.asarray(samples, dtype=np.int64))
         B = len(samples)
         p = self._gather(samples, range(self._in_ts),
-                         self._input_idx).astype(self._dtype)
+                         self._input_idx).astype(self._dtype, copy=False)
         if self._add_insolation:
             sol = np.stack([self._insolation[samples + n]
                             for n in range(self._in_ts)], axis=1)[:, :, None]
@@ -219,7 +240,7 @@ class SeriesSampler(_EpochBatches):
                 range(t_start + self._out_ts * s,
                       t_start + self._out_ts * (s + 1)),
                 self._output_idx,
-            ).astype(self._dtype)
+            ).astype(self._dtype, copy=False)
             for s in range(seq)
         ]
         if self._remove_nan:
@@ -258,6 +279,15 @@ class SeriesSampler(_EpochBatches):
         samples = (np.arange(self._n_sample) if samples is None
                    else np.asarray(samples))
         return self.data.sample[samples + self._in_ts - 1]
+
+
+def _read_rows(arr, idx):
+    """``arr[idx]`` along axis 0 of a lazy (h5py) array: read at the sorted
+    unique indices, then permuted back (duplicates through the inverse
+    map)."""
+    order = np.argsort(idx, kind="stable")
+    uniq, inverse = np.unique(idx[order], return_inverse=True)
+    return arr[uniq][inverse][np.argsort(order, kind="stable")]
 
 
 class SamplesSampler(_EpochBatches):

@@ -1,15 +1,18 @@
-"""Build the hand-written CUDA kernels at first use and load them.
+"""Build the hand-written kernels at first use and load them.
 
 Each ``dlwp_torch/csrc/<name>.cu`` exposes a plain C interface and is
 compiled on its own by ``nvcc`` into a shared library under
 ``dlwp_torch/kernels/_build/`` (listed in ``.gitignore``), then loaded with
-``ctypes``. The library name carries a hash of the source, the shared
-headers (``csrc/*.cuh``) and the flags, so an edited source or header is
-rebuilt and a current one is reused. Sources build
-in parallel: one ``nvcc`` process each, all started together.
+``ctypes``. Each ``csrc/<name>.c`` (a host kernel, such as the batch
+gather) is compiled the same way by the host C compiler (``cc -O3 -fPIC
+-shared -pthread``). The library name carries a hash of the source, for
+CUDA sources the shared headers (``csrc/*.cuh``), and the flags, so an
+edited source or header is rebuilt and a current one is reused. Sources
+build in parallel: one compiler process each, all started together.
 
 Nothing here runs at import time; the CPU-only test environment imports
-every module and has no ``nvcc``.
+every module and has no ``nvcc`` (it has a C compiler, so the host
+kernels build and run in its tests).
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
+CC_FLAGS = ["-O3", "-fPIC", "-shared", "-pthread", "-std=c11"]
 
 _LOADED: dict[str, ctypes.CDLL] = {}
 
@@ -43,47 +47,85 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
+def cc_path() -> str | None:
+    """The host C compiler (``$CC``, else ``cc``, else ``gcc``), or None
+    where there is none."""
+    for cand in (os.environ.get("CC"), "cc", "gcc"):
+        path = cand and shutil.which(cand)
+        if path:
+            return path
+    return None
+
+
 def sources() -> list[str]:
+    """The CUDA kernels' names (``csrc/*.cu``)."""
     return sorted(p.stem for p in CSRC.glob("*.cu"))
 
 
+def host_sources() -> list[str]:
+    """The host kernels' names (``csrc/*.c``)."""
+    return sorted(p.stem for p in CSRC.glob("*.c"))
+
+
+def source_path(name: str) -> Path:
+    cu = CSRC / f"{name}.cu"
+    return cu if cu.exists() else CSRC / f"{name}.c"
+
+
+def _command(name: str, out: Path) -> list[str]:
+    src = source_path(name)
+    if src.suffix == ".cu":
+        return [nvcc_path(), *NVCC_FLAGS, "-o", str(out), str(src)]
+    cc = cc_path()
+    if cc is None:
+        raise RuntimeError("no C compiler found: set CC or put cc on PATH")
+    return [cc, *CC_FLAGS, "-o", str(out), str(src)]
+
+
 def library_path(name: str) -> Path:
-    """The library of ``csrc/<name>.cu``, named by a hash of that source,
-    every shared header (``csrc/*.cuh``) and the flags."""
-    digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
-    for header in sorted(CSRC.glob("*.cuh")):
-        digest.update(header.name.encode())
-        digest.update(header.read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
+    """The library of ``csrc/<name>.cu`` (or ``.c``), named by a hash of
+    that source, for a CUDA source every shared header (``csrc/*.cuh``),
+    and the flags."""
+    src = source_path(name)
+    digest = hashlib.sha1(src.read_bytes())
+    if src.suffix == ".cu":
+        for header in sorted(CSRC.glob("*.cuh")):
+            digest.update(header.name.encode())
+            digest.update(header.read_bytes())
+        digest.update(" ".join(NVCC_FLAGS).encode())
+    else:
+        digest.update(" ".join(CC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
 def build(names=None) -> float:
-    """Compile every listed source (default: all) whose library is missing;
-    returns the wall seconds spent. ``nvcc``'s ``-Xptxas -v`` report
-    (registers, shared memory, spills) is kept beside each library as
-    ``.log``."""
-    names = sources() if names is None else list(names)
+    """Compile every listed source (default: every CUDA and host kernel)
+    whose library is missing;
+    returns the wall seconds spent. The compiler's output (for CUDA
+    sources ``nvcc``'s ``-Xptxas -v`` report: registers, shared memory,
+    spills) is kept beside each library as ``.log``; a failed build
+    raises with it."""
+    names = sources() + host_sources() if names is None else list(names)
     todo = [n for n in names if not library_path(n).exists()]
     if not todo:
         return 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = nvcc_path()
     t0 = time.perf_counter()
     procs = []
     for n in todo:
         out = library_path(n)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
         procs.append((n, out, tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            _command(n, tmp), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True,
         )))
     failed = []
     for n, out, tmp, proc in procs:
         log, _ = proc.communicate()
         out.with_suffix(".log").write_text(log)
         if proc.returncode:
-            failed.append(f"{n}.cu (nvcc exit {proc.returncode}):\n{log}")
+            failed.append(f"{source_path(n).name} ({proc.args[0]} exit "
+                          f"{proc.returncode}):\n{log}")
         else:
             os.replace(tmp, out)
     if failed:
@@ -97,7 +139,8 @@ def build_log(name: str) -> str:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    """The loaded library of ``csrc/<name>.cu`` (or ``.c``), built first
+    if needed."""
     lib = _LOADED.get(name)
     if lib is None:
         build([name])

@@ -279,31 +279,46 @@ def export_program(
     example_args,
     *,
     batch="b",
+    batched=(0,),
     meta: dict | None = None,
     host_state: dict | None = None,
 ) -> Servable:
     """Export a function or module of tensors as a :class:`Servable`.
 
     ``example_args``: tensors on the device the program is exported on.
+    ``batched``: the positions of the inputs whose axis 0 is the batch
+    (default: the first input alone); every other input keeps its
+    example's shape. No input is taken as batched from its length.
     ``batch``: a name (default ``"b"``: a ``torch.export.Dim`` of that name
     on axis 0 of every batched input, so the program takes any batch
     size), a ``Dim`` (for bounds), an int (the batch the examples must
-    have) or ``None`` (the examples' shapes). The batched inputs are
-    those whose axis 0 has the first input's length.
+    have) or ``None`` (the examples' shapes). A symbolic batch is traced
+    at 2 or more: export would specialise a size of 0 or 1, so a smaller
+    example is refused.
     """
     args = tuple(example_args)
     if not args or not all(isinstance(a, torch.Tensor) for a in args):
         raise TypeError("export_program takes a non-empty tuple of tensors")
-    n = args[0].shape[0] if args[0].dim() else None
-    batched = [a.dim() > 0 and a.shape[0] == n for a in args]
     dim = Dim(batch) if isinstance(batch, str) else batch
-    if isinstance(dim, int):
-        for a, b in zip(args, batched):
-            if b and a.shape[0] != dim:
-                raise ValueError(f"example batch {a.shape[0]} differs from "
-                                 f"batch={dim}")
+    positions = [] if dim is None else sorted(set(batched))
+    if dim is not None and not (
+            positions and all(0 <= i < len(args) and args[i].dim() > 0
+                              for i in positions)):
+        raise ValueError(f"batched={tuple(batched)}: positions of inputs "
+                         f"with an axis 0 among the {len(args)}, at least one")
+    is_batched = [i in positions for i in range(len(args))]
+    sizes = {int(args[i].shape[0]) for i in positions}
+    if len(sizes) > 1:
+        raise ValueError(f"the batched inputs' axis 0 differ: {sorted(sizes)}")
+    n = sizes.pop() if sizes else None
+    if isinstance(dim, int) and n != dim:
+        raise ValueError(f"example batch {n} differs from batch={dim}")
     dynamic = isinstance(dim, Dim)
-    shapes = tuple({0: dim} if b and dynamic else None for b in batched)
+    if dynamic and n < 2:
+        raise ValueError(f"example batch {n}: trace a symbolic batch at 2 or "
+                         f"more (export specialises a size of 0 or 1), or "
+                         f"pin it with batch={n}")
+    shapes = tuple({0: dim} if b and dynamic else None for b in is_batched)
     module = _Program(fn_or_module)
     with torch.no_grad():
         program = torch.export.export(module, args, dynamic_shapes=(shapes,))
@@ -313,7 +328,7 @@ def export_program(
     if dynamic:
         # The range export gave the batch symbol (a bound may come from a
         # guard of the traced code).
-        user = program.graph_signature.user_inputs[batched.index(True)]
+        user = program.graph_signature.user_inputs[positions[0]]
         node = next(n for n in program.graph.nodes if n.name == user)
         vr = program.range_constraints[node.meta["val"].shape[0].node.expr]
         lo, hi = (float(v) for v in (vr.lower, vr.upper))
@@ -321,7 +336,7 @@ def export_program(
     inputs = [[[name if b and dynamic and i == 0 else int(s)
                 for i, s in enumerate(a.shape)],
                str(a.dtype).removeprefix("torch.")]
-              for a, b in zip(args, batched)]
+              for a, b in zip(args, is_batched)]
     meta = dict(meta or {"kind": "custom"})
     meta.update(inputs=inputs, batch=name if dynamic else dim,
                 batch_range=[lo, hi], device=str(args[0].device))

@@ -122,17 +122,40 @@ def test_data_to_series_and_samples_match_jax(pairwise, scale):
     assert got.attrs == want.attrs
 
 
-def test_file_output_raises_naming_item_5():
-    pp = Preprocessor(_Source())
-    with pytest.raises(NotImplementedError, match="item 5"):
-        pp.data_to_series(["HGT"], [500], output_file="x.h5")
-    with pytest.raises(NotImplementedError, match="item 5"):
-        pp.data_to_samples(["HGT"], [500], output_file="x.h5")
+def test_file_output_raises_naming_item_5(tmp_path):
+    """The flow that raised before predictor files were ported now writes
+    them: ``output_file=`` streams the series and the samples into HDF5
+    files equal to the JAX package's (the same float64 arithmetic, then
+    float32: bit-equal), and ``to_file`` writes the current data. Still
+    refused: ``to_file`` before any data, and too many time steps."""
+    import h5py
+
+    pp, jpp = Preprocessor(_Source()), JPreprocessor(_Source())
     with pytest.raises(RuntimeError):
-        pp.to_file("x.h5")
-    pp.data_to_series(["HGT"], [500])
-    with pytest.raises(NotImplementedError, match="item 5"):
-        pp.to_file("x.h5")
+        pp.to_file(str(tmp_path / "x.h5"))
+    kw = dict(batch_samples=5)
+    for method, extra in (("data_to_series", {}),
+                          ("data_to_samples", {"time_steps": 2})):
+        got = getattr(pp, method)(["HGT"], [500], output_file=str(
+            tmp_path / f"{method}.h5"), **extra, **kw)
+        want = getattr(jpp, method)(["HGT"], [500], output_file=str(
+            tmp_path / f"j_{method}.h5"), **extra, **kw)
+        for name in ("predictors", "targets"):
+            if getattr(want, name) is not None:
+                np.testing.assert_array_equal(getattr(got, name)[:],
+                                              getattr(want, name)[:])
+        pp.to_file(str(tmp_path / f"{method}_again.h5"))
+        jpp.to_file(str(tmp_path / f"j_{method}_again.h5"))
+        got.close()
+        want.close()
+        for a, b in ((f"{method}_again.h5", f"j_{method}_again.h5"),
+                     (f"{method}.h5", f"j_{method}.h5")):
+            with h5py.File(tmp_path / a) as fa, h5py.File(tmp_path / b) as fb:
+                assert sorted(fa) == sorted(fb)
+                assert dict(fa.attrs) == dict(fb.attrs)
+                for k in fa:
+                    assert fa[k].dtype == fb[k].dtype, k
+                    np.testing.assert_array_equal(fa[k][:], fb[k][:])
     with pytest.raises(ValueError, match="time_steps"):
         pp.data_to_samples(["HGT"], [500], time_steps=12)
 

@@ -28,7 +28,8 @@ kernels launched by ``fit_generator`` and the forecast after it. The
 spectral side: ``fold=True`` against the unfolded engine, an S2Convolution
 at the reference stack's width against the CPU, a two-truth archive
 against the CPU's, and the sharded barotropic model on two virtual shards
-against the unsharded one.
+against the unsharded one. The host data path: the native batch gather
+(bit-equal to its numpy version) feeding a full-width train step.
 """
 
 import numpy as np
@@ -820,3 +821,44 @@ def test_custom_ops_opcheck_on_card(dev):
             torch.ops.dlwp_torch.lstm_gates.default,
             (*ops, "tanh", "hard_sigmoid", gd))
         assert set(res.values()) == {"SUCCESS"}
+
+
+def test_native_gather_feeds_a_train_step_on_card(dev):
+    """The flagship's sampler at full width (36x144, B=8) gathers its batch
+    with the native gather (one call for the inputs, one for the targets),
+    bit-equal to the numpy version, and that batch trains one step on the
+    card: the gate kernel once, a finite loss."""
+    from dlwp_torch import PredictorDataset, SeriesSampler
+    from dlwp_torch.data import native
+    from dlwp_torch.ops.losses import latitude_weighted_loss, mse
+    from dlwp_torch.train import TrainConfig, Trainer
+
+    n = 40
+    data = PredictorDataset(
+        predictors=np.random.RandomState(8).randn(n, 2, 36, 144)
+        .astype(np.float32),
+        sample=(np.datetime64("2007-01-01")
+                + np.arange(n) * np.timedelta64(6, "h")),
+        varlev=["HGT/500", "THICK/300-700"],
+        lat=np.linspace(87.5, 0.0, 36), lon=np.arange(144) * 2.5)
+    sampler = SeriesSampler(data, input_time_steps=2, output_time_steps=2,
+                            add_insolation=True, batch_size=8, shuffle=True,
+                            is_recurrent=True)
+    samples = sampler._indices[:8]
+    before = native.assemble.launches
+    x, y = sampler.generate(samples)
+    assert native.assemble.launches == before + 2
+    series = data.predictors
+    np.testing.assert_array_equal(
+        x[:, :, :2], native.assemble_plain(series, samples, [0, 1], [0, 1]))
+    np.testing.assert_array_equal(
+        y, native.assemble_plain(series, samples, [2, 3], [0, 1]))
+    model = build_sequential(convlstm_specs(), device=dev)
+    model.init(torch.from_numpy(x), seed=3)
+    tr = Trainer(model, TrainConfig(loss=latitude_weighted_loss(
+        mse, data.lat)))
+    tr.init(x)
+    reset_launch_counts()
+    loss = tr.train_step(x, y)["loss"].item()
+    assert launch_counts()["lstm_gates"] == 1
+    assert np.isfinite(loss)

@@ -316,7 +316,7 @@ def test_forecast_servable_holds_the_kernel_ops_and_moves_whole():
     limit = est.precompute_batch_limit(steps)
     rollout = est.rollout_fn(steps)
     servable = export_program(rollout, (x0, days, mean),
-                              batch=Dim("b", max=limit))
+                              batch=Dim("b", max=limit), batched=(0, 1))
     calls = _calls(servable.program)
     assert sorted(c for c in calls if c in OPS) == sorted(
         ["dlwp_torch.fused_conv_pool.default"] * 2 * steps
@@ -334,6 +334,41 @@ def test_forecast_servable_holds_the_kernel_ops_and_moves_whole():
     assert tables and all(t.device.type == "meta" for t in tables)
     out = moved.module()(*(t.to("meta") for t in (x0, days, mean)))
     assert out.device.type == "meta" and out.shape == (steps, 6, 2, 2, 8, 16)
+
+
+def test_export_program_batches_only_the_named_inputs():
+    """At an example batch of 3 the estimator's ``mean_state`` (3, 8, 16)
+    has the batch's length on axis 0; it is not batched unless named, so
+    the servable serves batch 6 with the same ``mean_state``, equal to the
+    eager rollout, and refuses another ``mean_state``."""
+    est = _forecast()
+    steps = 3
+    x0, days, mean, _ = est.prepare_inputs(np.arange(6))
+    assert mean.shape[0] == 3
+    rollout = est.rollout_fn(steps)
+    servable = export_program(
+        rollout, (x0[:3], days[:3], mean), batched=(0, 1),
+        batch=Dim("b", max=est.precompute_batch_limit(steps)))
+    assert servable.meta["inputs"][2][0] == list(mean.shape)
+    assert servable.meta["inputs"][0][0][0] == "b"
+    got = servable.call(x0, days, mean)
+    assert got.shape[1] == 6
+    assert torch.equal(got, rollout(x0, days, mean))
+    with pytest.raises(ValueError, match="input 2: axis 0"):
+        servable.call(x0, days, mean[:2])
+
+
+def test_export_program_refuses_a_symbolic_batch_traced_at_1(monkeypatch):
+    """A symbolic batch traced at 1 is refused before ``torch.export``
+    runs (export would specialise the size and fail on its constraint)."""
+    est = _forecast()
+    x0, days, mean, _ = est.prepare_inputs(np.arange(1))
+    monkeypatch.setattr(torch.export, "export", lambda *a, **k: (
+        pytest.fail("torch.export ran")))
+    with pytest.raises(ValueError, match="2 or more"):
+        export_program(est.rollout_fn(2), (x0, days, mean), batched=(0, 1))
+    with pytest.raises(ValueError, match="2 or more"):
+        export_program(lambda a: a * 2.0, (torch.ones(1, 3),))
 
 
 def test_cpu_export_of_the_recurrent_rollout_holds_both_ops():
