@@ -178,7 +178,21 @@ Phases, each raising on failure:
     the JAX package's RuntimeError; (e) ``CFSReanalysis.retrieve`` against
     a local ``http.server`` fixture (fetch, retry, warning, idempotent
     skip);
-23. a ``{"kernels": [...]}`` line, then the last line
+23. ``--only sharded_train``: training the flagship with its activations
+    sharded over meshes that repeat the card, built as
+    ``examples/train_convlstm.py`` builds it (B=32, the training phase's
+    stack) with ``spatial_impl="overlap"``: on (data 1, lat 2), (data 2,
+    lat 2) and (data 1, lat 2, lon 2) 3 train steps from the unsharded
+    card model's weights on the same batches, within ``TOL_TRAIN`` of the
+    unsharded card run and of the CPU's lat=2 run (plain versions), each
+    step's launches equal to one forward's dispatch (the lon mesh: the
+    gates only); ``fit_device`` for an epoch on the lat=2 mesh
+    (``DeviceSeriesSampler(sharding=mesh)``); ``dryrun_multichip`` on 8
+    and 4 entries of the card; each train step timed in turns with the
+    unsharded one (CUDA events), split by part (``torch.profiler``), with
+    the idle share and the plain-exchange recompute's share of the
+    backward;
+24. a ``{"kernels": [...]}`` line, then the last line
     ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without printing a result when no CUDA device is present.
@@ -729,13 +743,15 @@ def gates_per_train_step(S):
     return (TD - 1) * S * (2 if S > 1 else 1)
 
 
-def train_stack(device, S=1, seed=0, n=TRAIN_N, specs=None, shuffle=True):
+def train_stack(device, S=1, seed=0, n=TRAIN_N, specs=None, shuffle=True,
+                mesh=None):
     """The flagship (or ``specs``) to train and its train and validation
     samplers, as ``examples/train_convlstm.py`` builds them: the last 25%
     of the series held out with ``train_test_split_ind``, shuffle on with
     seed 0 (unless ``shuffle`` is off), insolation, TD input and output
     steps, B=32, a latitude-weighted MSE, adam at 1e-3 and early stopping
-    armed; random weights from ``seed``."""
+    armed; random weights from ``seed``. With a ``mesh``, the model is
+    built on it with ``spatial_impl="overlap"`` (:func:`mesh_spec`)."""
     from dlwp_torch import DLWPNeuralNet
     from dlwp_torch.flagship import convlstm_specs
     from dlwp_torch.ops.losses import latitude_weighted_loss, mse
@@ -748,7 +764,8 @@ def train_stack(device, S=1, seed=0, n=TRAIN_N, specs=None, shuffle=True):
         loss=latitude_weighted_loss(mse, data.lat), optimizer="adam",
         learning_rate=TRAIN_LR, sequence_steps=S,
         splice_fn=splice_insolation if S > 1 else None,
-        early_stopping=True, patience=TRAIN_EPOCHS,
+        early_stopping=True, patience=TRAIN_EPOCHS, mesh=mesh,
+        batch_spec=mesh_spec(mesh) if mesh else None, spatial_impl="overlap",
     )
     train, val = train_samplers(net, S, n, shuffle)
     net.init(train.generate(np.arange(1))[0], seed=seed)
@@ -927,13 +944,15 @@ def leaf_modules(model):
             if n and not any(True for _ in m.children())}
 
 
-def forced_gradient(torch, S, specs, weights, batch, card_out):
+def forced_gradient(torch, S, specs, weights, batch, card_out, mesh=None):
     """The first step's gradient on the CPU from ``weights``, its backward
     evaluated at the card's forward values ``card_out`` (each leaf
     module's output, by name): each output keeps the CPU's graph and takes
     the card's value, so a max whose argmax the two forwards' last-bit
-    differences flip (a near tie) routes the gradient as on the card."""
-    ref, _, _ = train_stack("cpu", S, specs=specs)
+    differences flip (a near tie) routes the gradient as on the card.
+    ``mesh``: a CPU mesh the reference is built on (the card model's
+    layers, hence its leaf names, are a mesh model's)."""
+    ref, _, _ = train_stack("cpu", S, specs=specs, mesh=mesh)
     ref.base_model.load_state_dict(weights)
     for p in ref.base_model.parameters():
         p.requires_grad_(True)
@@ -1080,6 +1099,19 @@ def train_vs_cpu(torch, dev, S, make_specs=None, pools=2, label="train",
     return out
 
 
+# Parts of a train step's split that run in its backward. A sharded
+# conv's backward on the kernel paths recomputes the conv through the plain
+# exchange (SHARDED_RECOMPUTE) and differentiates that recompute (the
+# other two "sharded conv backward" parts).
+SHARDED_RECOMPUTE = "sharded conv backward: plain-exchange forward recomputed"
+BACKWARD_PARTS = ("lstm_gates kernel (recompute)", "plain gate VJP",
+                  "conv data-gradient", "conv weight-gradient",
+                  "conv backward, other kernels", "conv forward (recompute)",
+                  "other backward", SHARDED_RECOMPUTE,
+                  "sharded conv backward: conv gradients",
+                  "sharded conv backward: exchange, wrap and copy gradients")
+
+
 def train_step_split(torch, fn):
     """Device time of one call of ``fn`` (a train step) by part, from a
     ``torch.profiler`` trace: each kernel goes to the part its name or the
@@ -1100,6 +1132,19 @@ def train_step_split(torch, fn):
             e = e.cpu_parent
         ops = " | ".join(chain)
         backward = "autograd::engine" in ops
+        if "_FastConvBackward" in ops:
+            # Inside the sharded conv's backward: its plain-exchange
+            # forward, then (a nested engine call) that forward's backward.
+            if sum(c.startswith("autograd::engine::evaluate_function")
+                   for c in chain) < 2:
+                return SHARDED_RECOMPUTE
+            if "aten::convolution_backward" in ops:
+                return "sharded conv backward: conv gradients"
+            return "sharded conv backward: exchange, wrap and copy gradients"
+        if "halo_kernel" in kname:
+            return "halo_exchange kernel"
+        if "overlap" in kname and "kernel" in kname:
+            return "overlap conv kernels"
         if "lstm_gates" in kname:
             return "lstm_gates kernel" + (" (recompute)" if backward else "")
         if "Optimizer.step" in ops:
@@ -2244,12 +2289,19 @@ def time_barotropic(torch, dev):
     return rows
 
 
-def virtual_mesh(dev, data, lat):
-    """A (data, lat) mesh whose entries all name ``dev``."""
+def virtual_mesh(dev, data, lat, lon=1):
+    """A (data, lat) mesh, or (data, lat, lon) with ``lon`` > 1, whose
+    entries all name ``dev``."""
     from dlwp_torch.parallel import MeshConfig, build_mesh
 
-    return build_mesh(MeshConfig(data=data, lat=lat),
-                      devices=[dev] * (data * lat))
+    return build_mesh(MeshConfig(data=data, lat=lat, lon=lon),
+                      devices=[dev] * (data * lat * lon))
+
+
+def mesh_spec(mesh):
+    """The flagship input's batch spec on ``mesh``: SHARD_SPEC, with the
+    longitude axis named when the mesh has one."""
+    return SHARD_SPEC[:-1] + ("lon" if "lon" in mesh.axis_names else None,)
 
 
 def max_err(got, want):
@@ -3882,6 +3934,249 @@ def run_host_data(torch, dev):
     return out
 
 
+# The sharded training phase: the flagship train step at B=32 (the
+# training phase's stack) on meshes of virtual shards of the one card,
+# (data, lat) or (data, lat, lon), built with spatial_impl="overlap"; a
+# lon axis sends every conv through the plain ring.
+TRAIN_MESHES = ((1, 2), (2, 2), (1, 2, 2))
+DRYRUN_ENTRIES = (8, 4)
+
+
+def mesh_name(shape):
+    return " x ".join(f"{a} {n}" for a, n in zip(("data", "lat", "lon"),
+                                                  shape))
+
+
+def step_run(torch, net, batches, dev=None):
+    """TRAIN_CHECK_STEPS train steps of ``net`` on ``batches``: each step's
+    loss, the first step's gradient and leaf modules' outputs (by name),
+    the parameters before and after, and (on the card, ``dev``) each
+    step's launches."""
+    from dlwp_torch.kernels import launch_counts
+
+    tr = net.trainer
+    tr.init(batches[0][0])
+    state = {k: v.detach().cpu().clone()
+             for k, v in net.base_model.state_dict().items()}
+    losses, grads, launches, outs = [], None, [], {}
+    for k, (xb, yb) in enumerate(batches):
+        hooks = [] if k else [m.register_forward_hook(
+            lambda mod, inp, out, n=n: outs.__setitem__(n, out.detach().cpu()))
+            for n, m in leaf_modules(net.base_model).items()]
+        before = launch_counts()
+        losses.append(tr.train_step(xb, yb)["loss"].item())
+        for h in hooks:
+            h.remove()
+        if dev is not None:
+            torch.cuda.synchronize()
+            after = launch_counts()
+            launches.append({n: after[n] - before[n] for n in after})
+        if k == 0:
+            grads = {n: p.grad.detach().cpu().clone()
+                     for n, p in net.base_model.named_parameters()}
+    params = {k: v.detach().cpu().clone()
+              for k, v in net.base_model.state_dict().items()}
+    return {"losses": losses, "grads": grads, "params": params,
+            "launches": launches, "before": state, "outs": outs}
+
+
+def train_errors(got, want):
+    """Loss (each step, relative), the first gradient without forcing and
+    the parameters after the steps (relative RMS) of one step run against
+    another."""
+    return {"loss_rel": max(abs(a - b) / abs(b)
+                            for a, b in zip(got["losses"], want["losses"])),
+            "grad_rel_rms_unforced": state_rel_rms(got["grads"],
+                                                   want["grads"]),
+            "params_rel_rms": state_rel_rms(got["params"], want["params"])}
+
+
+def mesh_pool_flips(net, got, want):
+    """:func:`pool_decisions` at each max pool of ``net`` (on its input,
+    the leaf module before it) between two step runs' first forwards:
+    {pool: (argmax flips, windows, smallest top-two gap of ``want``)}."""
+    leaves = list(leaf_modules(net.base_model).items())
+    return {n: pool_decisions(got[prev], want[prev])
+            for (prev, _), (n, m) in zip(leaves, leaves[1:])
+            if type(m).__name__ == "MaxPool2D"}
+
+
+def run_sharded_train(torch, dev):
+    """Training the flagship with its activations sharded over meshes of
+    the card (the slice's main path): per mesh of TRAIN_MESHES, 3 train
+    steps from the unsharded card model's weights on the same batches,
+    held against the unsharded card run and the CPU's lat=2 run (plain
+    versions) at TOL_TRAIN, each step's launches equal to one forward's
+    dispatch (the backward recomputes through the plain exchange and
+    launches no lat-band kernel); then fit_device for an epoch on the
+    lat=2 mesh, dryrun_multichip on 8 and 4 entries of the card, and the
+    sharded steps timed in turns with the unsharded one, split by part."""
+    from dlwp_torch import DeviceSeriesSampler, dryrun_multichip, flax_tree
+    from dlwp_torch.kernels import launch_counts, reset_launch_counts
+
+    t_phase = time.perf_counter()
+    card, train, _ = train_stack(dev)
+    weights = flax_tree(card.base_model)
+    batches = [train[i] for i in range(TRAIN_CHECK_STEPS)]
+    nets, need, out_plans = {}, {}, {}
+    for shape in TRAIN_MESHES:
+        net, _, _ = train_stack(dev, mesh=virtual_mesh(dev, *shape))
+        net.load_flax_params(weights)
+        nets[shape] = net
+        cpu, _, _ = train_stack("cpu", mesh=virtual_mesh(
+            torch.device("cpu"), *shape))
+        cpu.load_flax_params(weights)
+        need[shape] = dispatch_launches(torch, cpu, TRAIN_B)
+        if shape == TRAIN_MESHES[0]:
+            cpu_lat2 = cpu
+        kernels = [n for n in ("halo_exchange", "overlap_conv",
+                               "overlap_conv_db") if need[shape][n]]
+        # Which overlap kernel (and batch pieces) each 3x3 conv takes at
+        # this mesh's per-shard train batch; (batch, None): single-shot.
+        plans = {} if len(shape) == 3 else {
+            name: overlap_dispatch(torch, (TRAIN_B // shape[0],) + sh[1:], o)
+            for name, sh, o in OVERLAP_CONVS}
+        out_plans[mesh_name(shape)] = plans
+        log(f"sharded train {mesh_name(shape)}: launches a train step from "
+            f"the dispatch {need[shape]}; overlap dispatch (batch, chunk) "
+            f"{plans}")
+        lon = len(shape) == 3
+        if not need[shape]["lstm_gates"] or (not lon and (
+                "halo_exchange" not in kernels or len(kernels) < 2)) or (
+                lon and kernels):
+            raise AssertionError(f"{mesh_name(shape)}: dispatch {need[shape]}")
+    t0 = time.perf_counter()
+    cpu_run = step_run(torch, cpu_lat2, batches)
+    cpu_s = time.perf_counter() - t0
+    ref = {"unsharded card": step_run(torch, card, batches),
+           "CPU data 1 x lat 2": cpu_run}
+    # The main path: every count from 0, read after the last mesh's steps.
+    reset_launch_counts()
+    runs = {shape: step_run(torch, nets[shape], batches, dev)
+            for shape in TRAIN_MESHES}
+    torch.cuda.synchronize()
+    out = {"launches": launch_counts(),
+           "launches_per_step": {mesh_name(k): v for k, v in need.items()},
+           "overlap_dispatch": out_plans, "reference_s": cpu_s}
+    for shape, run in runs.items():
+        name = mesh_name(shape)
+        for k, got in enumerate(run["launches"]):
+            if got != need[shape]:
+                raise AssertionError(f"{name} step {k}: launches {got} != "
+                                     f"{need[shape]}")
+        # The first gradient is held to the CPU's backward at this run's
+        # forward values: a max pool whose top two differ by less than
+        # fp32 resolves may route it otherwise (the forced check of
+        # train_vs_cpu).
+        forced = forced_gradient(torch, 1, None, run["before"], batches[0],
+                                 run["outs"], mesh=virtual_mesh(
+                                     torch.device("cpu"), *TRAIN_MESHES[0]))
+        row = out[name] = {
+            "losses": run["losses"],
+            "grad_rel_rms": state_rel_rms(run["grads"], forced),
+            "pool_flips_vs_cpu": mesh_pool_flips(nets[shape], run["outs"],
+                                                 cpu_run["outs"])}
+        for tag, want in ref.items():
+            row[f"vs {tag}"] = train_errors(run, want)
+        log(f"sharded train {name} ({TRAIN_CHECK_STEPS} steps at B="
+            f"{TRAIN_B}; limits {TOL_TRAIN}): first gradient against the "
+            f"CPU's backward at this run's forward values relative RMS "
+            f"{row['grad_rel_rms']:.3e}; max-pool argmax flips against the "
+            f"CPU (flips, windows, the CPU's smallest top-two gap) "
+            f"{row['pool_flips_vs_cpu']}; launches each step {need[shape]}")
+        for tag in ref:
+            errs = row[f"vs {tag}"]
+            log(f"  vs {tag}: loss relative {errs['loss_rel']:.3e}, first "
+                f"gradient relative RMS (unforced) "
+                f"{errs['grad_rel_rms_unforced']:.3e}, parameters relative "
+                f"RMS {errs['params_rel_rms']:.3e}")
+            for key, lim in (("loss_rel", "loss"),
+                             ("params_rel_rms", "params")):
+                if not errs[key] <= TOL_TRAIN[lim]:
+                    raise AssertionError(f"{name} vs {tag} {key}: "
+                                         f"{errs[key]} > {TOL_TRAIN[lim]}")
+        if not row["grad_rel_rms"] <= TOL_TRAIN["grad"]:
+            raise AssertionError(
+                f"{name} first gradient (forced): {row['grad_rel_rms']} > "
+                f"{TOL_TRAIN['grad']}")
+
+    # fit_device for one epoch on the lat=2 mesh, the series on the card.
+    shape = TRAIN_MESHES[0]
+    net, train_m, _ = train_stack(dev, mesh=virtual_mesh(dev, *shape))
+    net.load_flax_params(weights)
+    sampler = DeviceSeriesSampler(train_m, sharding=net._spatial.mesh)
+    net.trainer.init(sampler[0][0])
+    reset_launch_counts()
+    hist = net.trainer.fit_device(sampler, epochs=1, verbose=False)
+    torch.cuda.synchronize()
+    got = launch_counts()
+    fit_need = {n: len(sampler) * v for n, v in need[shape].items()}
+    loss = hist.history["loss"][-1]
+    out["fit_device"] = {"loss": loss, "steps": len(sampler),
+                         "launches": got}
+    log(f"sharded train: fit_device 1 epoch on {mesh_name(shape)}: "
+        f"{len(sampler)} steps, loss {loss:.6g}, launches {got}")
+    if got != fit_need or not np.isfinite(loss):
+        raise AssertionError(f"fit_device on the mesh: {got} != {fit_need}, "
+                             f"loss {loss}")
+
+    for n in DRYRUN_ENTRIES:
+        t0 = time.perf_counter()
+        losses = dryrun_multichip(n, devices=[dev] * n)
+        torch.cuda.synchronize()
+        out[f"dryrun_multichip({n})"] = {
+            "losses": losses, "seconds": time.perf_counter() - t0}
+        log(f"sharded train: dryrun_multichip({n}) on {n} entries of the "
+            f"card: last losses {losses} ({time.perf_counter() - t0:.1f} s)")
+
+    # Timing in turns on device-resident batches: unsharded, each mesh,
+    # each mesh again in reverse order, unsharded. One card: the sharded
+    # steps measure the port's overhead (shard copies, the recompute), not
+    # a speed-up.
+    steps = {}
+    for tag, n in (("unsharded", card),) + tuple(
+            (mesh_name(sh), nets[sh]) for sh in TRAIN_MESHES):
+        tr = n.trainer
+        xd, yd = tr._to_device(batches[0][0]), tr._to_device(batches[0][1])
+        steps[tag] = lambda tr=tr, xd=xd, yd=yd: tr.train_step(xd, yd)
+    order = list(steps)
+    times = {tag: [] for tag in order}
+    for tag in order + order[::-1]:
+        times[tag].append(timed_ms(steps[tag], reps=5, inner=5, warmup=3))
+    for tag in order:
+        ms = float(np.mean(times[tag]))
+        split = train_step_split(torch, steps[tag])
+        device = sum(v[0] for v in split.values())
+        backward = sum(v[0] for k, v in split.items() if k in BACKWARD_PARTS)
+        recompute = split.get(SHARDED_RECOMPUTE, [0.0])[0]
+        fast_bwd = sum(v[0] for k, v in split.items()
+                       if k.startswith("sharded conv backward"))
+        row = out.setdefault(tag, {})
+        row.update({
+            "ms_per_step": ms, "ms_turns": times[tag],
+            "samples_per_s": TRAIN_B * 1e3 / ms,
+            "device_ms_per_step": device, "idle_share": 1 - device / ms,
+            "backward_device_ms": backward,
+            "recompute_share_of_backward": recompute / max(backward, 1e-9),
+            "sharded_conv_backward_ms": fast_bwd,
+            "split_ms": {k: v[0] for k, v in split.items()},
+            "split_launches": {k: v[1] for k, v in split.items()}})
+        log(f"sharded train timing {tag} B={TRAIN_B}: {ms:.3f} ms a step "
+            f"(turns {', '.join(f'{t:.3f}' for t in times[tag])}) -> "
+            f"{row['samples_per_s']:.1f} samples/s; device {device:.3f} ms "
+            f"(idle {100 * row['idle_share']:.1f}%), backward {backward:.3f} "
+            f"ms: the kernel paths' backward {fast_bwd:.3f} ms, of it the "
+            f"plain-exchange forward recomputed {recompute:.3f} ms "
+            f"({100 * row['recompute_share_of_backward']:.1f}% of the "
+            f"backward)")
+        for k, v in sorted(split.items(), key=lambda kv: -kv[1][0]):
+            log(f"  {v[0]:8.4f} ms {100 * v[0] / max(device, 1e-9):5.1f}% "
+                f"x{v[1]:<4d} {k}: {'; '.join(v[2])}")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"sharded_train: {out['seconds']:.1f} s")
+    return out
+
+
 # Phases that run alone with --only, to iterate on one part on the card:
 # name -> (function of (torch, dev)).
 ONLY = {
@@ -3900,6 +4195,7 @@ ONLY = {
     "paper_run": run_paper_run,
     "serve": run_serve,
     "host_data": run_host_data,
+    "sharded_train": run_sharded_train,
 }
 
 
@@ -3984,13 +4280,15 @@ def main(argv=None) -> int:
     paper_run = run_paper_run(torch, dev)
     serve = run_serve(torch, dev)
     host_data = run_host_data(torch, dev)
+    sharded_train = run_sharded_train(torch, dev)
     # Each later path's launches, counted from 0 around its run: fit_device
     # at S=1 (train steps and validation), the SkipTower forecast, the
     # verified forecast, the spherical stack's forward and train steps,
     # the fold and sharded spectral phases (no model: none), and the paper
     # run's fit_device and validation, one call of the forecast servable
-    # exported on the CPU, and one fit_generator epoch through the native
-    # batch gather.
+    # exported on the CPU, one fit_generator epoch through the native
+    # batch gather, and the 3 train steps on each mesh of the sharded
+    # training phase.
     later = {"launches_device_train": device_train["S1"]["launches"],
              "launches_skip_tower": skip_tower["launches"],
              "launches_verify": verify["launches"],
@@ -3999,7 +4297,8 @@ def main(argv=None) -> int:
              "launches_sharded_spectral": sharded_spectral["launches"],
              "launches_paper_run": paper_run["launches"],
              "launches_serve": serve["launches"],
-             "launches_host_data": host_data["launches"]}
+             "launches_host_data": host_data["launches"],
+             "launches_sharded_train": sharded_train["launches"]}
 
     kernels = []
     for name, source, replaces in (
@@ -4135,7 +4434,8 @@ def main(argv=None) -> int:
                     "fold": fold, "spherical": spherical,
                     "sharded_spectral": sharded_spectral,
                     "paper_run": paper_run, "serve": serve,
-                    "host_data": host_data, "card": card}, default=str))
+                    "host_data": host_data, "sharded_train": sharded_train,
+                    "card": card}, default=str))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,7 +4,8 @@ The port of ``dlwp_tpu`` (JAX on TPU), module for module, with the same
 NCHW / (B, T, C, H, W) layouts at public functions: the ConvLSTM forecast
 stack, its training (:mod:`dlwp_torch.train`, with device-resident
 batches) and verification (:mod:`dlwp_torch.forecast.verify`), its lat-band
-spatial-parallel form (:mod:`dlwp_torch.parallel`) and the spectral
+and lat x lon spatial-parallel form (:mod:`dlwp_torch.parallel`, trained
+through the same :class:`~dlwp_torch.train.Trainer`) and the spectral
 barotropic core, and its deployment as ``torch.export`` servables
 (:mod:`dlwp_torch.serve`). Entry points run on
 ``cuda`` unless given ``device="cpu"``; see :mod:`dlwp_torch.device`.
@@ -25,6 +26,7 @@ from dlwp_torch.data import (
     device_prefetch,
 )
 from dlwp_torch.device import resolve_device
+from dlwp_torch.entry import dryrun_multichip
 from dlwp_torch.forecast import Forecast, TimeSeriesEstimator
 from dlwp_torch.grid import LatLonGrid
 from dlwp_torch.models import (
@@ -65,6 +67,7 @@ __all__ = [
     "barotropic_state_from_numpy",
     "build_sequential",
     "device_prefetch",
+    "dryrun_multichip",
     "flax_tree",
     "load_flax_params",
     "load_model",

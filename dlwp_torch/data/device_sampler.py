@@ -8,7 +8,10 @@ so a training epoch has no per-batch host work and no per-batch copy.
 :class:`~dlwp_torch.data.sampler.SeriesSampler`, whose index arithmetic,
 shapes, shuffle and RNG it uses, and serves the same batches (bit for bit:
 a gather is a copy). Batches are fixed-size: the ragged last batch is
-dropped. ``Trainer.fit`` hands such a sampler to ``Trainer.fit_device``.
+dropped. ``Trainer.fit`` hands such a sampler to ``Trainer.fit_device``,
+which also trains a model built on a mesh from it: the port is one program
+over the mesh, so the series stays one global tensor and each sharded conv
+cuts its batches into the mesh's blocks.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ import torch
 
 from dlwp_torch.data.sampler import SeriesSampler
 from dlwp_torch.device import resolve_device
+from dlwp_torch.parallel.mesh import Mesh
 
 
 class DeviceSeriesSampler:
@@ -27,17 +31,25 @@ class DeviceSeriesSampler:
     The data are used as they are, without the model's scaler, so the
     series must be scaled beforehand; an imputing model is refused, and so
     is a series with NaN unless ``remove_nan`` pre-filtered every window
-    that holds one."""
+    that holds one.
 
-    def __init__(self, sampler: SeriesSampler, device=None):
+    ``sharding``: the mesh a sharded model trains on, as a
+    :class:`~dlwp_torch.parallel.mesh.Mesh` or a ``(mesh, axis names)``
+    pair (the JAX sampler's ``NamedSharding``). The series then lives on
+    ``device``, by default the mesh's first device (the model's device
+    when it was built on that mesh's card)."""
+
+    def __init__(self, sampler: SeriesSampler, device=None, sharding=None):
         if sampler._impute and sampler.model is not None:
             raise NotImplementedError(
                 "device-resident sampling assumes pre-imputed/scaled data")
-        if device is not None and not isinstance(device, (str, torch.device)):
-            raise NotImplementedError(
-                "a device-resident series sharded over a mesh waits for the "
-                "parallel port (ROADMAP.md section 1, item 6): give one "
-                "device")
+        mesh = sharding[0] if isinstance(sharding, tuple) else sharding
+        if sharding is not None and not isinstance(mesh, Mesh):
+            raise TypeError("sharding must be a Mesh or a (Mesh, axis "
+                            f"names) pair, got {type(sharding).__name__}")
+        if device is None and mesh is not None:
+            device = mesh.devices.flat[0]
+        self.sharding = sharding
         self.sampler = sampler
         series = np.ascontiguousarray(np.asarray(sampler._series),
                                       dtype=np.float32)

@@ -20,7 +20,7 @@ import torch
 from dlwp_torch.kernels import _build
 
 PEER_TODO = ("a lat neighbour on another card needs peer access, which is "
-             "not ported yet (ROADMAP.md section 1, item 6)")
+             "not ported yet (ROADMAP.md section 1, item 6e)")
 
 
 def halo_rows_plain(row: list[torch.Tensor],

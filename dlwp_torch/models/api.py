@@ -101,6 +101,7 @@ class DLWPNeuralNet:
         splice_fn: Callable | None = None,
         mesh=None,
         batch_spec=None,
+        target_spec=None,
         spatial_impl: str = "ppermute",
         fuse: bool = True,
         **train_kwargs,
@@ -119,16 +120,21 @@ class DLWPNeuralNet:
         ``mesh`` (a :class:`~dlwp_torch.parallel.mesh.Mesh`) with a
         ``batch_spec`` such as ``("data", None, None, "lat", None)``
         shards latitude bands: the first axis named after the batch that
-        has more than one shard on the mesh is the lat axis, and every
-        spherical conv takes the sharded path of ``spatial_impl``
-        ('ppermute', 'pallas' or 'overlap'). Activations stay global
-        tensors on this model's device between layers. Such a model
-        predicts; ``fit`` raises (ROADMAP.md section 1, item 6)."""
+        has more than one shard on the mesh is the lat axis, a second one
+        the lon axis (lat x lon tiles), and every spherical conv takes the
+        sharded path of ``spatial_impl`` ('ppermute', 'pallas' or
+        'overlap'). Activations stay global tensors on this model's device
+        between layers. Such a model predicts and trains; ``target_spec``
+        names the target's axes for the trainer (default: ``batch_spec``,
+        shifted for sequence training), and :meth:`fit` drops a batch
+        that does not divide over the data shards."""
         self.layer_specs = layers
         self._build_config = {"fuse": fuse}
         if mesh is not None:
             self._build_config.update(mesh=mesh, batch_spec=batch_spec,
                                       spatial_impl=spatial_impl)
+            if target_spec is not None:
+                self._build_config["target_spec"] = target_spec
         spatial = None
         if mesh is not None and batch_spec is not None:
             lat_axes = [a for a in tuple(batch_spec)[1:]
@@ -151,7 +157,8 @@ class DLWPNeuralNet:
         )
         self.trainer = Trainer(
             self.base_model, self._train_config, splice_fn=splice_fn,
-            mesh=mesh, metrics=metrics,
+            mesh=mesh, batch_spec=batch_spec, target_spec=target_spec,
+            metrics=metrics,
         )
 
     @property

@@ -2,11 +2,13 @@
 
 A :class:`Mesh` is an ndarray of ``torch.device`` with axis names, the
 standard layout being 2-D ``(data, lat)``: batch parallelism over ``data``
-and latitude-band spatial decomposition over ``lat``. One program drives
-the whole mesh, as one JAX program drives a ``jax.sharding.Mesh``: the
-sharded functions take the global activation, cut it into one block per
-mesh entry with :func:`split_shards`, work on the blocks and join the
-results with :func:`join_shards`.
+and latitude-band spatial decomposition over ``lat``; a ``lon`` axis makes
+it 3-D ``(data, lat, lon)``, lat x lon tiles. One program drives the whole
+mesh, as one JAX program drives a ``jax.sharding.Mesh``: the sharded
+functions take the global activation, cut it into one block per mesh entry
+with :func:`split_shards` (lat bands, ``shards[d][l]``, the kernels'
+layout) or :func:`split_tiles` (tiles, ``tiles[d][l][o]``), work on the
+blocks and join the results with :func:`join_shards` / :func:`join_tiles`.
 
 Entries may repeat one device: ``build_mesh(MeshConfig(data=1, lat=2),
 devices=[cuda0] * 2)`` gives two lat bands on one card, each in its own
@@ -97,28 +99,42 @@ def axis_size(mesh: Mesh, axis: str | None) -> int:
     return 1 if axis is None else mesh.shape[axis]
 
 
+def split_tiles(x: torch.Tensor, mesh: Mesh, data_axis: str | None,
+                lat_axis: str,
+                lon_axis: str | None = None) -> list[list[list[torch.Tensor]]]:
+    """Cut a global (B, ..., H, W) activation into ``tiles[d][l][o]``:
+    batch block ``d`` of the ``data_axis`` (the whole batch when it is
+    None), latitude band ``l`` of ``lat_axis`` and longitude tile ``o`` of
+    ``lon_axis`` (the whole width when it is None), each a contiguous
+    tensor on its mesh device."""
+    n_data, n_lat = axis_size(mesh, data_axis), mesh.shape[lat_axis]
+    n_lon = axis_size(mesh, lon_axis)
+    B, H, W = x.shape[0], x.shape[-2], x.shape[-1]
+    if B % n_data or H % n_lat or W % n_lon:
+        raise ValueError(f"shape {tuple(x.shape)} does not divide over "
+                         f"{n_data} data x {n_lat} lat x {n_lon} lon shards")
+    b, h, w = B // n_data, H // n_lat, W // n_lon
+
+    def tile(d, l, o):
+        idx = {lat_axis: l}
+        if data_axis is not None:
+            idx[data_axis] = d
+        if lon_axis is not None:
+            idx[lon_axis] = o
+        block = x[d * b:(d + 1) * b, ..., l * h:(l + 1) * h, o * w:(o + 1) * w]
+        return block.to(mesh.device_at(**idx)).contiguous()
+
+    return [[[tile(d, l, o) for o in range(n_lon)] for l in range(n_lat)]
+            for d in range(n_data)]
+
+
 def split_shards(x: torch.Tensor, mesh: Mesh, data_axis: str | None,
                  lat_axis: str) -> list[list[torch.Tensor]]:
-    """Cut a global (B, ..., H, W) activation into ``shards[d][l]``: batch
-    block ``d`` of the ``data_axis`` (the whole batch when it is None) and
-    latitude band ``l`` of ``lat_axis``, each a contiguous tensor on its
-    mesh device."""
-    n_data, n_lat = axis_size(mesh, data_axis), mesh.shape[lat_axis]
-    B, H = x.shape[0], x.shape[-2]
-    if B % n_data or H % n_lat:
-        raise ValueError(f"shape {tuple(x.shape)} does not divide over "
-                         f"{n_data} data x {n_lat} lat shards")
-    b, h = B // n_data, H // n_lat
-    rows = []
-    for d in range(n_data):
-        row = []
-        for l in range(n_lat):
-            idx = {lat_axis: l} if data_axis is None else {data_axis: d,
-                                                           lat_axis: l}
-            block = x[d * b:(d + 1) * b, ..., l * h:(l + 1) * h, :]
-            row.append(block.to(mesh.device_at(**idx)).contiguous())
-        rows.append(row)
-    return rows
+    """Cut a global (B, ..., H, W) activation into ``shards[d][l]``: the
+    lat-band form of :func:`split_tiles` (longitude whole), the layout the
+    kernel wrappers take."""
+    return [[lon[0] for lon in row]
+            for row in split_tiles(x, mesh, data_axis, lat_axis)]
 
 
 def join_shards(shards: list[list[torch.Tensor]],
@@ -126,3 +142,10 @@ def join_shards(shards: list[list[torch.Tensor]],
     """The global tensor on ``device`` from ``shards[d][l]``."""
     return torch.cat([torch.cat([s.to(device) for s in row], dim=-2)
                       for row in shards], dim=0)
+
+
+def join_tiles(tiles: list[list[list[torch.Tensor]]],
+               device: torch.device) -> torch.Tensor:
+    """The global tensor on ``device`` from ``tiles[d][l][o]``."""
+    return join_shards([[torch.cat([t.to(device) for t in lon], dim=-1)
+                         for lon in row] for row in tiles], device)

@@ -1,5 +1,4 @@
-"""Latitude-band spatial sharding of model layers (port of
-``dlwp_tpu.parallel.spatial``).
+"""Spatial sharding of model layers (port of ``dlwp_tpu.parallel.spatial``).
 
 A :class:`SpatialSharding` attaches to :class:`~dlwp_torch.models.layers.
 CyclicConv2D` and :class:`~dlwp_torch.models.layers.ConvLSTM2D` (through
@@ -7,13 +6,17 @@ CyclicConv2D` and :class:`~dlwp_torch.models.layers.ConvLSTM2D` (through
 batch_spec=...)``) and sends each of their convs down the sharded path when
 the shapes admit it, else to the plain ``cyclic_conv2d``. Activations stay
 global tensors between layers; each sharded conv cuts its input into the
-mesh's shards and joins its output.
+mesh's lat bands (or lat x lon tiles) and joins its output.
 
 ``impl``: 'ppermute' (plain PyTorch halo exchange, the portable path),
 'pallas' (the ``halo_exchange`` kernel + a VALID conv; any kernel size and
 dilation) or 'overlap' (the ``overlap_conv`` kernels for 3x3 undilated 4-D
-convs, others as 'pallas'). The kernel paths are forward only: their
-backward comes with the sharded backward (ROADMAP.md section 1, item 6).
+convs, others as 'pallas'). The kernels are lat-band only and float32: a
+conv on lon tiles, or of another dtype (a float64 model), takes the
+'ppermute' path whatever ``impl`` says. The kernel paths differentiate as
+the JAX package's ``_fast_conv`` ``custom_vjp`` does: the forward runs the
+kernels, the backward recomputes the conv through the 'ppermute' path at
+the saved inputs and returns its gradient (:class:`_FastConv`).
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ import dataclasses
 import torch
 
 from dlwp_torch.ops.conv import cyclic_conv2d
-from dlwp_torch.parallel.halo import _LON_TODO, sharded_cyclic_conv2d
+from dlwp_torch.parallel.halo import sharded_cyclic_conv2d
 from dlwp_torch.parallel.mesh import Mesh, axis_size
 from dlwp_torch.parallel.pallas_halo import pallas_sharded_cyclic_conv2d
 from dlwp_torch.parallel.pallas_overlap import overlapped_cyclic_conv2d
@@ -33,13 +36,17 @@ IMPLS = ("ppermute", "pallas", "overlap")
 
 @dataclasses.dataclass(frozen=True)
 class SpatialSharding:
-    """Latitude-band decomposition config for spherical convs.
+    """Latitude-band (or lat x lon tile) decomposition config for
+    spherical convs.
 
     Attributes:
-        mesh: the device mesh; holds ``lat_axis`` (and ``data_axis``).
+        mesh: the device mesh; holds ``lat_axis`` (and ``data_axis``,
+            ``lon_axis``).
         data_axis: mesh axis the batch is sharded over, or None.
         lat_axis: mesh axis the latitude dimension is sharded over.
-        lon_axis: must be None: longitude sharding is not ported yet.
+        lon_axis: optional mesh axis the longitude dimension is sharded
+            over; its periodic boundary is then a cyclic ring of tiles,
+            always on the 'ppermute' path.
         impl: 'ppermute', 'pallas' or 'overlap' (see the module notes).
     """
 
@@ -50,8 +57,6 @@ class SpatialSharding:
     impl: str = "ppermute"
 
     def __post_init__(self):
-        if self.lon_axis is not None:
-            raise NotImplementedError(_LON_TODO)
         if self.impl not in IMPLS:
             raise ValueError(f"impl must be one of {IMPLS}, got {self.impl!r}")
 
@@ -60,30 +65,42 @@ class SpatialSharding:
         return self.mesh.shape[self.lat_axis]
 
     @property
+    def lon_shards(self) -> int:
+        return axis_size(self.mesh, self.lon_axis)
+
+    @property
     def data_shards(self) -> int:
         return axis_size(self.mesh, self.data_axis)
 
     def activation_spec(self, ndim: int) -> tuple:
         """Axis names of an (..., C, H, W) activation of rank ``ndim``."""
-        return (self.data_axis,) + (None,) * (ndim - 3) + (self.lat_axis,
-                                                           None)
+        return ((self.data_axis,) + (None,) * (ndim - 3)
+                + (self.lat_axis, self.lon_axis))
 
     def shardable(self, x_shape, kernel_shape, strides, dilation,
                   lat_mode) -> bool:
-        """Whether the sharded path applies to this conv: more than one lat
-        shard, unit strides, a zero latitude boundary, H and the batch
-        dividing over the lat and data shards, and each halo within one
-        neighbour block."""
-        if self.lat_shards <= 1:
+        """Whether the sharded path applies to this conv: more than one
+        spatial shard, unit strides, a zero latitude boundary, H / W and
+        the batch dividing over the lat / lon and data shards, and each
+        halo within one neighbour block."""
+        if self.lat_shards <= 1 and self.lon_shards <= 1:
             return False
         if tuple(strides) != (1, 1) or lat_mode != "zero":
             return False
-        H = x_shape[-2]
+        H, W = x_shape[-2], x_shape[-1]
         B = x_shape[0] if len(x_shape) >= 4 else 1
         if H % self.lat_shards or (self.data_axis and B % self.data_shards):
             return False
         eh = (kernel_shape[-2] - 1) * dilation[0]
-        return max(eh // 2, eh - eh // 2) <= H // self.lat_shards
+        if max(eh // 2, eh - eh // 2) > H // self.lat_shards:
+            return False
+        if self.lon_shards > 1:
+            if W % self.lon_shards:
+                return False
+            ew = (kernel_shape[-1] - 1) * dilation[1]
+            if max(ew // 2, ew - ew // 2) > W // self.lon_shards:
+                return False
+        return True
 
     def conv(self, x: torch.Tensor, kernel: torch.Tensor, strides=(1, 1),
              dilation=(1, 1), lat_mode: str = "zero") -> torch.Tensor:
@@ -93,23 +110,21 @@ class SpatialSharding:
                               lat_mode):
             return cyclic_conv2d(x, kernel, strides=strides,
                                  lat_mode=lat_mode, dilation=dilation)
-        if self.impl in ("pallas", "overlap"):
+        if (self.impl in ("pallas", "overlap") and self.lon_shards <= 1
+                and x.dtype == kernel.dtype == torch.float32):
             if torch.is_grad_enabled() and (x.requires_grad
                                             or kernel.requires_grad):
-                raise NotImplementedError(
-                    "the sharded kernel paths are forward only; their "
-                    "backward comes with the sharded backward of the "
-                    "training slice (ROADMAP.md section 1, item 6): use "
-                    "impl='ppermute' to differentiate")
+                return _FastConv.apply(x, kernel, self, dilation)
             return _fast_conv_impl(x, kernel, self, dilation)
         return _ppermute_conv(x, kernel, self, dilation)
 
 
 def _ppermute_conv(x, kernel, cfg: SpatialSharding, dilation):
     """Sharded conv through the plain PyTorch halo exchange."""
-    return sharded_cyclic_conv2d(x, kernel, cfg.mesh, dilation=dilation,
-                                 data_axis=cfg.data_axis,
-                                 lat_axis_name=cfg.lat_axis)
+    return sharded_cyclic_conv2d(
+        x, kernel, cfg.mesh, dilation=dilation, data_axis=cfg.data_axis,
+        lat_axis_name=cfg.lat_axis,
+        lon_axis_name=cfg.lon_axis if cfg.lon_shards > 1 else None)
 
 
 def _fast_conv_impl(x, kernel, cfg: SpatialSharding, dilation):
@@ -127,6 +142,33 @@ def _fast_conv_impl(x, kernel, cfg: SpatialSharding, dilation):
                                         data_axis=cfg.data_axis,
                                         lat_axis_name=cfg.lat_axis,
                                         dilation=dilation)
+
+
+class _FastConv(torch.autograd.Function):
+    """The kernel paths under autograd (the JAX ``_fast_conv`` custom VJP):
+    the forward runs :func:`_fast_conv_impl` and saves its inputs, never
+    its output; the backward recomputes :func:`_ppermute_conv` at those
+    inputs and returns its gradient. The kernels therefore launch in the
+    forward only, and the gradient is the plain conv's."""
+
+    @staticmethod
+    def forward(ctx, x, kernel, cfg, dilation):
+        ctx.cfg, ctx.dilation = cfg, dilation
+        ctx.save_for_backward(x, kernel)
+        return _fast_conv_impl(x, kernel, cfg, dilation)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        x, kernel = ctx.saved_tensors
+        needs = ctx.needs_input_grad[:2]
+        with torch.enable_grad():
+            inputs = (x.detach().requires_grad_(needs[0]),
+                      kernel.detach().requires_grad_(needs[1]))
+            out = _ppermute_conv(*inputs, ctx.cfg, ctx.dilation)
+            grads = iter(torch.autograd.grad(
+                out, [t for t, n in zip(inputs, needs) if n],
+                grad_out.to(out.dtype)))
+        return tuple(next(grads) if n else None for n in needs) + (None, None)
 
 
 def attach_spatial(layer, spatial: SpatialSharding | None):

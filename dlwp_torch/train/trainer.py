@@ -16,19 +16,29 @@ on the model's device:
   :class:`~dlwp_torch.data.device_sampler.DeviceSeriesSampler`: the
   shuffled window starts go to the card once an epoch, each batch is
   gathered there, and the step loop reads nothing back to the host; the
-  losses come down once at the epoch's end.
+  losses come down once at the epoch's end;
+- training on a mesh (a model built with ``mesh=`` / ``batch_spec=``).
+  The port is one program over the mesh: batches stay global tensors on
+  the model's device, and each sharded conv cuts its input into the
+  mesh's blocks and joins its output (:mod:`dlwp_torch.parallel.spatial`),
+  so a mesh with ``lat = lon = 1`` computes the same function as no mesh.
+  As in the JAX package, :meth:`Trainer.fit` drops a batch whose length
+  does not divide over the ``data`` shards, with one warning.
 
 Kernels: every forward of a train step runs the ``lstm_gates`` kernel
 (kernel forward, plain VJP), and so does checkpoint's recompute; the
 conv-pool stages run their composition while a gradient is recorded, as
-the JAX layer trains them. Evaluation runs under ``torch.no_grad()``, so
-both kernels run there.
+the JAX layer trains them. The sharded convs of impl 'pallas' / 'overlap'
+run their kernels in the forward and recompute through the plain halo
+exchange in the backward. Evaluation runs under ``torch.no_grad()``, so
+the kernels run there.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
+import warnings
 from typing import Any, Callable, Iterable
 
 import numpy as np
@@ -154,8 +164,14 @@ class Trainer:
         config: TrainConfig.
         splice_fn: for sequence training, ``(current_input, prediction,
             step_index) -> next input``; default: the prediction itself.
-        mesh: a lat-band mesh; ``fit`` raises on one (the sharded
-            backward, ROADMAP.md section 1, item 6).
+        mesh / batch_spec / target_spec: the mesh the model's convs are
+            sharded over, and the axis names of the input and target
+            batches (tuples such as ``("data", None, None, "lat", None)``).
+            ``batch_spec[0]`` names the data axis whose shards a batch must
+            divide over in :meth:`fit`; without a ``target_spec``,
+            sequence training (S > 1) shifts ``batch_spec``'s feature axes
+            right by one for the target's step axis, as the JAX trainer
+            does. The batches themselves stay whole on the model's device.
         metrics: ``{name: fn(y_true, y_pred)}``, recorded beside the loss.
     """
 
@@ -165,6 +181,8 @@ class Trainer:
         config: TrainConfig | None = None,
         splice_fn: Callable | None = None,
         mesh=None,
+        batch_spec=None,
+        target_spec=None,
         metrics: dict[str, Callable] | None = None,
     ):
         self.model = model
@@ -177,7 +195,16 @@ class Trainer:
         self.splice_fn = splice_fn
         self.metrics = metrics or {}
         self.mesh = mesh
+        self.batch_spec = self.target_spec = None
+        if mesh is not None and batch_spec is not None:
+            self.batch_spec = tuple(batch_spec)
+            if (target_spec is None and self.config.sequence_steps > 1
+                    and len(self.batch_spec) > 1):
+                target_spec = (self.batch_spec[0], None) + self.batch_spec[1:]
+            self.target_spec = (tuple(target_spec) if target_spec is not None
+                                else self.batch_spec)
         self.optimizer = None
+        self._warned_ragged = False
 
     @property
     def device(self) -> torch.device:
@@ -288,15 +315,23 @@ class Trainer:
             out[name] = fn(y, pred)
         return out
 
-    def _check_unsharded(self):
-        if self.mesh is not None or any(
-                getattr(layer, "spatial", None) is not None
-                for layer in self.model.layers):
-            raise NotImplementedError(
-                "training a model built on a mesh needs the sharded backward "
-                "(ROADMAP.md section 1, item 6), and data parallelism across "
-                "cards waits with it: build the model without a mesh to "
-                "train it")
+    def _ragged(self, batch) -> bool:
+        """Whether a batch does not divide over the data shards of the
+        batch spec (warned once): :meth:`fit` drops it, as the JAX
+        trainer's drop_remainder rule does."""
+        if self.batch_spec is None or self.batch_spec[0] is None:
+            return False
+        n_shards = self.mesh.shape.get(self.batch_spec[0], 1)
+        if len(batch) % n_shards == 0:
+            return False
+        if not self._warned_ragged:
+            self._warned_ragged = True
+            warnings.warn(
+                f"dropping ragged batch of {len(batch)} samples not "
+                f"divisible by {n_shards} data shards; pad the dataset or "
+                "pick a divisible batch size to train on every sample",
+                stacklevel=3)
+        return True
 
     def _stopper(self):
         cfg = self.config
@@ -413,7 +448,6 @@ class Trainer:
                 callbacks=callbacks, validation_data=validation_data,
                 checkpoint_dir=checkpoint_dir,
                 checkpoint_every=checkpoint_every, resume=resume)
-        self._check_unsharded()
         cfg = self.config
         batch_size = batch_size or cfg.batch_size
         run = dict(epochs=epochs or cfg.epochs, history=History(),
@@ -453,6 +487,8 @@ class Trainer:
                     for i in range(0, n, batch_size)
                 )
             for xb, yb in epoch_iter:
+                if self._ragged(xb):
+                    continue
                 m = self.train_step(xb, yb)
                 for k, v in m.items():
                     train_metrics.setdefault(k, []).append(v)
@@ -489,7 +525,6 @@ class Trainer:
         :meth:`fit`. A resumed run advances the RNG once per completed
         epoch, so it sees the batches the uninterrupted run would have.
         """
-        self._check_unsharded()
         cfg = self.config
         base = getattr(sampler, "sampler", None)
         if base is not None and hasattr(base, "_shuffle"):

@@ -129,8 +129,10 @@ def test_device_sampler_refusals_and_epochs():
         DeviceSeriesSampler(SeriesSampler(clean, model=net), device="cpu")
     mesh = build_mesh(MeshConfig(data=1, lat=2),
                       devices=[torch.device("cpu")] * 2)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        DeviceSeriesSampler(SeriesSampler(clean), device=mesh)
+    on_mesh = DeviceSeriesSampler(SeriesSampler(clean), sharding=mesh)
+    assert on_mesh.device.type == "cpu" and on_mesh.sharding is mesh
+    with pytest.raises(TypeError, match="Mesh"):
+        DeviceSeriesSampler(SeriesSampler(clean), sharding="lat")
     # 30 samples, 1 in / 1 out: 29 windows, 7 full batches of 4.
     dev = DeviceSeriesSampler(SeriesSampler(clean, batch_size=4,
                                             shuffle=True), device="cpu")

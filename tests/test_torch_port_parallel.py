@@ -371,15 +371,27 @@ def test_sharded_forecast_matches_unsharded(impl):
     assert rel <= 1e-5, rel
 
 
-def test_lon_axis_and_grad_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SpatialSharding(port_mesh(2), lon_axis="lat")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sharded_cyclic_conv2d(torch.zeros(2, 1, 4, 8), torch.zeros(1, 1, 3, 3),
-                              port_mesh(2), lon_axis_name="lon")
+def test_lon_axis_and_kernel_path_grads():
+    """What this test once saw refused now runs: lon tiles (the conv of a
+    lat x lon tile mesh, free and through SpatialSharding, equals the
+    unsharded conv) and the gradient through the overlap kernel path
+    (equal to the unsharded conv's); an unknown impl still raises."""
+    x, k = operands(11, (2, 3, 8, 16), 4)
+    xt, kt = torch.from_numpy(x), torch.from_numpy(k)
+    want = cyclic_conv2d(xt, kt)
+    tiles = build_mesh(MeshConfig(data=1, lat=2, lon=2), devices=[CPU] * 4)
+    spatial = SpatialSharding(tiles, lon_axis="lon", impl="overlap")
+    assert spatial.lon_shards == 2
+    assert spatial.activation_spec(4) == ("data", None, "lat", "lon")
+    for got in (spatial.conv(xt, kt),
+                sharded_cyclic_conv2d(xt, kt, tiles, lon_axis_name="lon")):
+        np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-6)
     spatial = SpatialSharding(port_mesh(2), impl="overlap")
-    k = torch.zeros(1, 1, 3, 3, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        spatial.conv(torch.zeros(2, 1, 4, 8), k)
+    xg, kg = xt.clone().requires_grad_(True), kt.clone().requires_grad_(True)
+    spatial.conv(xg, kg).square().sum().backward()
+    xr, kr = xt.clone().requires_grad_(True), kt.clone().requires_grad_(True)
+    cyclic_conv2d(xr, kr).square().sum().backward()
+    for got, ref in ((xg.grad, xr.grad), (kg.grad, kr.grad)):
+        assert (got - ref).abs().max() <= 1e-5 * ref.abs().max()
     with pytest.raises(ValueError, match="impl"):
         SpatialSharding(port_mesh(2), impl="nccl")

@@ -7,8 +7,8 @@ crosses runs and packages.
 - an optax Adam state carried over with ``load_optax_adam_state``, then one
   step, equals the JAX run's next step (to 1e-12);
 - ``save_model`` / ``load_model``; the conv-pool and gate routing inside a
-  train step and in evaluation; the lat-band mesh refusing ``fit``; the
-  default device; ``device_prefetch`` on the CPU.
+  train step and in evaluation; ``fit`` on a lat-band mesh equal to the
+  unsharded fit; the default device; ``device_prefetch`` on the CPU.
 
 Inputs are made with numpy from a seed and weights are one flax-layout
 tree for both packages. The model is the ConvLSTM flagship cut to an 8x16
@@ -378,16 +378,24 @@ def test_train_step_routing_and_gate_count(S, tree, monkeypatch):
     assert all(p.requires_grad for p in model.parameters())
 
 
-def test_fit_on_a_lat_band_mesh_raises():
-    mesh = build_mesh(MeshConfig(data=1, lat=2),
-                      devices=[torch.device("cpu")] * 2)
-    net = DLWPNeuralNet(is_recurrent=True, time_dim=TD, scaler_type=None,
-                        device="cpu")
-    net.build_model(small_specs(), mesh=mesh,
-                    batch_spec=("data", None, None, "lat", None))
-    x = np.zeros((2, TD, C + 1, H, W))
-    with pytest.raises(NotImplementedError, match="item 6"):
-        net.fit(x, np.zeros((2, TD, C, H, W)), verbose=False)
+def test_fit_on_a_lat_band_mesh_matches_unsharded(tree):
+    """A model built on a (data 2, lat 2) mesh, once refused by ``fit``,
+    trains: its history and weights equal the unsharded model's from the
+    same weights (float64, 1e-9)."""
+    mesh = build_mesh(MeshConfig(data=2, lat=2),
+                      devices=[torch.device("cpu")] * 4)
+    sharded = _port_net(tree, mesh=mesh,
+                        batch_spec=("data", None, None, "lat", None))
+    assert sharded.base_model.layers[0].spatial is sharded._spatial
+    single = _port_net(tree)
+    rs = np.random.RandomState(8)
+    x, y = rs.randn(8, TD, C + 1, H, W), 0.5 * rs.randn(8, TD, C, H, W)
+    fit = dict(epochs=2, batch_size=4, verbose=False)
+    got = sharded.fit(x, y, **fit).history["loss"]
+    want = single.fit(x, y, **fit).history["loss"]
+    np.testing.assert_allclose(got, want, rtol=TOL_RUN, atol=0)
+    _assert_params_close(flax_tree(sharded.base_model),
+                         flax_tree(single.base_model), TOL_RUN)
 
 
 def test_sequential_model_defaults_to_cuda(monkeypatch):
