@@ -156,9 +156,10 @@ Phases, each raising on failure:
     the eager rollout with both idle shares; ``export_rollout`` of a
     recurrent ``DLWPNeuralNet`` (two channels, a fitted standard scaler,
     time_steps 64) against the eager ``predict_timeseries``;
-    ``export_barotropic`` of the psi form at T72 (plain engine,
-    ``run_with_snapshots(2, 12)``) exported on the CPU, 1 and 4 members
-    against the eager engine on the card and the CPU; ``opcheck`` of both
+    ``export_barotropic`` of the psi form at T72 (plain engine, the
+    reference's ``run_with_snapshots(24, 12)``, rolled: two programs of
+    one 12-step interval) exported on the CPU, 1 and 4 members bit-equal
+    to the eager engine on the card and against the CPU; ``opcheck`` of both
     ops on the card at the flagship's shapes; ``entry()``'s forward
     exported and run;
 22. ``--only host_data``: the host data path (about a minute): (a) the
@@ -192,7 +193,22 @@ Phases, each raising on failure:
     unsharded one (CUDA events), split by part (``torch.profiler``), with
     the idle share and the plain-exchange recompute's share of the
     backward;
-24. a ``{"kernels": [...]}`` line, then the last line
+24. ``--only multicard`` (about a minute): (a) with two cards or more,
+    the lat-band kernels on shards of cuda:0 and cuda:1 (peer access)
+    against their plain versions, the lat=2 sharded forecast (B=64, 32
+    steps, overlap convs) on the two cards against the one-card run, and
+    3 lat=2 train steps against the one-card lat=2 steps; with one card
+    a line saying it was not run; (b) two ranks spawned over
+    ``torch.multiprocessing`` on cuda:0 with gloo (NCCL refuses two ranks
+    on one GPU), and with two cards also NCCL with a card a rank: 3
+    flagship train steps at B=32 with the data axis across the ranks and
+    lat 2 on each rank's card, against the single-process card run of
+    the same batches at ``TOL_TRAIN``, the parameters bit-equal across
+    ranks; ``sharded_cyclic_conv2d`` with a lat axis across the ranks
+    against ``cyclic_conv2d`` at ``TOL_F32``, the kernel impls refused
+    there; ms a step against the unsharded one-process step, the
+    gradient all-reduce's ms and bytes;
+25. a ``{"kernels": [...]}`` line, then the last line
     ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without printing a result when no CUDA device is present.
@@ -3240,12 +3256,9 @@ TOL_SERVE_RRMS = 1e-6
 SERVE_BATCHES = (1, 7, B)
 SERVE_REPS = 5
 # The barotropic servable: bench.py's T72 psi configuration through the
-# plain engine, members 1 and 4, cut from run_with_snapshots(24, 12) to
-# (2, 12): export unrolls the steps, and the 288 of the full run took
-# 578.8 s to export and 84.7 s to load on the H100's host (PERF.md
-# section 4).
+# plain engine, members 1 and 4, at the reference's run_with_snapshots(24,
+# 12): rolled, two programs of one 12-step interval each.
 SERVE_BARO_BATCHES = (1, 4)
-SERVE_BARO_SNAPS = 2
 
 
 def turns(torch, fns, reps=SERVE_REPS):
@@ -3444,16 +3457,17 @@ def serve_rollout(torch, dev):
 
 def serve_barotropic(torch, dev):
     """``export_barotropic`` of the psi form at T72 on 73x144 (plain
-    engine, symbolic members) exported on the CPU and loaded on the card,
-    against the eager plain engine on the card and on the CPU, members 1
-    and 4; export seconds, size, load seconds and ms a call."""
+    engine, symbolic members) at ``run_with_snapshots(24, 12)``, rolled,
+    exported on the CPU and loaded on the card: bit-equal to the eager
+    plain engine on the card, and against the CPU, members 1 and 4;
+    export seconds, size, load seconds and ms a call."""
     from dlwp_torch.grid import LatLonGrid
     from dlwp_torch.serve import Servable, export_barotropic
 
     cpu = baro_model("psi", 73, 144, 72, "cpu")
     card = baro_model("psi", 73, 144, 72, None)
     t0 = time.perf_counter()
-    sv = export_barotropic(cpu, SERVE_BARO_SNAPS, BARO_EVERY, batch="b")
+    sv = export_barotropic(cpu, BARO_SNAPS, BARO_EVERY, batch="b")
     export_s = time.perf_counter() - t0
     blob = sv.serialize()
     t0 = time.perf_counter()
@@ -3461,25 +3475,24 @@ def serve_barotropic(torch, dev):
     load_s = time.perf_counter() - t0
     out = {"export_s": export_s, "load_s": load_s,
            "artifact_mb": len(blob) / 1e6,
-           "nodes": len(sv.program.graph.nodes)}
-    log(f"serve barotropic run_with_snapshots({SERVE_BARO_SNAPS}, "
-        f"{BARO_EVERY}): "
-        f"export on the CPU {export_s:.1f} s ({out['nodes']} nodes), "
-        f"{len(blob) / 1e6:.2f} MB, load on the card {load_s:.1f} s")
+           "nodes": {k: len(p.graph.nodes) for k, p in sv.programs.items()}}
+    log(f"serve barotropic run_with_snapshots({BARO_SNAPS}, {BARO_EVERY}), "
+        f"rolled: export on the CPU {export_s:.1f} s ({out['nodes']} "
+        f"nodes), {len(blob) / 1e6:.2f} MB, load on the card {load_s:.1f} s")
     grid = LatLonGrid.regular(73, 144)
     for m in SERVE_BARO_BATCHES:
         z0 = torch.as_tensor(np.stack([perturbed_height(grid, seed=s)
                                        for s in range(m)]), device=dev)
         got = sv.call(z0)
-        want = card.run_with_snapshots(card.from_z(z0), SERVE_BARO_SNAPS,
+        want = card.run_with_snapshots(card.from_z(z0), BARO_SNAPS,
                                        BARO_EVERY)[2]
-        ref = cpu.run_with_snapshots(cpu.from_z(z0.cpu()), SERVE_BARO_SNAPS,
+        ref = cpu.run_with_snapshots(cpu.from_z(z0.cpu()), BARO_SNAPS,
                                      BARO_EVERY)[2]
         card_rrms, cpu_rrms = rel_rms(got, want), rel_rms(got.cpu(), ref)
         calls = turns(torch, {
             "servable": lambda: sv.call(z0),
             "eager": lambda: card.run_with_snapshots(
-                card.from_z(z0), SERVE_BARO_SNAPS, BARO_EVERY)}, reps=3)
+                card.from_z(z0), BARO_SNAPS, BARO_EVERY)}, reps=3)
         out[f"members {m}"] = {"rel_rms_vs_card": card_rrms,
                                "rel_rms_vs_cpu": cpu_rrms,
                                "bit_equal": bool(torch.equal(got, want)),
@@ -3488,8 +3501,8 @@ def serve_barotropic(torch, dev):
             f"RMS vs eager on the card {card_rrms:.3e}, vs the CPU "
             f"{cpu_rrms:.3e}; ms a call (CUDA events, median of 3 in turns): "
             + ", ".join(f"{k} {v:.2f}" for k, v in calls.items()))
-        if got.shape != (SERVE_BARO_SNAPS, m, 73, 144) or not (
-                card_rrms <= TOL_BARO_RRMS and cpu_rrms <= TOL_BARO_RRMS):
+        if got.shape != (BARO_SNAPS, m, 73, 144) or not torch.equal(
+                got, want) or not cpu_rrms <= TOL_BARO_RRMS:
             raise AssertionError(f"serve barotropic {m}: {card_rrms}, "
                                  f"{cpu_rrms}")
     return out
@@ -4177,10 +4190,441 @@ def run_sharded_train(torch, dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Across cards and processes. (a) The lat-band kernels with lat neighbours
+# on two cards of one process (peer access), where the machine has two
+# cards or more. (b) MC_NPROC ranks spawned over torch.multiprocessing:
+# on cuda:0 with gloo (NCCL refuses two ranks on one GPU: the phase asks
+# it, probe_nccl_shared_card), and with two cards or more also NCCL with
+# a card a rank. Each rank trains the
+# flagship with the data axis across the ranks and lat 2 on its own card,
+# and runs sharded_cyclic_conv2d with a lat axis across the ranks.
+MC_NPROC = 2
+MC_TIMEOUT = 240
+MC_SP_SHAPE, MC_SP_O = (B, 12, NLAT, NLON), 48  # the recurrent conv's
+MC_TIME_STEPS, MC_REDUCE_REPS = 5, 10
+MC_PROBE_TIMEOUT = 90
+
+
+def multicard_worker(rank, nproc, port, backend, devices, out_dir):
+    """One rank of phase (b) on ``devices[rank]`` (a device name): results
+    to ``out_dir/rank<rank>.npz`` and ``.json``."""
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from dlwp_torch.kernels import launch_counts, reset_launch_counts
+    from dlwp_torch.ops.conv import cyclic_conv2d
+    from dlwp_torch.parallel import MeshConfig, SpatialSharding
+    from dlwp_torch.parallel.distributed import (
+        all_reduce_mean, initialize_distributed, multihost_mesh,
+        process_index,
+    )
+    from dlwp_torch.parallel.halo import sharded_cyclic_conv2d
+
+    dev = torch.device(devices[rank])
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    initialize_distributed(f"localhost:{port}", nproc, rank, backend=backend,
+                           device=dev)
+    info, arrays = {"rank": process_index(), "device": str(dev)}, {}
+    mesh = multihost_mesh(MeshConfig(data=nproc, lat=2), devices=[dev] * 2)
+    info["mesh"] = mesh.shape
+    net, train, _ = train_stack(dev, mesh=mesh)
+    batches = [train[i] for i in range(TRAIN_CHECK_STEPS)]
+    reset_launch_counts()
+    run = step_run(torch, net, batches, dev)
+    torch.cuda.synchronize()
+    info["launches"] = launch_counts()
+    info["losses"] = run["losses"]
+    for k, v in run["params"].items():
+        arrays[f"param/{k}"] = v.numpy()
+    for k, v in run["grads"].items():
+        arrays[f"grad/{k}"] = v.numpy()
+    # ms a train step (host clock, synchronised), and the gradient
+    # all-reduce alone on a buffer of the gradients' size.
+    tr = net.trainer
+    xb, yb = batches[0]
+    ms = []
+    for _ in range(MC_TIME_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.train_step(xb, yb)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+    info["step_ms"] = ms
+    grads = [p.grad for p in net.base_model.parameters()
+             if p.grad is not None]
+    info["reduce_bytes"] = 4 * (sum(g.numel() for g in grads) + 1)
+    ms = []
+    for _ in range(MC_REDUCE_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        all_reduce_mean(grads + [grads[0].new_zeros(1)])
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+    info["reduce_ms"] = ms
+    # A lat axis across the ranks: 2 * nproc bands, the plain exchange.
+    mesh_sp = multihost_mesh(MeshConfig(data=1, lat=-1), devices=[dev] * 2)
+    g = torch.Generator().manual_seed(4)  # the same field on every rank
+    x = torch.randn(MC_SP_SHAPE, generator=g).to(dev)
+    k = (torch.randn(MC_SP_O, MC_SP_SHAPE[1], 3, 3, generator=g)
+         / (9 * MC_SP_SHAPE[1]) ** 0.5).to(dev)
+    got = sharded_cyclic_conv2d(x, k, mesh_sp, data_axis=None)
+    info["sp_mesh"] = mesh_sp.shape
+    info["sp_err"] = float((got - cyclic_conv2d(x, k)).abs().max())
+    try:
+        SpatialSharding(mesh_sp, data_axis=None, impl="overlap").conv(x, k)
+        info["sp_kernel_refused"] = ""
+    except NotImplementedError as e:
+        info["sp_kernel_refused"] = str(e)
+    np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **arrays)
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(info, f)
+    torch.distributed.destroy_process_group()
+
+
+def spawn_ranks(torch, backend, devices):
+    """Run :func:`multicard_worker` on ``devices`` (device names, one rank
+    each) and return each rank's (info, arrays); every rank is stopped on
+    the way out."""
+    import socket
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    with tempfile.TemporaryDirectory() as out_dir:
+        t0 = time.perf_counter()
+        ctx = mp.start_processes(
+            multicard_worker, args=(len(devices), port, backend, devices,
+                                    out_dir),
+            nprocs=len(devices), join=False, start_method="spawn")
+        try:
+            while not ctx.join(timeout=5):
+                if time.perf_counter() - t0 > MC_TIMEOUT:
+                    raise AssertionError(f"{backend} ranks still running "
+                                         f"after {MC_TIMEOUT} s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+                p.join()
+        ranks = []
+        for r in range(len(devices)):
+            with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+                info = json.load(f)
+            with np.load(os.path.join(out_dir, f"rank{r}.npz")) as z:
+                ranks.append((info, dict(z)))
+    log(f"multicard {backend} on {devices}: {len(devices)} ranks in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return ranks
+
+
+def nccl_shared_card_worker(rank, nproc, port, out_dir):
+    """One of two NCCL ranks on cuda:0: join the group and all-reduce a
+    small tensor through the port's calls; what happened to
+    ``out_dir/rank<rank>.json``. Exits without tearing the group down,
+    which may wait on the other rank."""
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from dlwp_torch.parallel.distributed import (
+        all_reduce_mean, initialize_distributed,
+    )
+
+    torch.cuda.set_device(0)
+    try:
+        initialize_distributed(f"localhost:{port}", nproc, rank,
+                               backend="nccl", device="cuda:0")
+        (t,) = all_reduce_mean([torch.full((4,), float(rank + 1),
+                                           device="cuda:0")])
+        torch.cuda.synchronize()
+        res = {"ran": True, "mean": float(t[0])}
+    except Exception as e:  # the outcome is what this probe reports
+        res = {"ran": False, "error": f"{type(e).__name__}: {e}"}
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    sys.stdout.flush()
+    os._exit(0)
+
+
+def probe_nccl_shared_card(torch):
+    """What NCCL does with two ranks on one card (the reason two ranks on
+    one card use gloo): each rank's outcome, or 'still running' after
+    MC_PROBE_TIMEOUT s (then stopped)."""
+    import socket
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    with tempfile.TemporaryDirectory() as out_dir:
+        t0 = time.perf_counter()
+        ctx = mp.start_processes(
+            nccl_shared_card_worker, args=(2, port, out_dir), nprocs=2,
+            join=False, start_method="spawn")
+        try:
+            while not ctx.join(timeout=2):
+                if time.perf_counter() - t0 > MC_PROBE_TIMEOUT:
+                    break
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+                p.join()
+        got = []
+        for r in range(2):
+            path = os.path.join(out_dir, f"rank{r}.json")
+            if os.path.exists(path):
+                with open(path) as f:
+                    got.append(json.load(f))
+            else:
+                got.append({"ran": False, "error": "still running after "
+                            f"{MC_PROBE_TIMEOUT} s; stopped"})
+    for r, res in enumerate(got):
+        what = (f"ran, mean {res['mean']}" if res["ran"]
+                else "refused: " + " | ".join(
+                    ln.strip() for ln in res["error"].splitlines()
+                    if ln.strip())[:600])
+        log(f"multicard NCCL, 2 ranks on cuda:0, rank {r}: {what}")
+    return got
+
+
+def run_torchrun(torch, n_cards):
+    """``torchrun --nproc_per_node MC_NPROC -m dlwp_torch.entry
+    --distributed`` from this checkout, as a user starts it: the backend
+    each rank chose (gloo where the ranks outnumber the cards, else NCCL),
+    equal losses and parameters across ranks, finite losses. Every process
+    of its session is stopped on the way out."""
+    import signal
+    import socket
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [root] + ([os.environ["PYTHONPATH"]]
+                  if os.environ.get("PYTHONPATH") else [])))
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nnodes", "1",
+           "--nproc_per_node", str(MC_NPROC), "--master_addr", "localhost",
+           "--master_port", str(port), "-m", "dlwp_torch.entry",
+           "--distributed"]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=root, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    try:
+        stdout, stderr = proc.communicate(timeout=MC_TIMEOUT)
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.communicate()
+    if proc.returncode != 0:
+        raise AssertionError(f"torchrun rc={proc.returncode}:\n"
+                             f"{stdout[-3000:]}\n{stderr[-3000:]}")
+    outs = sorted((json.loads(ln.split(": ", 1)[1])
+                   for ln in stdout.splitlines()
+                   if ln.startswith("train_distributed rank")),
+                  key=lambda o: o["rank"])
+    want = "gloo" if MC_NPROC > n_cards else "nccl"
+    if not ([o["rank"] for o in outs] == list(range(MC_NPROC))
+            and all(o["backend"] == want for o in outs)
+            and all(o["losses"] == outs[0]["losses"]
+                    and o["param_checksum"] == outs[0]["param_checksum"]
+                    for o in outs)
+            and np.isfinite(outs[0]["losses"]).all()):
+        raise AssertionError(f"torchrun ranks: {outs}")
+    seconds = time.perf_counter() - t0
+    log(f"multicard torchrun --nproc_per_node {MC_NPROC} -m dlwp_torch.entry"
+        f" --distributed: backend {want} on {[o['device'] for o in outs]}, "
+        f"mesh {outs[0]['mesh']}, losses {outs[0]['losses']} equal across "
+        f"ranks, parameters equal; {seconds:.1f} s")
+    return {"backend": want, "ranks": outs, "seconds": seconds}
+
+
+def check_ranks(torch, backend, ranks, ref, single_ms, need):
+    """Phase (b)'s checks of one backend's ranks: each rank's launches
+    equal to ``need`` (one forward's dispatch a step), parameters (and the
+    first gradient) bit-equal across ranks, losses and parameters against
+    the single-process card run at TOL_TRAIN, the cross-rank lat conv at
+    TOL_F32, the kernel impls refused there; ms a step and the
+    all-reduce's."""
+    (i0, a0) = ranks[0]
+    for info, _ in ranks:
+        if info["launches"] != need:
+            raise AssertionError(f"{backend} rank {info['rank']}: launches "
+                                 f"{info['launches']} != {need}")
+    for info, arrays in ranks[1:]:
+        for key in a0:
+            if not np.array_equal(a0[key], arrays[key]):
+                raise AssertionError(f"{backend}: {key} differs across ranks")
+        if info["losses"] != i0["losses"]:
+            raise AssertionError(f"{backend}: losses differ across ranks")
+    got = {"losses": i0["losses"],
+           "grads": {k[5:]: torch.from_numpy(v) for k, v in a0.items()
+                     if k.startswith("grad/")},
+           "params": {k[6:]: torch.from_numpy(v) for k, v in a0.items()
+                      if k.startswith("param/")}}
+    errs = train_errors(got, ref)
+    log(f"multicard {backend}: data across {MC_NPROC} ranks x lat 2 each, "
+        f"{TRAIN_CHECK_STEPS} steps at B={TRAIN_B} against one process on "
+        f"the card: {errs}; parameters and first gradient bit-equal across "
+        "ranks")
+    if not (errs["loss_rel"] <= TOL_TRAIN["loss"]
+            and errs["grad_rel_rms_unforced"] <= TOL_TRAIN["grad"]
+            and errs["params_rel_rms"] <= TOL_TRAIN["params"]):
+        raise AssertionError(f"multicard {backend} training: {errs}")
+    out = {"train_vs_one_process": errs, "mesh": i0["mesh"],
+           "launches_by_rank": [i["launches"] for i, _ in ranks]}
+    for info, _ in ranks:
+        if info["sp_err"] > TOL_F32 or "item 6f" not in (
+                info["sp_kernel_refused"]):
+            raise AssertionError(f"multicard {backend} rank {info['rank']}: "
+                                 f"lat across ranks {info['sp_err']}, "
+                                 f"{info['sp_kernel_refused']!r}")
+    out["lat_across_ranks"] = {"mesh": i0["sp_mesh"], "shape": MC_SP_SHAPE,
+                               "max_abs_vs_cyclic_conv2d":
+                               max(i["sp_err"] for i, _ in ranks)}
+    step = float(np.median([m for i, _ in ranks for m in i["step_ms"][1:]]))
+    red = float(np.median([m for i, _ in ranks for m in i["reduce_ms"][1:]]))
+    out.update(step_ms=step, single_process_step_ms=single_ms,
+               all_reduce_ms=red, all_reduce_bytes=i0["reduce_bytes"])
+    log(f"multicard {backend}: lat {i0['sp_mesh']} across ranks vs "
+        f"cyclic_conv2d max abs {out['lat_across_ranks']['max_abs_vs_cyclic_conv2d']:.3e}, "
+        f"kernel impls refused; a train step {step:.2f} ms (host clock, "
+        f"median) against {single_ms:.2f} one process unsharded; the "
+        f"gradient all-reduce {red:.3f} ms for {i0['reduce_bytes']} bytes")
+    return out
+
+
+def cross_card(torch):
+    """Phase (a) on cuda:0 and cuda:1: the lat-band kernels on shards of
+    the two cards against their plain versions, the lat=2 sharded
+    forecast (B=64, STEPS steps, overlap convs) against the one-card run,
+    and a lat=2 train step against the one-card lat=2 step."""
+    from dlwp_torch import TimeSeriesEstimator, flax_tree
+    from dlwp_torch.kernels import (
+        halo_exchange, halo_exchange_plain, launch_counts, overlap_conv,
+        overlap_conv_db, overlap_conv_plain, reset_launch_counts,
+    )
+    from dlwp_torch.parallel import MeshConfig, build_mesh
+    from dlwp_torch.parallel.mesh import split_shards
+
+    c0, c1 = torch.device("cuda", 0), torch.device("cuda", 1)
+    out = {"peer_access": bool(torch.cuda.can_device_access_peer(0, 1))}
+    two = build_mesh(MeshConfig(data=1, lat=2), devices=[c0, c1])
+    g = torch.Generator(device=c0).manual_seed(6)
+    for name, shape, o in OVERLAP_CONVS:
+        x = torch.randn(shape, device=c0, generator=g)
+        k = torch.randn(o, shape[1], 3, 3, device=c0,
+                        generator=g) / (9 * shape[1]) ** 0.5
+        shards = split_shards(x, two, "data", "lat")
+        same = all_equal(halo_exchange(shards, (1, 1)),
+                         halo_exchange_plain(shards, (1, 1)))
+        want = overlap_conv_plain(shards, k)
+        errs = [max_err(overlap_conv(shards, k), want),
+                max_err(overlap_conv_db(shards, k, 4), want)]
+        torch.cuda.synchronize()
+        log(f"multicard cross-card {name} {shape}: halo bit-equal {same}, "
+            f"overlap_conv / _db max|kernel-plain| {errs}")
+        if not same or max(errs) > TOL_F32:
+            raise AssertionError(f"cross-card {name}: {same}, {errs}")
+        out[name] = {"halo_bit_equal": same, "overlap_max_abs": errs}
+    card, sampler = flagship_stack(c0)
+    card.init(sampler.generate(np.arange(1))[0], seed=0)
+    sharded, sh_sampler = flagship_stack(c0, mesh=two)
+    sharded.base_model.share_params_from(card.base_model)
+    reset_launch_counts()
+    fc = TimeSeriesEstimator(sharded, sh_sampler).predict(
+        STEPS, samples=np.arange(B))
+    torch.cuda.synchronize()
+    out["forecast_launches"] = launch_counts()
+    want = TimeSeriesEstimator(card, sampler).predict(
+        STEPS, samples=np.arange(B)).values
+    step1 = float(np.abs(fc.values[:TD] - want[:TD]).max())
+    rrms = float(np.sqrt(np.mean((fc.values - want) ** 2))
+                 / np.sqrt(np.mean(want ** 2)))
+    log(f"multicard cross-card forecast predict({STEPS}) B={B} on "
+        f"[cuda:0, cuda:1]: launches {out['forecast_launches']}; vs one "
+        f"card step-1 {step1:.3e}, relative RMS {rrms:.3e}")
+    if not (step1 <= TOL_STEP1["fp32"] and rrms <= TOL_TRAJ_RRMS["fp32"]):
+        raise AssertionError(f"cross-card forecast: {step1}, {rrms}")
+    out["forecast_vs_one_card"] = {"step1_max_abs": step1, "rel_rms": rrms}
+    net1, train, _ = train_stack(c0, mesh=virtual_mesh(c0, 1, 2))
+    net2, _, _ = train_stack(c0, mesh=two)
+    net2.load_flax_params(flax_tree(net1.base_model))
+    batches = [train[i] for i in range(TRAIN_CHECK_STEPS)]
+    errs = train_errors(step_run(torch, net2, batches),
+                        step_run(torch, net1, batches))
+    log(f"multicard cross-card train lat=2 on [cuda:0, cuda:1] vs one card: "
+        f"{errs}")
+    if not (errs["loss_rel"] <= TOL_TRAIN["loss"]
+            and errs["params_rel_rms"] <= TOL_TRAIN["params"]):
+        raise AssertionError(f"cross-card train: {errs}")
+    out["train_vs_one_card"] = errs
+    return out
+
+
+def run_multicard(torch, dev):
+    """Phase 24 (``--only multicard``): (a) across two cards of one
+    process where there are two, else a line that says it was not run;
+    (b) ranks over processes, gloo on cuda:0 and, with two cards, NCCL."""
+    t_phase = time.perf_counter()
+    n_cards = torch.cuda.device_count()
+    out = {"cards": n_cards}
+    if n_cards >= 2:
+        out["cross_card"] = cross_card(torch)
+    else:
+        out["cross_card"] = "not run: one CUDA device"
+        log("multicard (a) not run: this machine has 1 CUDA device; the "
+            "cross-card launch (peer access) needs 2 or more")
+    card, train, _ = train_stack(dev)
+    batches = [train[i] for i in range(TRAIN_CHECK_STEPS)]
+    ref = step_run(torch, card, batches)
+    # Each rank's launches over its steps: one forward's dispatch a step
+    # of its block of the batch on its lat=2 mesh.
+    cpu, _, _ = train_stack("cpu", mesh=virtual_mesh(torch.device("cpu"), 1,
+                                                     2))
+    need = {k: TRAIN_CHECK_STEPS * v for k, v in dispatch_launches(
+        torch, cpu, TRAIN_B // MC_NPROC).items()}
+    xd, yd = (card.trainer._to_device(a) for a in batches[0])
+    single_ms = timed_ms(lambda: card.trainer.train_step(xd, yd), reps=3,
+                         inner=MC_TIME_STEPS, warmup=1)
+    here = f"cuda:{torch.cuda.current_device()}"
+    out["gloo"] = check_ranks(
+        torch, "gloo", spawn_ranks(torch, "gloo", [here] * MC_NPROC),
+        ref, single_ms, need)
+    if n_cards >= 2:
+        out["nccl"] = check_ranks(
+            torch, "nccl", spawn_ranks(
+                torch, "nccl", [f"cuda:{i}" for i in range(MC_NPROC)]),
+            ref, single_ms, need)
+    else:
+        out["nccl"] = "not run: one CUDA device"
+        log("multicard (b) NCCL not run: NCCL needs a card a rank and this "
+            "machine has 1 CUDA device")
+    out["nccl_two_ranks_one_card"] = probe_nccl_shared_card(torch)
+    out["torchrun"] = run_torchrun(torch, n_cards)
+    out["launches"] = {
+        k: sum(r[k] for r in out["gloo"]["launches_by_rank"])
+        for k in out["gloo"]["launches_by_rank"][0]}
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"multicard: {out['seconds']:.1f} s")
+    return out
+
+
+
 # Phases that run alone with --only, to iterate on one part on the card:
 # name -> (function of (torch, dev)).
 ONLY = {
     "kernels": check_kernels,
+    "parallel_kernels": check_parallel_kernels,
+    "sharded": run_sharded_path,
     "routing": check_routing,
     "train": run_train_phase,
     "barotropic_kernel": check_barotropic_kernel,
@@ -4196,6 +4640,7 @@ ONLY = {
     "serve": run_serve,
     "host_data": run_host_data,
     "sharded_train": run_sharded_train,
+    "multicard": run_multicard,
 }
 
 
@@ -4281,14 +4726,16 @@ def main(argv=None) -> int:
     serve = run_serve(torch, dev)
     host_data = run_host_data(torch, dev)
     sharded_train = run_sharded_train(torch, dev)
+    multicard = run_multicard(torch, dev)
     # Each later path's launches, counted from 0 around its run: fit_device
     # at S=1 (train steps and validation), the SkipTower forecast, the
     # verified forecast, the spherical stack's forward and train steps,
     # the fold and sharded spectral phases (no model: none), and the paper
     # run's fit_device and validation, one call of the forecast servable
     # exported on the CPU, one fit_generator epoch through the native
-    # batch gather, and the 3 train steps on each mesh of the sharded
-    # training phase.
+    # batch gather, the 3 train steps on each mesh of the sharded
+    # training phase, and the multicard phase's 3 train steps in each
+    # gloo rank (summed over the ranks).
     later = {"launches_device_train": device_train["S1"]["launches"],
              "launches_skip_tower": skip_tower["launches"],
              "launches_verify": verify["launches"],
@@ -4298,7 +4745,8 @@ def main(argv=None) -> int:
              "launches_paper_run": paper_run["launches"],
              "launches_serve": serve["launches"],
              "launches_host_data": host_data["launches"],
-             "launches_sharded_train": sharded_train["launches"]}
+             "launches_sharded_train": sharded_train["launches"],
+             "launches_multicard": multicard["launches"]}
 
     kernels = []
     for name, source, replaces in (
@@ -4435,7 +4883,7 @@ def main(argv=None) -> int:
                     "sharded_spectral": sharded_spectral,
                     "paper_run": paper_run, "serve": serve,
                     "host_data": host_data, "sharded_train": sharded_train,
-                    "card": card}, default=str))
+                    "multicard": multicard, "card": card}, default=str))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

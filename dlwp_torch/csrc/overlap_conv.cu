@@ -71,6 +71,13 @@
 // 5. No ragged 32-column tiles: W = 144 is 9 fragments exactly, W = 72 is 5
 //    with the last 8 columns masked at the store.
 //
+// 6. Lat neighbours on other cards: the table's sources are the card's own
+//    shards, then the neighbours it reads on other cards (source-only
+//    entries, no tile of their own). Their edge rows are staged from the
+//    peer's memory over NVLink through unified addressing (the TPU
+//    kernel's remote DMA, as a pull); the wrapper enables peer access and
+//    orders the streams (dlwp_torch/kernels/halo_exchange.py).
+//
 // Every output sums in the same order (slabs ascending, then dy, then dx,
 // then the tensor core's k8 or k4 sum), whatever the tile, so the two
 // entry points agree bit for bit.
@@ -96,6 +103,8 @@ constexpr int MAX_NTW = 4;  // n8 tiles per warp: 2 x 32 sums in registers
 constexpr int MAX_WARPS = 10;  // a block; two fit an SM at <= 102 registers
 constexpr int MIN_BLOCKS = 2;
 
+// x: the n outputs' own shards, then source-only entries; y, north,
+// south (indices into x): one per output.
 struct Table {
   const float* x[MAX_SHARDS];
   float* y[MAX_SHARDS];
@@ -423,14 +432,18 @@ int launch(const Params& p, int threads, int smem, bool persistent,
 }
 
 int dispatch(const float* const* x, float* const* y, const int* north,
-             const int* south, int n, const float* k, int B, int C, int H,
-             int W, int O, int chunk, const int* plan, bool persistent,
-             void* stream, int* grid_out) {
-  if (n < 1 || n > MAX_SHARDS || chunk < 1 || B < 1 || H < 2)
+             const int* south, int n, int n_src, const float* k, int B,
+             int C, int H, int W, int O, int chunk, const int* plan,
+             bool persistent, void* stream, int* grid_out) {
+  if (n < 1 || n_src < n || n_src > MAX_SHARDS || chunk < 1 || B < 1 ||
+      H < 2)
     return (int)cudaErrorInvalidValue;
   Params p;
+  for (int i = 0; i < n_src; ++i) p.t.x[i] = x[i];
   for (int i = 0; i < n; ++i) {
-    p.t.x[i] = x[i];
+    if (north[i] < -1 || north[i] >= n_src || south[i] < -1 ||
+        south[i] >= n_src)
+      return (int)cudaErrorInvalidValue;
     p.t.y[i] = y[i];
     p.t.north[i] = north[i];
     p.t.south[i] = south[i];
@@ -478,23 +491,25 @@ extern "C" int dlwp_overlap_conv_max_shards() { return MAX_SHARDS; }
 
 // Both launch on `stream` and return the first CUDA error of the set-up
 // (shared-memory attribute, occupancy query) or cudaGetLastError() after
-// the launch (0 = ok). x, y, north, south: n per-shard entries (host
-// arrays); plan: the P_FIELDS values of the wrapper's _plan; grid_out
-// receives the blocks launched.
+// the launch (0 = ok). x: n_src >= n shard pointers (host array), the n
+// outputs' own shards first; y, north, south: one per output, north and
+// south indexing x; plan: the P_FIELDS values of the wrapper's _plan;
+// grid_out receives the blocks launched.
 extern "C" int dlwp_overlap_conv(const float* const* x, float* const* y,
                                  const int* north, const int* south, int n,
-                                 const float* k, int B, int C, int H, int W,
-                                 int O, const int* plan, void* stream,
-                                 int* grid_out) {
-  return dispatch(x, y, north, south, n, k, B, C, H, W, O, B, plan, false,
-                  stream, grid_out);
+                                 int n_src, const float* k, int B, int C,
+                                 int H, int W, int O, const int* plan,
+                                 void* stream, int* grid_out) {
+  return dispatch(x, y, north, south, n, n_src, k, B, C, H, W, O, B, plan,
+                  false, stream, grid_out);
 }
 
 extern "C" int dlwp_overlap_conv_db(const float* const* x, float* const* y,
                                     const int* north, const int* south, int n,
-                                    const float* k, int B, int C, int H,
-                                    int W, int O, int chunk, const int* plan,
-                                    void* stream, int* grid_out) {
-  return dispatch(x, y, north, south, n, k, B, C, H, W, O, chunk, plan, true,
-                  stream, grid_out);
+                                    int n_src, const float* k, int B, int C,
+                                    int H, int W, int O, int chunk,
+                                    const int* plan, void* stream,
+                                    int* grid_out) {
+  return dispatch(x, y, north, south, n, n_src, k, B, C, H, W, O, chunk,
+                  plan, true, stream, grid_out);
 }

@@ -36,8 +36,8 @@ class DeviceSeriesSampler:
     ``sharding``: the mesh a sharded model trains on, as a
     :class:`~dlwp_torch.parallel.mesh.Mesh` or a ``(mesh, axis names)``
     pair (the JAX sampler's ``NamedSharding``). The series then lives on
-    ``device``, by default the mesh's first device (the model's device
-    when it was built on that mesh's card)."""
+    ``device``, by default the mesh's first device of this process (the
+    model's device when it was built on that mesh's card)."""
 
     def __init__(self, sampler: SeriesSampler, device=None, sharding=None):
         if sampler._impute and sampler.model is not None:
@@ -48,7 +48,7 @@ class DeviceSeriesSampler:
             raise TypeError("sharding must be a Mesh or a (Mesh, axis "
                             f"names) pair, got {type(sharding).__name__}")
         if device is None and mesh is not None:
-            device = mesh.devices.flat[0]
+            device = mesh.local_devices()[0]
         self.sharding = sharding
         self.sampler = sampler
         series = np.ascontiguousarray(np.asarray(sampler._series),

@@ -8,15 +8,20 @@ grid with the northern-hemisphere crop, 36x144, B=8. Exporting it with
 :func:`dlwp_torch.serve.export_program` is the port's compile check.
 ``dryrun_multichip(n)`` trains dp x sp sharded models for one epoch on
 tiny shapes over an n-entry mesh and runs the sharded spectral and
-barotropic cores::
+barotropic cores. ``train_distributed()`` is the multi-process run: under
+``torchrun``, each process joins the group, builds a mesh whose data axis
+spans the processes and whose lat axis lies on its own card, and takes a
+few flagship train steps::
 
     python -m dlwp_torch.entry              # on the card; --device cpu here
     python -m dlwp_torch.entry --dryrun 8   # 8 mesh entries over the cards
+    torchrun --nproc_per_node N -m dlwp_torch.entry --distributed
 """
 
 from __future__ import annotations
 
 import functools
+import json
 
 import numpy as np
 import torch
@@ -195,6 +200,58 @@ def dryrun_multichip(n_devices: int, devices=None) -> dict[str, float]:
     return losses
 
 
+def train_distributed(device=None) -> dict:
+    """3 train steps of the flagship (36x144, random weights and batches
+    from seed 0, 8 samples a process) with data parallelism across
+    processes: joins the process group from ``torchrun``'s environment
+    (:func:`~dlwp_torch.parallel.distributed.initialize_distributed`), puts
+    2 lat bands on the process's card (``cuda:LOCAL_RANK``, repeated; the
+    CPU for ``device="cpu"``), and builds the mesh with
+    :func:`~dlwp_torch.parallel.distributed.multihost_mesh` (data across
+    processes). Returns this process's rank, backend, losses, ms a step
+    and a checksum of the parameters (equal on every rank)."""
+    import os
+    import time
+
+    from dlwp_torch.parallel import MeshConfig
+    from dlwp_torch.parallel.distributed import (
+        initialize_distributed,
+        multihost_mesh,
+        process_count,
+        process_index,
+    )
+    from dlwp_torch.train import TrainConfig, Trainer
+    from dlwp_torch.parallel.spatial import SpatialSharding
+
+    dev = resolve_device(device)
+    initialize_distributed(device=dev)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0))
+                           % torch.cuda.device_count())
+    n, steps, lat = process_count(), 3, 2
+    mesh = multihost_mesh(MeshConfig(data=n, lat=lat), devices=[dev] * lat)
+    spatial = SpatialSharding(mesh, impl="overlap")
+    model = build_sequential(convlstm_specs(), spatial=spatial, device=dev)
+    rs = np.random.RandomState(0)
+    B = 8 * n
+    x = rs.randn(steps, B, 2, 3, 36, 144).astype(np.float32)
+    y = rs.randn(steps, B, 2, 2, 36, 144).astype(np.float32)
+    model.init(torch.from_numpy(x[0, :1]).to(dev), seed=0)
+    tr = Trainer(model, TrainConfig(), mesh=mesh,
+                 batch_spec=("data", None, None, "lat", None))
+    losses, ms = [], []
+    for k in range(steps):
+        t0 = time.perf_counter()
+        losses.append(float(tr.train_step(x[k], y[k])["loss"]))
+        ms.append(1e3 * (time.perf_counter() - t0))
+    checksum = float(sum(p.detach().double().sum()
+                         for p in model.parameters()))
+    return {"rank": process_index(), "processes": n, "device": str(dev),
+            "backend": torch.distributed.get_backend(), "mesh": mesh.shape,
+            "losses": losses, "ms": ms,
+            "param_checksum": checksum}
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -206,7 +263,16 @@ def main(argv=None) -> int:
     parser.add_argument("--dryrun", type=int, default=0, metavar="N",
                         help="then dryrun_multichip(N) over N mesh entries, "
                              "the cards (or the CPU) repeated as needed")
+    parser.add_argument("--distributed", action="store_true",
+                        help="under torchrun: train_distributed() alone, "
+                             "printing each rank's result")
     args = parser.parse_args(argv)
+    if args.distributed:
+        out = train_distributed(device=args.device)
+        print(f"train_distributed rank {out['rank']}: {json.dumps(out)}",
+              flush=True)
+        torch.distributed.destroy_process_group()
+        return 0
     forward, (params, x) = entry(args.device)
     servable = export_program(functools.partial(forward, params), (x,))
     out = servable.call(x)

@@ -14,13 +14,12 @@ counts kernel launches.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
 from dlwp_torch.kernels import _build
-
-PEER_TODO = ("a lat neighbour on another card needs peer access, which is "
-             "not ported yet (ROADMAP.md section 1, item 6e)")
 
 
 def halo_rows_plain(row: list[torch.Tensor],
@@ -71,36 +70,116 @@ def check_shards(shards, name: str) -> torch.Tensor:
     return first
 
 
-def device_groups(shards, name: str):
-    """``{device: [(d, l), ...]}`` over CUDA shards; raises if a lat
-    neighbour sits on another card."""
-    groups: dict[torch.device, list[tuple[int, int]]] = {}
-    for d, row in enumerate(shards):
-        for l, s in enumerate(row):
-            for nb in (l - 1, l + 1):
-                if 0 <= nb < len(row) and row[nb].device != s.device:
-                    raise NotImplementedError(f"{name}: {PEER_TODO}")
+class Group(NamedTuple):
+    """One card's launch: its shards, which it writes (``outputs``, (d, l)
+    keys); every shard it reads (``sources``: the outputs, then the lat
+    neighbours that sit on other cards, source-only entries); each
+    output's northern and southern neighbour as an index into
+    ``sources`` (-1 for none); and the other cards it reads (``peers``)."""
+    outputs: list
+    sources: list
+    north: list
+    south: list
+    peers: list
+
+
+def device_groups(devices) -> dict:
+    """``{card: Group}`` for shards on ``devices[d][l]`` (the shards'
+    devices, lat-ordered within each data row): a pure function of the
+    layout, which needs no card."""
+    return _groups(tuple(tuple(row) for row in devices))
+
+
+@functools.cache  # a launch's plan depends on its layout alone
+def _groups(devices) -> dict:
+    groups: dict = {}
+    for d, row in enumerate(devices):
+        for l, dev in enumerate(row):
+            groups.setdefault(dev, []).append((d, l))
+    out = {}
+    for dev, keys in groups.items():
+        sources = list(keys)
+        pos = {k: i for i, k in enumerate(keys)}
+        peers = []
+
+        def index(d, l):
+            if not 0 <= l < len(devices[d]):
+                return -1
+            if (d, l) not in pos:
+                pos[(d, l)] = len(sources)
+                sources.append((d, l))
+                if devices[d][l] not in peers:
+                    peers.append(devices[d][l])
+            return pos[(d, l)]
+
+        north = [index(d, l - 1) for d, l in keys]
+        south = [index(d, l + 1) for d, l in keys]
+        out[dev] = Group(keys, sources, north, south, peers)
+    return out
+
+
+def check_contiguous(shards, name: str) -> None:
+    for row in shards:
+        for s in row:
             if not s.is_contiguous():
                 raise ValueError(f"{name}: shards must be contiguous")
-            groups.setdefault(s.device, []).append((d, l))
-    return groups
 
 
-def neighbour_table(keys):
-    """Per-shard indices of the northern and southern neighbour within
-    ``keys`` (a list of (d, l)), -1 for none."""
-    pos = {k: i for i, k in enumerate(keys)}
-    north = [pos.get((d, l - 1), -1) for d, l in keys]
-    south = [pos.get((d, l + 1), -1) for d, l in keys]
-    return north, south
+_PEERS_ENABLED: set = set()  # (reader, owner) card indices; process state
+
+
+def enable_peer_access(dev: torch.device, peer: torch.device,
+                       name: str) -> None:
+    """Let card ``dev`` read card ``peer``'s memory (once per ordered pair
+    in the process); raises, naming both cards, where the pair has no peer
+    access."""
+    pair = (dev.index, peer.index)
+    if pair in _PEERS_ENABLED:
+        return
+    if not torch.cuda.can_device_access_peer(dev.index, peer.index):
+        raise RuntimeError(
+            f"{name}: {dev} cannot read {peer} (no peer access between the "
+            "two cards); put lat neighbours on cards with peer access")
+    err = _lib().dlwp_enable_peer_access(dev.index, peer.index)
+    if err:
+        raise RuntimeError(f"{name}: enabling peer access from {dev} to "
+                           f"{peer} failed: CUDA error {err}")
+    _PEERS_ENABLED.add(pair)
+
+
+def wait_for_peers(dev: torch.device, group: Group, name: str) -> None:
+    """Before card ``dev``'s launch: peer access to every card it reads,
+    and its current stream waits on each such card's current stream,
+    where the neighbours' shards were written."""
+    if not group.peers:
+        return
+    stream = torch.cuda.current_stream(dev)
+    for peer in group.peers:
+        enable_peer_access(dev, peer, name)
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(peer))
+        stream.wait_event(event)
+
+
+def release_peers(dev: torch.device, group: Group, shards) -> None:
+    """After card ``dev``'s launch: each shard it read on another card is
+    marked in use on its stream, so that the caching allocator does not
+    reuse that memory while the read may be in flight."""
+    if not group.peers:
+        return
+    stream = torch.cuda.current_stream(dev)
+    for d, l in group.sources[len(group.outputs):]:
+        shards[d][l].record_stream(stream)
 
 
 def _lib():
     lib = _build.load("halo_exchange")
     fn = lib.dlwp_halo_exchange
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     lib.dlwp_halo_exchange_max_shards.restype = ctypes.c_int
+    lib.dlwp_enable_peer_access.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.dlwp_enable_peer_access.restype = ctypes.c_int
     return lib
 
 
@@ -113,7 +192,8 @@ def halo_exchange(shards, halo):
         raise ValueError(f"halo_exchange: halo {halo} outside [0, {H}]")
     if first.device.type == "cpu":
         return halo_exchange_plain(shards, (top, bot))
-    groups = device_groups(shards, "halo_exchange")
+    check_contiguous(shards, "halo_exchange")
+    groups = device_groups([[s.device for s in row] for row in shards])
     if top == 0 and bot == 0:
         return [list(row) for row in shards]
     rows = first.numel() // (H * W)
@@ -123,26 +203,28 @@ def halo_exchange(shards, halo):
     out_shape = first.shape[:-2] + (top + H + bot, W)
     out = [[None] * len(row) for row in shards]
     lib = _lib()
-    for dev, keys in groups.items():
-        if len(keys) > lib.dlwp_halo_exchange_max_shards():
-            raise ValueError(f"halo_exchange: {len(keys)} shards on {dev}")
-        for d, l in keys:
+    for dev, g in groups.items():
+        if len(g.sources) > lib.dlwp_halo_exchange_max_shards():
+            raise ValueError(f"halo_exchange: {len(g.sources)} shards read "
+                             f"on {dev}")
+        for d, l in g.outputs:
             out[d][l] = torch.empty(out_shape, device=dev, dtype=first.dtype)
-        src = [shards[d][l].data_ptr() for d, l in keys]
-        dst = [out[d][l].data_ptr() for d, l in keys]
+        src = [shards[d][l].data_ptr() for d, l in g.sources]
+        dst = [out[d][l].data_ptr() for d, l in g.outputs]
         unit = next(u for u in (16, 8, 4, 2, 1)
                     if row_bytes % u == 0 and all(p % u == 0
                                                   for p in src + dst))
-        north, south = neighbour_table(keys)
-        n = len(keys)
+        n, n_src = len(dst), len(src)
         with torch.cuda.device(dev):
+            wait_for_peers(dev, g, "halo_exchange")
             stream = torch.cuda.current_stream().cuda_stream
             err = lib.dlwp_halo_exchange(
-                (ctypes.c_void_p * n)(*src), (ctypes.c_void_p * n)(*dst),
-                (ctypes.c_int * n)(*north), (ctypes.c_int * n)(*south), n,
-                rows, H, row_bytes, unit, top, bot, stream)
+                (ctypes.c_void_p * n_src)(*src), (ctypes.c_void_p * n)(*dst),
+                (ctypes.c_int * n)(*g.north), (ctypes.c_int * n)(*g.south),
+                n, n_src, rows, H, row_bytes, unit, top, bot, stream)
         if err:
             raise RuntimeError(f"halo_exchange launch failed: CUDA error {err}")
+        release_peers(dev, g, shards)
         halo_exchange.launches += 1
     return out
 

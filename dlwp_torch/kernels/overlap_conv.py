@@ -8,7 +8,9 @@ walking the tiles ``chunk`` by ``chunk``). Both compute, for
 lat_mode='zero')`` of each data row's global field band by band, reading
 the neighbouring bands' edge rows, in float32 whatever the input dtype,
 and agree bit for bit. For CUDA tensors each launches its kernel once per
-card, covering every shard on it, with the tiling of :func:`_plan`; for
+card, covering every shard on it, with the tiling of :func:`_plan` (over
+the card's own shards); a lat neighbour on another card is read there
+through peer access, as in :mod:`dlwp_torch.kernels.halo_exchange`. For
 CPU tensors both take the plain version, :func:`overlap_conv_plain`.
 ``.launches`` counts kernel launches; ``.last_launch`` holds the plan and
 grid of the last one.
@@ -33,10 +35,12 @@ from dlwp_torch.kernels._tiling import (
     sm_count,
 )
 from dlwp_torch.kernels.halo_exchange import (
+    check_contiguous,
     check_shards,
     device_groups,
     halo_rows_plain,
-    neighbour_table,
+    release_peers,
+    wait_for_peers,
 )
 from dlwp_torch.ops.padding import pad_latlon
 
@@ -185,7 +189,7 @@ def _tile(plan: Plan, B, H, n_shards, t):
 @functools.cache
 def _lib():
     lib = _build.load("overlap_conv")
-    head = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p]
+    head = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
     tail = [ctypes.c_void_p] * 3  # plan, stream, grid_out
     lib.dlwp_overlap_conv.argtypes = head + [ctypes.c_int] * 5 + tail
     lib.dlwp_overlap_conv_db.argtypes = head + [ctypes.c_int] * 6 + tail
@@ -202,21 +206,22 @@ def _launch(shards, kernel, chunk, name):
     O = kernel.shape[0]
     if first.dtype != torch.float32:
         raise ValueError(f"{name}: shards must be float32, got {first.dtype}")
-    groups = device_groups(shards, name)
+    check_contiguous(shards, name)
+    groups = device_groups([[s.device for s in row] for row in shards])
     lib = _lib()
     out = [[None] * len(row) for row in shards]
-    for dev, keys in groups.items():
-        n = len(keys)
-        if n > lib.dlwp_overlap_conv_max_shards():
-            raise ValueError(f"{name}: {n} shards on {dev}, more than "
-                             f"{lib.dlwp_overlap_conv_max_shards()}")
+    for dev, g in groups.items():
+        n, n_src = len(g.outputs), len(g.sources)
+        if n_src > lib.dlwp_overlap_conv_max_shards():
+            raise ValueError(f"{name}: {n_src} shards read on {dev}, more "
+                             f"than {lib.dlwp_overlap_conv_max_shards()}")
         plan = _plan(B, C, H, W, O, chunk, n, sm_count(dev))
         if plan.tiles > MAX_GRID or max(B * C, B * O) * H * W >= 2 ** 31:
             raise ValueError(f"{name}: {n} shards of {tuple(first.shape)} "
                              "are too large")
         k = kernel.to(device=dev, dtype=torch.float32).contiguous()
-        xs = [shards[d][l].data_ptr() for d, l in keys]
-        for d, l in keys:
+        xs = [shards[d][l].data_ptr() for d, l in g.sources]
+        for d, l in g.outputs:
             out[d][l] = torch.empty((B, O, H, W), device=dev,
                                     dtype=torch.float32)
         vec_x = W % 4 == 0 and all(p % 16 == 0 for p in xs)
@@ -224,23 +229,25 @@ def _launch(shards, kernel, chunk, name):
         fields = (plan.bb, plan.rb, plan.warps, plan.stages, plan.rs, plan.nt,
                   plan.ntw, plan.n_og, int(vec_x), int(vec_w), plan.smem,
                   plan.tiles, int(plan.resident))
-        north, south = neighbour_table(keys)
         grid = ctypes.c_int(0)
         args = [
-            (ctypes.c_void_p * n)(*xs),
-            (ctypes.c_void_p * n)(*[out[d][l].data_ptr() for d, l in keys]),
-            (ctypes.c_int * n)(*north), (ctypes.c_int * n)(*south), n,
-            k.data_ptr(), B, C, H, W, O,
+            (ctypes.c_void_p * n_src)(*xs),
+            (ctypes.c_void_p * n)(*[out[d][l].data_ptr()
+                                    for d, l in g.outputs]),
+            (ctypes.c_int * n)(*g.north), (ctypes.c_int * n)(*g.south), n,
+            n_src, k.data_ptr(), B, C, H, W, O,
         ]
         if chunk:
             args.append(plan.chunk)
         args += [(ctypes.c_int * len(fields))(*fields)]
         with torch.cuda.device(dev):
+            wait_for_peers(dev, g, name)
             stream = torch.cuda.current_stream().cuda_stream
             fn = lib.dlwp_overlap_conv_db if chunk else lib.dlwp_overlap_conv
             err = fn(*args, stream, ctypes.byref(grid))
         if err:
             raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+        release_peers(dev, g, shards)
         wrapper = overlap_conv_db if chunk else overlap_conv
         wrapper.launches += 1
         wrapper.last_launch = (plan, grid.value)

@@ -11,7 +11,10 @@ One program drives a mesh of devices, which may repeat one card (see
   JAX modules they port); and latitude-band grids with zonal-wavenumber
   band spectra for the spectral core (``spectral``, ``barotropic``);
 - ``lon`` mesh axis: lat x lon tiles, the periodic longitude boundary a
-  cyclic ring of tiles (``halo``, plain PyTorch only).
+  cyclic ring of tiles (``halo``, plain PyTorch only);
+- several processes: ``torch.distributed`` ranks, a mesh over them from
+  ``distributed.multihost_mesh`` (data across processes, lat within each,
+  or lat across them), data parallelism in the trainer.
 """
 
 from dlwp_torch.parallel.barotropic import ShardedBarotropicModel

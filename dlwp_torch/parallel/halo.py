@@ -14,6 +14,13 @@ This is the portable path (``impl='ppermute'`` in
 neighbour rows and columns copied with ``Tensor.to``, as the JAX one is
 plain XLA collectives. It is also the conv oracle of the kernel paths'
 tests, and the backward of the kernel paths recomputes through it.
+
+On a mesh whose lat axis spans processes a band's neighbour may belong
+to another process (a :class:`~dlwp_torch.parallel.mesh.Remote` entry):
+its edge rows then come with ``torch.distributed`` point-to-point
+messages (:func:`~dlwp_torch.parallel.distributed.exchange_edges`), the
+port of JAX's cross-host ``ppermute``. That path computes forward only:
+its gradient would need the exchange's transpose, which is not ported.
 """
 
 from __future__ import annotations
@@ -23,8 +30,10 @@ import torch.nn.functional as F
 
 from dlwp_torch.kernels.halo_exchange import halo_rows_plain
 from dlwp_torch.ops.padding import pad_latlon
+from dlwp_torch.parallel.distributed import exchange_edges
 from dlwp_torch.parallel.mesh import (
     Mesh,
+    Remote,
     join_shards,
     join_tiles,
     split_shards,
@@ -37,8 +46,31 @@ def halo_exchange_lat(shards: list[torch.Tensor],
     """The lat-ordered blocks (..., H, W) of one data row, each extended by
     ``halo = (top, bottom)`` rows: interior halos come from the
     neighbouring blocks, the outer ones are zero. The same function as the
-    halo kernel's plain version."""
-    return halo_rows_plain(shards, halo)
+    halo kernel's plain version; :class:`~dlwp_torch.parallel.mesh.Remote`
+    blocks (another process's) stay as they are, and a neighbour there
+    sends its rows."""
+    remote = [isinstance(s, Remote) for s in shards]
+    if not any(remote):
+        return halo_rows_plain(shards, halo)
+    if all(remote):
+        return list(shards)
+    top, bot = halo
+    edges = exchange_edges(shards, halo)
+    like = shards[remote.index(False)]
+
+    def stub(j):
+        # Remote band j as its neighbours here read it: its first ``bot``
+        # rows (band j - 1's south halo) over its last ``top`` rows (band
+        # j + 1's north halo), zeros where no band here reads them.
+        zeros = like.new_zeros(like.shape[:-2] + (top + bot, like.shape[-1]))
+        return torch.cat([edges.get((j - 1, "south"), zeros[..., :bot, :]),
+                          edges.get((j + 1, "north"), zeros[..., bot:, :])],
+                         dim=-2)
+
+    padded = halo_rows_plain(
+        [stub(j) if r else s for j, (s, r) in enumerate(zip(shards, remote))],
+        halo)
+    return [s if r else p for s, p, r in zip(shards, padded, remote)]
 
 
 def halo_exchange_lon(tiles: list[torch.Tensor],
@@ -48,6 +80,13 @@ def halo_exchange_lon(tiles: list[torch.Tensor],
     tile ``o`` takes the last ``left`` columns of tile ``o - 1`` and the
     first ``right`` of tile ``o + 1``, modulo the tile count, so one tile
     wraps onto itself (the local periodic pad)."""
+    remote = [isinstance(t, Remote) for t in tiles]
+    if all(remote):
+        return list(tiles)
+    if any(remote):
+        raise NotImplementedError(
+            "halo_exchange_lon: a lon axis across processes is not ported; "
+            "keep lon on each process's own devices")
     left, right = halo
     n = len(tiles)
     out = []
@@ -78,6 +117,7 @@ def _local_cyclic_conv(shards: list[torch.Tensor], kernel: torch.Tensor,
     wrap, VALID conv."""
     ew = (kernel.shape[-1] - 1) * dilation[1]
     return [
+        x if isinstance(x, Remote) else
         _valid_conv(pad_latlon(x, (0, 0), (ew // 2, ew - ew // 2)),
                     kernel.to(x.device), dilation)
         for x in halo_exchange_lat(shards, halo)
@@ -94,7 +134,8 @@ def _local_tile_conv(tiles: list[list[torch.Tensor]], kernel: torch.Tensor,
     cols = [halo_exchange_lat([band[o] for band in tiles], halo)
             for o in range(len(tiles[0]))]
     return [
-        [_valid_conv(t, kernel.to(t.device), dilation)
+        [t if isinstance(t, Remote) else
+         _valid_conv(t, kernel.to(t.device), dilation)
          for t in halo_exchange_lon([col[l] for col in cols],
                                     (ew // 2, ew - ew // 2))]
         for l in range(len(tiles))
@@ -108,7 +149,15 @@ def sharded_cyclic_conv2d(x: torch.Tensor, kernel: torch.Tensor, mesh: Mesh,
     """``cyclic_conv2d(x, kernel, dilation=dilation)`` with zero latitude
     boundaries, computed on the lat-band shards of ``mesh``, or on its lat
     x lon tiles when ``lon_axis_name`` names a mesh axis; ``x`` is the
-    global (B, ..., C, H, W) tensor and so is the result."""
+    global (B, ..., C, H, W) tensor and so is the result. On a mesh over
+    several processes each computes its own blocks and gets the whole
+    result; where the lat axis spans processes, forward only."""
+    if (mesh.spans_processes(lat_axis_name) and torch.is_grad_enabled()
+            and (x.requires_grad or kernel.requires_grad)):
+        raise NotImplementedError(
+            "sharded_cyclic_conv2d: the gradient of a conv whose lat axis "
+            "spans processes is not ported; train with the data axis "
+            "across processes and lat within each")
     eh = (kernel.shape[-2] - 1) * dilation[0]
     halo = (eh // 2, eh - eh // 2)
     if lon_axis_name is not None:

@@ -19,11 +19,21 @@ meshes on; ``devices=[torch.device("cpu")] * n`` is the same on the CPU.
 The JAX module's ``*_sharding`` helpers have no counterpart: where the JAX
 package passes a ``PartitionSpec``, the port passes a plain tuple of axis
 names such as ``("data", None, "lat", None)``.
+
+A mesh may span processes (:func:`dlwp_torch.parallel.distributed.
+multihost_mesh`): ``Mesh.ranks`` then names the process that owns each
+entry. Every process runs the same program on the same global input, as
+the JAX worker builds its arrays with ``make_array_from_callback``:
+:func:`split_tiles` builds only the process's own blocks and puts a
+:class:`Remote` marker in place of the others, and :func:`join_tiles` /
+:func:`join_shards` gather the remote blocks from their owners, as
+``process_allgather`` does, so every process ends with the global result.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -57,20 +67,81 @@ class MeshConfig:
         return d, l, lo
 
 
+class Remote(NamedTuple):
+    """The place of a block that process ``rank`` holds."""
+    rank: int
+
+
 @dataclasses.dataclass(frozen=True, eq=False)
 class Mesh:
-    """An ndarray of ``torch.device`` whose axes carry names."""
+    """An ndarray of ``torch.device`` whose axes carry names; for a mesh
+    over several processes, ``ranks`` (the devices' shape) names the
+    process that owns each entry and ``process_index`` is this process
+    (``ranks`` None: every entry is this process's)."""
 
     devices: np.ndarray
     axis_names: tuple[str, ...]
+    ranks: np.ndarray | None = None
+    process_index: int = 0
 
     @property
     def shape(self) -> dict[str, int]:
         return dict(zip(self.axis_names, self.devices.shape))
 
+    def index(self, **index: int) -> tuple[int, ...]:
+        """The entry at the named axis indices (0 on the others)."""
+        return tuple(index.get(a, 0) for a in self.axis_names)
+
     def device_at(self, **index: int) -> torch.device:
         """The device at the named axis indices (0 on the others)."""
-        return self.devices[tuple(index.get(a, 0) for a in self.axis_names)]
+        return self.devices[self.index(**index)]
+
+    def owner(self, **index: int) -> int:
+        """The process that owns the entry at the named axis indices."""
+        return (self.process_index if self.ranks is None
+                else int(self.ranks[self.index(**index)]))
+
+    def local_devices(self) -> list[torch.device]:
+        """This process's entries' devices, in mesh order."""
+        flat = list(self.devices.flat)
+        if self.ranks is None:
+            return flat
+        return [d for d, r in zip(flat, self.ranks.flat)
+                if r == self.process_index]
+
+    def spans_processes(self, axis: str | None) -> bool:
+        """Whether entries along ``axis`` belong to different processes."""
+        if self.ranks is None or axis is None:
+            return False
+        k = self.axis_names.index(axis)
+        return bool((self.ranks != self.ranks.take([0], axis=k)).any())
+
+    def process_rows(self, axis: str) -> tuple[int, int]:
+        """``(start, stop)``: the contiguous indices along ``axis`` at
+        which this process owns entries."""
+        k = self.axis_names.index(axis)
+        mine = self.ranks == self.process_index
+        rows = [i for i in range(self.devices.shape[k])
+                if mine.take([i], axis=k).any()]
+        if not rows or rows != list(range(rows[0], rows[-1] + 1)):
+            raise ValueError(f"process {self.process_index} owns no "
+                             f"contiguous run of {axis!r} indices: {rows}")
+        return rows[0], rows[-1] + 1
+
+    def process_local(self, axis: str) -> "Mesh":
+        """The sub-mesh of the ``axis`` indices this process owns entries
+        at (the mesh itself where ``axis`` does not span processes):
+        where the batch is sharded across processes, each process holds
+        its own block of it and cuts that over this sub-mesh."""
+        if not self.spans_processes(axis):
+            return self
+        start, stop = self.process_rows(axis)
+        k = self.axis_names.index(axis)
+        take = np.arange(start, stop)
+        ranks = self.ranks.take(take, axis=k)
+        return Mesh(self.devices.take(take, axis=k), self.axis_names,
+                    None if (ranks == self.process_index).all() else ranks,
+                    self.process_index)
 
 
 def build_mesh(config: MeshConfig | None = None, devices=None,
@@ -106,7 +177,8 @@ def split_tiles(x: torch.Tensor, mesh: Mesh, data_axis: str | None,
     batch block ``d`` of the ``data_axis`` (the whole batch when it is
     None), latitude band ``l`` of ``lat_axis`` and longitude tile ``o`` of
     ``lon_axis`` (the whole width when it is None), each a contiguous
-    tensor on its mesh device."""
+    tensor on its mesh device; on a mesh over several processes, a
+    :class:`Remote` where another process owns the entry."""
     n_data, n_lat = axis_size(mesh, data_axis), mesh.shape[lat_axis]
     n_lon = axis_size(mesh, lon_axis)
     B, H, W = x.shape[0], x.shape[-2], x.shape[-1]
@@ -121,6 +193,8 @@ def split_tiles(x: torch.Tensor, mesh: Mesh, data_axis: str | None,
             idx[data_axis] = d
         if lon_axis is not None:
             idx[lon_axis] = o
+        if mesh.ranks is not None and mesh.owner(**idx) != mesh.process_index:
+            return Remote(mesh.owner(**idx))
         block = x[d * b:(d + 1) * b, ..., l * h:(l + 1) * h, o * w:(o + 1) * w]
         return block.to(mesh.device_at(**idx)).contiguous()
 
@@ -137,15 +211,48 @@ def split_shards(x: torch.Tensor, mesh: Mesh, data_axis: str | None,
             for row in split_tiles(x, mesh, data_axis, lat_axis)]
 
 
+def _gather_remote(grid: list) -> list:
+    """``grid`` (nested lists of blocks) with every :class:`Remote` entry
+    replaced by its owner's block; ``grid`` itself where no entry is
+    remote. Every process calls it with the same layout (collective)."""
+    flat = []
+
+    def walk(node):
+        if isinstance(node, list):
+            return [walk(n) for n in node]
+        flat.append(node)
+        return len(flat) - 1
+
+    layout = walk(grid)
+    if not any(isinstance(b, Remote) for b in flat):
+        return grid
+    # Imported here: the distributed module builds meshes with this one.
+    from dlwp_torch.parallel.distributed import broadcast_block
+
+    like = next((b for b in flat if not isinstance(b, Remote)), None)
+    if like is None:
+        raise ValueError("this process holds no block of the mesh")
+    flat = [broadcast_block(b, like) for b in flat]
+
+    def build(node):
+        return ([build(n) for n in node] if isinstance(node, list)
+                else flat[node])
+
+    return build(layout)
+
+
 def join_shards(shards: list[list[torch.Tensor]],
                 device: torch.device) -> torch.Tensor:
-    """The global tensor on ``device`` from ``shards[d][l]``."""
+    """The global tensor on ``device`` from ``shards[d][l]``; remote
+    shards come from their owners (every process gets the whole)."""
     return torch.cat([torch.cat([s.to(device) for s in row], dim=-2)
-                      for row in shards], dim=0)
+                      for row in _gather_remote(shards)], dim=0)
 
 
 def join_tiles(tiles: list[list[list[torch.Tensor]]],
                device: torch.device) -> torch.Tensor:
-    """The global tensor on ``device`` from ``tiles[d][l][o]``."""
+    """The global tensor on ``device`` from ``tiles[d][l][o]``; remote
+    tiles come from their owners (every process gets the whole)."""
     return join_shards([[torch.cat([t.to(device) for t in lon], dim=-1)
-                         for lon in row] for row in tiles], device)
+                         for lon in row] for row in _gather_remote(tiles)],
+                       device)

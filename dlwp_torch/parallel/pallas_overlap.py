@@ -15,6 +15,7 @@ import torch
 
 from dlwp_torch.kernels.overlap_conv import overlap_conv, overlap_conv_db
 from dlwp_torch.parallel.mesh import Mesh, join_shards, split_shards
+from dlwp_torch.parallel.pallas_halo import local_rows
 
 # The dispatch constants are the TPU's (the JAX module's, unchanged): the
 # 16 MiB scoped-VMEM stack with headroom, the VMEM size, and the cap on the
@@ -105,4 +106,7 @@ def overlapped_cyclic_conv2d(x: torch.Tensor, kernel: torch.Tensor,
     rows read inside the kernel; ``cyclic_conv2d(x, kernel,
     lat_mode='zero')`` in float32."""
     shards = split_shards(x.float(), mesh, data_axis, lat_axis_name)
-    return join_shards(_overlap_local(shards, kernel.float()), x.device)
+    return join_shards(
+        local_rows(shards, mesh, lat_axis_name,
+                   lambda s: _overlap_local(s, kernel.float()), "overlap"),
+        x.device)

@@ -17,11 +17,21 @@ conv on lon tiles, or of another dtype (a float64 model), takes the
 the JAX package's ``_fast_conv`` ``custom_vjp`` does: the forward runs the
 kernels, the backward recomputes the conv through the 'ppermute' path at
 the saved inputs and returns its gradient (:class:`_FastConv`).
+
+On a mesh over several processes: where the data axis spans them, a
+layer's activations are the process's own block of the batch (the
+trainer keeps it) and each conv cuts that block over the process's own
+entries (``Mesh.process_local``); lat neighbours on other cards of the
+process take the kernels through peer access. A lat axis that spans
+processes runs the 'ppermute' path only: the kernel impls raise there,
+because a kernel cannot yet read another process's memory (CUDA IPC,
+ROADMAP.md section 1, item 6f).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
@@ -59,6 +69,14 @@ class SpatialSharding:
     def __post_init__(self):
         if self.impl not in IMPLS:
             raise ValueError(f"impl must be one of {IMPLS}, got {self.impl!r}")
+
+    @functools.cached_property
+    def local(self) -> "SpatialSharding":
+        """The config the convs run: on the process's own part of a data
+        axis that spans processes (this config elsewhere)."""
+        mesh = self.mesh.process_local(self.data_axis)
+        return self if mesh is self.mesh else dataclasses.replace(
+            self, mesh=mesh)
 
     @property
     def lat_shards(self) -> int:
@@ -104,19 +122,22 @@ class SpatialSharding:
 
     def conv(self, x: torch.Tensor, kernel: torch.Tensor, strides=(1, 1),
              dilation=(1, 1), lat_mode: str = "zero") -> torch.Tensor:
-        """Cyclic conv via the sharded path when admissible, else local."""
+        """Cyclic conv via the sharded path when admissible, else local.
+        ``x`` is the process's own block of the batch where the data axis
+        spans processes (see the module notes)."""
+        cfg = self.local
         dilation = tuple(dilation)
-        if not self.shardable(x.shape, kernel.shape, strides, dilation,
-                              lat_mode):
+        if not cfg.shardable(x.shape, kernel.shape, strides, dilation,
+                             lat_mode):
             return cyclic_conv2d(x, kernel, strides=strides,
                                  lat_mode=lat_mode, dilation=dilation)
-        if (self.impl in ("pallas", "overlap") and self.lon_shards <= 1
+        if (cfg.impl in ("pallas", "overlap") and cfg.lon_shards <= 1
                 and x.dtype == kernel.dtype == torch.float32):
             if torch.is_grad_enabled() and (x.requires_grad
                                             or kernel.requires_grad):
-                return _FastConv.apply(x, kernel, self, dilation)
-            return _fast_conv_impl(x, kernel, self, dilation)
-        return _ppermute_conv(x, kernel, self, dilation)
+                return _FastConv.apply(x, kernel, cfg, dilation)
+            return _fast_conv_impl(x, kernel, cfg, dilation)
+        return _ppermute_conv(x, kernel, cfg, dilation)
 
 
 def _ppermute_conv(x, kernel, cfg: SpatialSharding, dilation):

@@ -25,7 +25,11 @@ does.
 
 The container is the JAX package's layout (magic, then three
 length-prefixed parts: JSON metadata, the program, the pickled host state)
-under this package's own magic: a ``jax.export`` artifact is refused.
+under this package's own magic: a ``jax.export`` artifact is refused. A
+servable may hold several programs (the rolled barotropic integration: a
+first snapshot interval and the interval that repeats, looped on the
+host); its program part is then their length-prefixed sequence, named in
+the metadata (format 2; a format-1 artifact holds one program).
 
 Security note: the container embeds the scaler / imputer via pickle, and
 ``torch.export.load`` reads the program with pickle too: load artifacts
@@ -55,17 +59,33 @@ from dlwp_torch.models.api import shape_series
 _MAGIC = b"DLWPTORCH\x01"
 # The JAX package's container (StableHLO programs): refused by name.
 _JAX_MAGIC = b"DLWPSERVE\x01"
-_FORMAT_VERSION = 1
+_FORMAT_VERSION = 2
 
 
-def _pack(meta: dict, blob: bytes, state: bytes) -> bytes:
-    head = json.dumps(meta).encode("utf-8")
+def _join(parts) -> bytes:
     out = io.BytesIO()
-    out.write(_MAGIC)
-    for part in (head, blob, state):
+    for part in parts:
         out.write(struct.pack("<Q", len(part)))
         out.write(part)
     return out.getvalue()
+
+
+def _split(data: bytes, n: int, off: int = 0) -> list[bytes]:
+    parts = []
+    for _ in range(n):
+        if off + 8 > len(data):
+            raise ValueError("truncated servable artifact")
+        (size,) = struct.unpack_from("<Q", data, off)
+        off += 8
+        if off + size > len(data):
+            raise ValueError("truncated servable artifact")
+        parts.append(data[off:off + size])
+        off += size
+    return parts
+
+
+def _pack(meta: dict, blob: bytes, state: bytes) -> bytes:
+    return _MAGIC + _join((json.dumps(meta).encode("utf-8"), blob, state))
 
 
 def _unpack(data: bytes) -> tuple[dict, bytes, bytes]:
@@ -75,17 +95,7 @@ def _unpack(data: bytes) -> tuple[dict, bytes, bytes]:
             "is not dlwp_torch's): export the model with dlwp_torch.serve")
     if not data.startswith(_MAGIC):
         raise ValueError("not a dlwp_torch servable artifact (bad magic)")
-    off = len(_MAGIC)
-    parts = []
-    for _ in range(3):
-        if off + 8 > len(data):
-            raise ValueError("truncated servable artifact")
-        (n,) = struct.unpack_from("<Q", data, off)
-        off += 8
-        if off + n > len(data):
-            raise ValueError("truncated servable artifact")
-        parts.append(data[off:off + n])
-        off += n
+    parts = _split(data, 3, len(_MAGIC))
     meta = json.loads(parts[0].decode("utf-8"))
     if meta.get("format_version", 0) > _FORMAT_VERSION:
         raise ValueError(
@@ -117,18 +127,24 @@ def _bake(program) -> None:
 
 
 class Servable:
-    """A deserialized exported program plus its host-side metadata.
+    """Deserialized exported programs plus their host-side metadata.
 
     ``call`` runs the program (a ``torch.export`` ``ExportedProgram``'s
     module) on :attr:`device`, after checking the inputs against
-    :attr:`in_specs`. Rollout servables also give
-    :meth:`predict_timeseries` with the host pre- and post-processing.
+    :attr:`in_specs`. A rolled servable (``meta["loop"]``, the barotropic
+    integration) holds two programs: ``first`` maps the inputs to a carry
+    and an output, ``body`` maps the carry to the next carry and output;
+    ``call`` runs ``first``, then ``body`` until ``meta["loop"]`` outputs
+    exist, the carry staying on the device, and stacks the outputs.
+    Rollout servables also give :meth:`predict_timeseries` with the host
+    pre- and post-processing.
     """
 
     def __init__(self, program, meta: dict, host_state: dict | None = None,
                  device=None):
-        self._program = program
-        self._module = program.module()
+        self._programs = (dict(program) if isinstance(program, dict)
+                          else {"main": program})
+        self._modules = {k: p.module() for k, p in self._programs.items()}
         self.meta = dict(meta)
         self._host = host_state or {}
         self.device = torch.device(device or self.meta["device"])
@@ -165,7 +181,14 @@ class Servable:
                         f"[{lo}, {hi}], the same for every batched input)")
             tensors.append(t)
         with torch.no_grad():
-            return self._module(*tensors)
+            if "loop" not in self.meta:
+                return self._modules["main"](*tensors)
+            out = self._modules["first"](*tensors)
+            ys = [out[-1]]
+            for _ in range(self.meta["loop"] - 1):
+                out = self._modules["body"](*out[:-1])
+                ys.append(out[-1])
+            return torch.stack(ys)
 
     def predict_timeseries(self, predictors, keep_time_dim: bool = False):
         """Scaled-and-shaped rollout, as
@@ -206,8 +229,14 @@ class Servable:
 
     @property
     def program(self):
-        """The ``torch.export`` ``ExportedProgram``."""
-        return self._program
+        """The ``torch.export`` ``ExportedProgram`` (a rolled servable's
+        first one)."""
+        return self._programs.get("main", self._programs.get("first"))
+
+    @property
+    def programs(self) -> dict:
+        """Every ``ExportedProgram``, by name."""
+        return dict(self._programs)
 
     def __repr__(self):
         return (
@@ -219,9 +248,13 @@ class Servable:
     def serialize(self) -> bytes:
         meta = dict(self.meta)
         meta["format_version"] = _FORMAT_VERSION
-        blob = io.BytesIO()
-        torch.export.save(self._program, blob)
-        return _pack(meta, blob.getvalue(), pickle.dumps(self._host))
+        meta["programs"] = list(self._programs)
+        blobs = []
+        for program in self._programs.values():
+            blob = io.BytesIO()
+            torch.export.save(program, blob)
+            blobs.append(blob.getvalue())
+        return _pack(meta, _join(blobs), pickle.dumps(self._host))
 
     def save(self, path: str) -> None:
         with open(path, "wb") as f:
@@ -240,10 +273,16 @@ class Servable:
             with open(path_or_bytes, "rb") as f:
                 data = f.read()
         meta, blob, state = _unpack(data)
-        program = torch.export.load(io.BytesIO(blob))
-        if torch.device(meta["device"]) != dev:
-            program = move_to_device_pass(program, dev)
-        return cls(program, meta, pickle.loads(state), device=dev)
+        names = meta.pop("programs", ["main"])
+        parts = (_split(blob, len(names)) if meta.get("format_version", 1) >= 2
+                 else [blob])
+        programs = {}
+        for name, part in zip(names, parts):
+            program = torch.export.load(io.BytesIO(part))
+            if torch.device(meta["device"]) != dev:
+                program = move_to_device_pass(program, dev)
+            programs[name] = program
+        return cls(programs, meta, pickle.loads(state), device=dev)
 
 
 def _closure_modules(fn) -> list:
@@ -274,28 +313,9 @@ class _Program(torch.nn.Module):
             return inspect.unwrap(self.fn)(*args)
 
 
-def export_program(
-    fn_or_module,
-    example_args,
-    *,
-    batch="b",
-    batched=(0,),
-    meta: dict | None = None,
-    host_state: dict | None = None,
-) -> Servable:
-    """Export a function or module of tensors as a :class:`Servable`.
-
-    ``example_args``: tensors on the device the program is exported on.
-    ``batched``: the positions of the inputs whose axis 0 is the batch
-    (default: the first input alone); every other input keeps its
-    example's shape. No input is taken as batched from its length.
-    ``batch``: a name (default ``"b"``: a ``torch.export.Dim`` of that name
-    on axis 0 of every batched input, so the program takes any batch
-    size), a ``Dim`` (for bounds), an int (the batch the examples must
-    have) or ``None`` (the examples' shapes). A symbolic batch is traced
-    at 2 or more: export would specialise a size of 0 or 1, so a smaller
-    example is refused.
-    """
+def _export(fn_or_module, example_args, batch, batched):
+    """The exported program of :func:`export_program` and its metadata
+    (inputs, batch name and range, device)."""
     args = tuple(example_args)
     if not args or not all(isinstance(a, torch.Tensor) for a in args):
         raise TypeError("export_program takes a non-empty tuple of tensors")
@@ -337,10 +357,36 @@ def export_program(
                 for i, s in enumerate(a.shape)],
                str(a.dtype).removeprefix("torch.")]
               for a, b in zip(args, is_batched)]
+    return program, dict(inputs=inputs, batch=name if dynamic else dim,
+                         batch_range=[lo, hi], device=str(args[0].device))
+
+
+def export_program(
+    fn_or_module,
+    example_args,
+    *,
+    batch="b",
+    batched=(0,),
+    meta: dict | None = None,
+    host_state: dict | None = None,
+) -> Servable:
+    """Export a function or module of tensors as a :class:`Servable`.
+
+    ``example_args``: tensors on the device the program is exported on.
+    ``batched``: the positions of the inputs whose axis 0 is the batch
+    (default: the first input alone); every other input keeps its
+    example's shape. No input is taken as batched from its length.
+    ``batch``: a name (default ``"b"``: a ``torch.export.Dim`` of that name
+    on axis 0 of every batched input, so the program takes any batch
+    size), a ``Dim`` (for bounds), an int (the batch the examples must
+    have) or ``None`` (the examples' shapes). A symbolic batch is traced
+    at 2 or more: export would specialise a size of 0 or 1, so a smaller
+    example is refused.
+    """
+    program, spec = _export(fn_or_module, example_args, batch, batched)
     meta = dict(meta or {"kind": "custom"})
-    meta.update(inputs=inputs, batch=name if dynamic else dim,
-                batch_range=[lo, hi], device=str(args[0].device))
-    return Servable(program, meta, host_state, device=args[0].device)
+    meta.update(spec)
+    return Servable(program, meta, host_state, device=spec["device"])
 
 
 def export_rollout(
@@ -414,41 +460,70 @@ def export_barotropic(
 
     The servable maps an initial height field ``(..., nlat, nlon)`` to
     ``(n_snapshots, ..., nlat, nlon)`` snapshots with the plain engine's
-    steps and spectral tables in the program. ``batch``: ``None`` exports
-    the single-member shape, a name (e.g. ``"b"``) makes the member axis
-    symbolic, an int pins it. Requires ``step_impl='plain'``: the fused
-    step kernel's wrapper is not an exportable op.
+    steps and spectral tables in the program, as the eager
+    ``run_with_snapshots`` computes them, bit for bit. It is rolled: the
+    JAX servable is one ``scan``, and here two programs of one snapshot
+    interval each (``snapshot_every`` steps, then the height) go into the
+    artifact. ``first`` takes z0, analyses it and runs the first interval,
+    whose first step is forward Euler; ``body`` takes the spectral state
+    (the two vorticity levels, as real views) and runs a leapfrog
+    interval. ``Servable.call`` runs ``first`` once and ``body``
+    ``n_snapshots - 1`` times, the state staying on the device; the model
+    time stays on the host, so the snapshot times do not change. Export
+    and load time and the artifact's size follow the steps of one
+    interval, not the run's. ``batch``: ``None`` exports the
+    single-member shape, a name (e.g. ``"b"``) makes the member axis
+    symbolic, an int pins it. Requires ``step_impl='plain'``, as the JAX
+    package requires its XLA step: the fused step kernel's wrapper is not
+    an exportable op.
     """
     if getattr(model, "step_impl", "plain") != "plain":
         raise ValueError(
             "export_barotropic requires step_impl='plain' (the fused step "
             "kernel is not registered as an op a program can hold)"
         )
+    from dlwp_torch.barotropic.model import BarotropicState
+
     J, L = model.grid.nlat, model.grid.nlon
+    every = int(snapshot_every)
 
-    def fn(z0):
-        state = model.from_z(z0)
-        _, _, zs = model.run_with_snapshots(state, n_snapshots,
-                                            snapshot_every)
-        return zs
+    def interval(state):
+        state = model._advance(state, every)
+        return (torch.view_as_real(state.vrt_spec),
+                torch.view_as_real(state.vrt_spec_prev), model.z_grid(state))
 
-    if batch is None:
-        shape = (J, L)
-    elif isinstance(batch, int):
-        shape = (batch, J, L)
-    else:
-        shape = (2, J, L)  # traced at 2: export would specialise 0 or 1
+    def first(z0):
+        return interval(model.from_z(z0))
+
+    def body(cur, prev):
+        # Any step count past 0 takes the leapfrog; t is not carried.
+        return interval(BarotropicState(
+            torch.view_as_complex(cur), torch.view_as_complex(prev), step=1,
+            t=torch.tensor(0.0, dtype=model.dtype)))
+
+    lead = () if batch is None else (batch if isinstance(batch, int) else 2,)
+    # A symbolic batch is traced at 2: export would specialise 0 or 1.
+    z0 = torch.zeros(lead + (J, L), dtype=torch.float32, device=model.device)
+    program, spec = _export(first, (z0,), batch, (0,))
+    programs = {"first": program}
+    if int(n_snapshots) > 1:
+        M = model.truncation + 1
+        carry = torch.zeros(lead + (M, M, 2), dtype=model.dtype,
+                            device=model.device)
+        programs["body"], _ = _export(body, (carry, carry.clone()), batch,
+                                      (0, 1))
     meta = {
         "kind": "barotropic",
         "n_snapshots": int(n_snapshots),
-        "snapshot_every": int(snapshot_every),
+        "snapshot_every": every,
         "dt": float(model.dt),
         "truncation": int(model.truncation),
         "grid": [int(J), int(L)],
         "spectral_mode": model.spectral_mode,
+        "loop": int(n_snapshots),
+        **spec,
     }
-    example = torch.zeros(shape, dtype=torch.float32, device=model.device)
-    servable = export_program(fn, (example,), batch=batch, meta=meta)
+    servable = Servable(programs, meta, device=spec["device"])
     if path is not None:
         servable.save(path)
     return servable

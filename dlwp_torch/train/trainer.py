@@ -23,7 +23,17 @@ on the model's device:
   mesh's blocks and joins its output (:mod:`dlwp_torch.parallel.spatial`),
   so a mesh with ``lat = lon = 1`` computes the same function as no mesh.
   As in the JAX package, :meth:`Trainer.fit` drops a batch whose length
-  does not divide over the ``data`` shards, with one warning.
+  does not divide over the ``data`` shards, with one warning;
+- data parallelism across processes (a mesh from
+  :func:`~dlwp_torch.parallel.distributed.multihost_mesh` whose ``data``
+  axis spans them): every process runs the same loop over the same global
+  batches, keeps its own block of each (the JAX worker's
+  ``make_array_from_process_local_data``), and averages the gradients
+  with one ``all_reduce`` before the optimizer step; the parameters start
+  as process 0's and stay bit-equal across processes, the loss in the
+  history is the global mean, evaluation runs whole on every process, and
+  only the primary process writes checkpoints (every process reads them
+  on resume).
 
 Kernels: every forward of a train step runs the ``lstm_gates`` kernel
 (kernel forward, plain VJP), and so does checkpoint's recompute; the
@@ -46,6 +56,11 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from dlwp_torch.ops import losses as loss_lib
+from dlwp_torch.parallel.distributed import (
+    all_reduce_mean,
+    broadcast_params,
+    is_primary,
+)
 from dlwp_torch.train.optim import OPTIMIZERS, add_decayed_weights
 
 LOSSES = {
@@ -203,8 +218,14 @@ class Trainer:
                 target_spec = (self.batch_spec[0], None) + self.batch_spec[1:]
             self.target_spec = (tuple(target_spec) if target_spec is not None
                                 else self.batch_spec)
+        # Data parallelism across processes: the batch spec's data axis
+        # spans them.
+        self._across = (self.batch_spec is not None
+                        and mesh.spans_processes(self.batch_spec[0]))
         self.optimizer = None
         self._warned_ragged = False
+        if self._across and model.built:
+            broadcast_params(model)
 
     @property
     def device(self) -> torch.device:
@@ -221,6 +242,8 @@ class Trainer:
         """Random parameters from ``config.seed`` for layers that have none
         (loaded weights are kept), gradients on, and a fresh optimizer."""
         self.model.init(self._to_device(sample_x[:1]), seed=self.config.seed)
+        if self._across:
+            broadcast_params(self.model)
         for p in self.model.parameters():
             p.requires_grad_(True)
         self.optimizer = self.make_optimizer(list(self.model.named_parameters()))
@@ -281,28 +304,60 @@ class Trainer:
                               for k in range(S)])
         return losses.mean(), preds
 
+    def _own_block(self, batch):
+        """This process's block of a global batch where the data axis
+        spans processes (the whole batch otherwise)."""
+        if not self._across:
+            return batch
+        axis = self.batch_spec[0]
+        n = self.mesh.shape[axis]
+        if len(batch) % n:
+            raise ValueError(f"a batch of {len(batch)} does not divide over "
+                             f"{n} data shards")
+        start, stop = self.mesh.process_rows(axis)
+        b = len(batch) // n
+        return batch[start * b:stop * b]
+
     def train_step(self, x, y) -> dict[str, torch.Tensor]:
         """One optimizer step on a batch (host arrays or tensors); returns
         the batch's loss and metrics as 0-d tensors on the device. After it,
         each parameter's ``grad`` holds this step's gradient (with
-        ``weight_decay`` added when it is set)."""
+        ``weight_decay`` added when it is set). Across processes ``x`` and
+        ``y`` are the global batch: the process steps on its own block,
+        and the gradient, loss and metrics are the means over processes."""
         if self.optimizer is None:
             self.init(x)
-        x, y = self._to_device(x), self._to_device(y)
+        x = self._to_device(self._own_block(x))
+        y = self._to_device(self._own_block(y))
         params = [p for group in self.optimizer.param_groups
                   for p in group["params"]]
         for p in params:
             p.grad = None
         loss, pred = self._forward_loss(x, y)
         loss.backward()
-        if self.config.weight_decay:
-            add_decayed_weights(params, self.config.weight_decay)
-        self.optimizer.step()
         out = {"loss": loss.detach()}
         with torch.no_grad():
             for name, fn in self.metrics.items():
                 out[name] = fn(y, pred.detach())
+        if self._across:
+            self._average(params, out)
+        if self.config.weight_decay:
+            add_decayed_weights(params, self.config.weight_decay)
+        self.optimizer.step()
         return out
+
+    @torch.no_grad()
+    def _average(self, params, out: dict) -> None:
+        """Gradients, loss and metrics replaced by their means over
+        processes, in one ``all_reduce``."""
+        have = [p for p in params if p.grad is not None]
+        dtype = out["loss"].dtype
+        stats = torch.stack([v.to(dtype) for v in out.values()])
+        *grads, stats = all_reduce_mean([p.grad for p in have] + [stats])
+        for p, g in zip(have, grads):
+            p.grad = g
+        for k, v in zip(list(out), stats):
+            out[k] = v.to(out[k].dtype)
 
     @torch.no_grad()
     def _eval_step(self, x, y):
@@ -389,11 +444,14 @@ class Trainer:
                 and (epoch + 1) % run["checkpoint_every"] == 0):
             from dlwp_torch.train.checkpoint import save_checkpoint
 
-            save_checkpoint(
-                run["checkpoint_dir"], self.model.state_dict(),
-                self.optimizer.state_dict(), step=epoch,
-                metadata={"epoch": epoch, **metrics},
-            )
+            if not self._across or is_primary():
+                save_checkpoint(
+                    run["checkpoint_dir"], self.model.state_dict(),
+                    self.optimizer.state_dict(), step=epoch,
+                    metadata={"epoch": epoch, **metrics},
+                )
+            if self._across:
+                torch.distributed.barrier()
         if run["verbose"]:
             desc = " ".join(f"{k}={v:.6g}" for k, v in metrics.items())
             print(f"epoch {epoch + 1}/{run['epochs']}: {desc}")

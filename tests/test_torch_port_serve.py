@@ -7,7 +7,14 @@ the JAX package's, float32 on the CPU from one set of weights.
   JAX servable's output (1e-5 relative: float32 convolutions sum in
   another order), at the example's batch and at one it never saw.
 - A barotropic servable equals the eager plain engine and JAX's
-  (rtol 1e-5, atol 1e-4, the JAX test's limits).
+  (rtol 1e-5, atol 1e-4, the JAX test's limits). Rolled (two programs of
+  one snapshot interval each, looped by ``Servable.call``): at the
+  reference's ``run_with_snapshots(24, 12)``, both forms, bit-equal to
+  eager in float32 and float64 through serialize and load, and in float64
+  within 1e-14 relative (max abs over max, the order of float64 sums over
+  288 steps; 1.3e-15 measured) of JAX's scan servable; fewer graph nodes
+  than the unrolled export of the same run, compared at (6, 3); a
+  format-1 artifact (one program) still loads.
 - A program exported on the CPU holds the ``dlwp_torch::fused_conv_pool``
   and ``dlwp_torch::lstm_gates`` nodes (so the card runs the kernels), and
   moving it to another device moves every weight, constant and device
@@ -35,11 +42,13 @@ from torch.export.passes import move_to_device_pass
 
 import __graft_entry__
 import dlwp_tpu.serve as jserve
+from dlwp_tpu.barotropic import BarotropicModel as JaxVrt
 from dlwp_tpu.barotropic import BarotropicModelPsi as JaxPsi
 from dlwp_tpu.grid import LatLonGrid as JaxGrid
 from dlwp_tpu.models import DLWPNeuralNet as JaxNet
 
 from dlwp_torch import (
+    BarotropicModel,
     BarotropicModelPsi,
     DLWPNeuralNet,
     LatLonGrid,
@@ -278,6 +287,93 @@ def test_kernel_model_rejected():
                                dt=1800.0, step_impl="kernel", device="cpu")
     with pytest.raises(ValueError, match="step_impl='plain'"):
         export_barotropic(model, 2, 2)
+
+
+TOL_BARO_JAX_F64 = 1e-14
+FORMS = {"psi": (BarotropicModelPsi, JaxPsi), "vrt": (BarotropicModel, JaxVrt)}
+
+
+def _small_baro(form, dtype):
+    return FORMS[form][0](LatLonGrid.regular(13, 24), 7, dt=1800.0,
+                          dtype=dtype, device="cpu")
+
+
+def _z0_small(seed=0, lead=()):
+    return (5500.0 + 100.0 * np.random.RandomState(seed).randn(
+        *lead, 13, 24)).astype(np.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["float32", "float64"])
+@pytest.mark.parametrize("form", list(FORMS))
+def test_rolled_barotropic_export_at_the_reference_run(form, dtype):
+    """export_barotropic(model, 24, 12): two programs of 12 steps, looped
+    24 times by call after serialize and load, bit-equal to eager; in
+    float64 also against the JAX servable (one scan)."""
+    model = _small_baro(form, dtype)
+    blob = export_barotropic(model, 24, 12).serialize()
+    sv = Servable.load(blob, device="cpu")
+    assert set(sv.programs) == {"first", "body"} and sv.meta["loop"] == 24
+    z0 = _z0_small()
+    got = sv.call(torch.from_numpy(z0))
+    _, _, eager = model.run_with_snapshots(model.from_z(z0), 24, 12)
+    assert got.shape == (24, 13, 24) and torch.equal(got, eager)
+    if dtype == torch.float64:
+        jm = FORMS[form][1](JaxGrid.regular(13, 24), 7, dt=1800.0,
+                            dtype=jnp.float64)
+        want = np.asarray(jserve.export_barotropic(
+            jm, 24, 12, platforms=("cpu",)).call(jnp.asarray(z0)))
+        assert want.dtype == np.float64
+        err = np.abs(got.numpy() - want).max() / np.abs(want).max()
+        assert err <= TOL_BARO_JAX_F64, err
+
+
+def test_rolled_barotropic_export_batched_is_bit_equal():
+    model = _small_baro("psi", torch.float32)
+    sv = export_barotropic(model, 3, 2, batch="b")
+    for B in (1, 3):
+        z0 = _z0_small(B, (B,))
+        _, _, eager = model.run_with_snapshots(model.from_z(z0), 3, 2)
+        assert torch.equal(sv.call(torch.from_numpy(z0)), eager)
+    one = export_barotropic(model, 1, 2)
+    assert set(one.programs) == {"first"}
+    z0 = _z0_small(5)
+    assert torch.equal(one.call(torch.from_numpy(z0)),
+                       model.run_with_snapshots(model.from_z(z0), 1, 2)[2])
+
+
+def test_rolled_export_holds_fewer_nodes_than_the_unrolled():
+    """The same run, (6, 3), rolled against every step unrolled into one
+    program (the export before the rolled form): fewer nodes, the same
+    snapshots."""
+    model = _small_baro("psi", torch.float32)
+
+    def unrolled(z0):
+        return model.run_with_snapshots(model.from_z(z0), 6, 3)[2]
+
+    flat = export_program(unrolled, (torch.zeros(13, 24),), batch=None)
+    rolled = export_barotropic(model, 6, 3)
+    n_rolled = sum(len(p.graph.nodes) for p in rolled.programs.values())
+    assert n_rolled < len(flat.program.graph.nodes)
+    z0 = torch.from_numpy(_z0_small(2))
+    assert torch.equal(rolled.call(z0), flat.call(z0))
+
+
+def test_format_1_artifact_loads():
+    """An artifact of the single-program layout (format 1: the program
+    part is one saved program) still loads and runs."""
+    import io
+    import pickle
+
+    from dlwp_torch.serve import _pack
+
+    sv = export_program(lambda x: 2.0 * x, (torch.ones(2, 3),))
+    blob = io.BytesIO()
+    torch.export.save(sv.program, blob)
+    meta = dict(sv.meta, format_version=1)
+    old = _pack(meta, blob.getvalue(), pickle.dumps({}))
+    back = Servable.load(old, device="cpu")
+    assert torch.equal(back.call(torch.ones(4, 3)), torch.full((4, 3), 2.0))
 
 
 def _calls(program):
