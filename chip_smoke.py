@@ -205,9 +205,19 @@ Phases, each raising on failure:
     lat 2 on each rank's card, against the single-process card run of
     the same batches at ``TOL_TRAIN``, the parameters bit-equal across
     ranks; ``sharded_cyclic_conv2d`` with a lat axis across the ranks
-    against ``cyclic_conv2d`` at ``TOL_F32``, the kernel impls refused
-    there; ms a step against the unsharded one-process step, the
-    gradient all-reduce's ms and bytes;
+    against ``cyclic_conv2d`` at ``TOL_F32``, and the overlap impl there;
+    ms a step against the unsharded one-process step, the gradient
+    all-reduce's ms and bytes; and with a lat axis across the ranks
+    (CUDA IPC): the halo kernel at lat 2 and lat 4 bit-equal to the
+    one-process kernel, both overlap kernels at the lat=2 forecast's conv
+    shapes within ``TOL_F32`` of their plain versions, each rank's
+    launches, the IPC call's time (host clock, device, the barrier's
+    share, opening the handles) beside the repeated-card launch, 3
+    flagship train steps at B=32 against the one-process card run at
+    ``TOL_TRAIN``, the sharded spectral core (T71 on 72x144) and 20
+    barotropic steps against the unsharded ones, and a lon=2 conv whose
+    ring spans the ranks; where the machine refuses IPC, the CUDA error
+    and the items it leaves unverified;
 25. a ``{"kernels": [...]}`` line, then the last line
     ``{"ok": true, "device": {...}}``.
 
@@ -4198,9 +4208,12 @@ def run_sharded_train(torch, dev):
 # it, probe_nccl_shared_card), and with two cards or more also NCCL with
 # a card a rank. Each rank trains the
 # flagship with the data axis across the ranks and lat 2 on its own card,
-# and runs sharded_cyclic_conv2d with a lat axis across the ranks.
+# runs sharded_cyclic_conv2d with a lat axis across the ranks, and the
+# lat-across-ranks checks: the kernels over CUDA IPC, training, the
+# spectral core and the lon ring (lat_across_worker, lat_across_plain).
 MC_NPROC = 2
-MC_TIMEOUT = 240
+MC_TIMEOUT = 420
+MC_IPC_CALLS = 20
 MC_SP_SHAPE, MC_SP_O = (B, 12, NLAT, NLON), 48  # the recurrent conv's
 MC_TIME_STEPS, MC_REDUCE_REPS = 5, 10
 MC_PROBE_TIMEOUT = 90
@@ -4271,16 +4284,232 @@ def multicard_worker(rank, nproc, port, backend, devices, out_dir):
          / (9 * MC_SP_SHAPE[1]) ** 0.5).to(dev)
     got = sharded_cyclic_conv2d(x, k, mesh_sp, data_axis=None)
     info["sp_mesh"] = mesh_sp.shape
-    info["sp_err"] = float((got - cyclic_conv2d(x, k)).abs().max())
+    want = cyclic_conv2d(x, k)
+    info["sp_err"] = float((got - want).abs().max())
     try:
-        SpatialSharding(mesh_sp, data_axis=None, impl="overlap").conv(x, k)
-        info["sp_kernel_refused"] = ""
-    except NotImplementedError as e:
-        info["sp_kernel_refused"] = str(e)
+        got = SpatialSharding(mesh_sp, data_axis=None,
+                              impl="overlap").conv(x, k)
+        info["sp_kernel_err"] = float((got - want).abs().max())
+        lat_across_worker(torch, dev, nproc, info, arrays)
+    except RuntimeError as e:
+        # A machine that refuses CUDA IPC: the mailbox raises with the
+        # CUDA error (no fallback); the IPC items stay unverified.
+        if "cudaIpc" not in str(e):
+            raise
+        info["ipc_refused"] = str(e)
+    lat_across_plain(torch, dev, info)
+    from dlwp_torch.kernels.halo_exchange import release_mailboxes
+
+    release_mailboxes()
     np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **arrays)
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(info, f)
     torch.distributed.destroy_process_group()
+
+
+def lat_whole(torch, dev, x, mesh, n):
+    """``x`` split over ``mesh`` (this rank's bands, Remote elsewhere) and
+    over ``n`` virtual lat shards of the card (every band here): the same
+    inputs for the cross-process launch and the one-process one."""
+    from dlwp_torch.parallel.mesh import split_shards
+
+    return (split_shards(x, mesh, None, "lat"),
+            split_shards(x, virtual_mesh(dev, 1, n), None, "lat"))
+
+
+def mine_equal(torch, got, want):
+    """Whether this rank's bands of ``got`` equal ``want``'s bit for bit
+    (``Remote`` places skipped); and the largest |got - want| there."""
+    pairs = [(a, b) for ra, rb in zip(got, want) for a, b in zip(ra, rb)
+             if isinstance(a, torch.Tensor)]
+    return (all(torch.equal(a, b) for a, b in pairs),
+            max(float((a - b).abs().max()) for a, b in pairs))
+
+
+def ipc_timing(torch, ipc, repeated, box):
+    """The cross-process launch (``ipc``) against the repeated-card launch
+    of the same shapes (``repeated``), MC_IPC_CALLS calls each after a
+    warm-up: ms a call on the host clock (synchronised at the end) and on
+    the device (CUDA events around the calls), the barrier's share of the
+    host time, and the kernel's own device time (torch.profiler, one
+    session of the same calls on every rank)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    out = {}
+    for name, fn in (("ipc", ipc), ("repeated_card", repeated)):
+        fn()
+        torch.cuda.synchronize()
+        b0 = box.barrier_seconds
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(MC_IPC_CALLS):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        host = 1e3 * (time.perf_counter() - t0) / MC_IPC_CALLS
+        out[name] = {"host_ms": host,
+                     "device_ms": start.elapsed_time(end) / MC_IPC_CALLS}
+        if name == "ipc":
+            out[name]["barrier_ms"] = (1e3 * (box.barrier_seconds - b0)
+                                       / MC_IPC_CALLS)
+            out[name]["barrier_share"] = out[name]["barrier_ms"] / host
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(MC_IPC_CALLS):
+                fn()
+            torch.cuda.synchronize()
+        rows = {e.key: e.device_time_total / 1e3 / MC_IPC_CALLS
+                for e in prof.key_averages()
+                if getattr(e, "device_time_total", 0) > 0
+                and e.device_type.name == "CUDA"}
+        out[name]["kernel_device_ms"] = sum(
+            v for k, v in rows.items() if "kernel" in k) or None
+        out[name]["copy_device_ms"] = sum(
+            v for k, v in rows.items() if "emcpy" in k) or None
+    out["open_ms"] = 1e3 * box.open_seconds
+    return out
+
+
+def lat_across_worker(torch, dev, nproc, info, arrays):
+    """A lat axis across the ranks through the kernels (CUDA IPC): the
+    halo kernel on lat 2 and lat 4 (one and two bands a rank) bit-equal to
+    the one-process kernel on the same inputs, both overlap kernels at the
+    lat=2 forecast's conv shapes against their plain versions and the
+    one-process kernel, each rank's launch counts, the IPC launch's time
+    beside the repeated-card launch; then TRAIN_CHECK_STEPS flagship train
+    steps at B=TRAIN_B with lat across the ranks (overlap impl)."""
+    from dlwp_torch.kernels import (
+        halo_exchange, launch_counts, overlap_conv, overlap_conv_db,
+        overlap_conv_plain, reset_launch_counts,
+    )
+    from dlwp_torch.kernels.halo_exchange import mailboxes
+    from dlwp_torch.parallel import MeshConfig
+    from dlwp_torch.parallel.distributed import multihost_mesh
+
+    g = torch.Generator().manual_seed(11)  # the same inputs on every rank
+    name, shape, _, kh, d = HALO_CONVS[0]
+    halo = ((kh - 1) * d // 2, (kh - 1) * d - (kh - 1) * d // 2)
+    x = torch.randn(shape, generator=g).to(dev)
+    halo_out = {}
+    for per in (1, 2):
+        mesh = multihost_mesh(MeshConfig(data=1, lat=-1), devices=[dev] * per)
+        shards, whole = lat_whole(torch, dev, x, mesh, nproc * per)
+        reset_launch_counts()
+        got = halo_exchange(shards, halo)
+        torch.cuda.synchronize()
+        launches = launch_counts()["halo_exchange"]
+        same, _ = mine_equal(torch, got, halo_exchange(whole, halo))
+        halo_out[f"lat{nproc * per}"] = {"bit_equal": same,
+                                         "launches": launches}
+    info["ipc_halo"] = {"conv": name, "shape": shape, "halo": halo,
+                        **halo_out}
+    mesh2 = multihost_mesh(MeshConfig(data=1, lat=-1), devices=[dev])
+    shards, whole = lat_whole(torch, dev, x, mesh2, nproc)
+    box = next(b for b in mailboxes() if b.H == shape[2] // nproc)
+    info["ipc_halo"]["timing"] = ipc_timing(
+        torch, lambda: halo_exchange(shards, halo),
+        lambda: halo_exchange(whole, halo), box)
+    conv = []
+    for (cname, cshape, o), chunk in zip(OVERLAP_CONVS, (5, 11, 4)):
+        xc = torch.randn(cshape, generator=g).to(dev)
+        kc = (torch.randn(o, cshape[1], 3, 3, generator=g)
+              / (9 * cshape[1]) ** 0.5).to(dev)
+        shards, whole = lat_whole(torch, dev, xc, mesh2, nproc)
+        want = overlap_conv_plain(whole, kc)
+        row = {"conv": cname, "shape": cshape, "O": o, "chunk": chunk}
+        for kname, fn in (("overlap_conv", overlap_conv),
+                          ("overlap_conv_db",
+                           lambda s, kk: overlap_conv_db(s, kk, chunk))):
+            reset_launch_counts()
+            got = fn(shards, kc)
+            torch.cuda.synchronize()
+            launches = launch_counts()[kname]
+            _, err = mine_equal(torch, got, want)
+            same, _ = mine_equal(torch, got, fn(whole, kc))
+            row[kname] = {"max_abs_vs_plain": err, "launches": launches,
+                          "bit_equal_one_process": same}
+        if cname == "convlstm recurrent":
+            box = next(b for b in mailboxes()
+                       if b.rows == cshape[0] * cshape[1]
+                       and b.H == cshape[2] // nproc)
+            row["timing"] = ipc_timing(
+                torch, lambda: overlap_conv(shards, kc),
+                lambda: overlap_conv(whole, kc), box)
+            row["timing_db"] = ipc_timing(
+                torch, lambda: overlap_conv_db(shards, kc, chunk),
+                lambda: overlap_conv_db(whole, kc, chunk), box)
+        conv.append(row)
+    info["ipc_overlap"] = conv
+    # Training with lat across the ranks, through the overlap impl.
+    net, train, _ = train_stack(dev, mesh=mesh2)
+    batches = [train[i] for i in range(TRAIN_CHECK_STEPS)]
+    reset_launch_counts()
+    run = step_run(torch, net, batches, dev)
+    torch.cuda.synchronize()
+    info["lat_launches"] = launch_counts()
+    info["lat_losses"] = run["losses"]
+    info["lat_mesh"] = mesh2.shape
+    for k, v in run["params"].items():
+        arrays[f"lat_param/{k}"] = v.numpy()
+    for k, v in run["grads"].items():
+        arrays[f"lat_grad/{k}"] = v.numpy()
+    xb, yb = batches[0]
+    ms = []
+    for _ in range(MC_TIME_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        net.trainer.train_step(xb, yb)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+    info["lat_step_ms"] = ms
+
+
+def lat_across_plain(torch, dev, info):
+    """The moves that need no IPC, with the lat (or lon) axis across the
+    ranks: the sharded spectral engine and SHARD_STEPS barotropic steps
+    (lat 2 across the ranks, SHARD_GRID) against the unsharded ones, and a
+    lon=2 conv whose ring spans the ranks against ``cyclic_conv2d``."""
+    from dlwp_torch import BarotropicModel, LatLonGrid, SphericalHarmonics
+    from dlwp_torch.ops.conv import cyclic_conv2d
+    from dlwp_torch.parallel import (
+        MeshConfig, ShardedBarotropicModel, ShardedSphericalHarmonics,
+    )
+    from dlwp_torch.parallel.distributed import multihost_mesh
+    from dlwp_torch.parallel.halo import sharded_cyclic_conv2d
+
+    nlat, nlon, T = SHARD_GRID
+    grid = LatLonGrid.gaussian(nlat, nlon)
+    mesh = multihost_mesh(MeshConfig(data=1, lat=-1), devices=[dev])
+    sh = SphericalHarmonics.build(grid, T, device=dev)
+    ssh = ShardedSphericalHarmonics(sh, mesh)
+    spec = random_spec(torch, dev, (4,), T)
+    field = sh.synthesize(spec)
+    errs = {
+        "analyze": scaled_err(ssh.analyze(field), sh.analyze(field)),
+        "synthesize": scaled_err(ssh.synthesize(spec), sh.synthesize(spec)),
+        "uv_from_vrtdiv": max(scaled_err(a, b) for a, b in zip(
+            ssh.uv_from_vrtdiv(spec, spec), sh.uv_from_vrtdiv(spec, spec))),
+    }
+    kw = dict(dt=1800.0, damping_coefficient=5e-6, device=dev)
+    ref = BarotropicModel(grid, T, **kw)
+    shd = ShardedBarotropicModel(grid, T, mesh=mesh, **kw)
+    state = ref.from_z(bench_height(grid))
+    baro = rel_rms(shd.run_sharded(state, SHARD_STEPS).vrt_spec,
+                   ref.run(state, SHARD_STEPS).vrt_spec)
+    info["lat_spectral"] = {"mine": ssh.mine, "errors": errs,
+                            "barotropic_rel_rms": baro}
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn(MC_SP_SHAPE, generator=g).to(dev)
+    k = (torch.randn(MC_SP_O, MC_SP_SHAPE[1], 3, 3, generator=g)
+         / (9 * MC_SP_SHAPE[1]) ** 0.5).to(dev)
+    lon = multihost_mesh(MeshConfig(data=1, lat=1, lon=-1), devices=[dev])
+    got = sharded_cyclic_conv2d(x, k, lon, data_axis=None,
+                                lon_axis_name="lon")
+    info["lon_ring"] = {"mesh": lon.shape,
+                        "max_abs_vs_cyclic_conv2d":
+                        float((got - cyclic_conv2d(x, k)).abs().max())}
 
 
 def spawn_ranks(torch, backend, devices):
@@ -4447,13 +4676,13 @@ def run_torchrun(torch, n_cards):
     return {"backend": want, "ranks": outs, "seconds": seconds}
 
 
-def check_ranks(torch, backend, ranks, ref, single_ms, need):
+def check_ranks(torch, backend, ranks, ref, single_ms, need, need_lat):
     """Phase (b)'s checks of one backend's ranks: each rank's launches
     equal to ``need`` (one forward's dispatch a step), parameters (and the
     first gradient) bit-equal across ranks, losses and parameters against
     the single-process card run at TOL_TRAIN, the cross-rank lat conv at
-    TOL_F32, the kernel impls refused there; ms a step and the
-    all-reduce's."""
+    TOL_F32 (plain and overlap impl); ms a step and the all-reduce's; then
+    :func:`check_lat_across` (``need_lat``: its train steps' launches)."""
     (i0, a0) = ranks[0]
     for info, _ in ranks:
         if info["launches"] != need:
@@ -4482,23 +4711,134 @@ def check_ranks(torch, backend, ranks, ref, single_ms, need):
     out = {"train_vs_one_process": errs, "mesh": i0["mesh"],
            "launches_by_rank": [i["launches"] for i, _ in ranks]}
     for info, _ in ranks:
-        if info["sp_err"] > TOL_F32 or "item 6f" not in (
-                info["sp_kernel_refused"]):
+        if info["sp_err"] > TOL_F32 or info.get("sp_kernel_err",
+                                                0.0) > TOL_F32:
             raise AssertionError(f"multicard {backend} rank {info['rank']}: "
                                  f"lat across ranks {info['sp_err']}, "
-                                 f"{info['sp_kernel_refused']!r}")
-    out["lat_across_ranks"] = {"mesh": i0["sp_mesh"], "shape": MC_SP_SHAPE,
-                               "max_abs_vs_cyclic_conv2d":
-                               max(i["sp_err"] for i, _ in ranks)}
+                                 f"kernel impl {info.get('sp_kernel_err')}")
+    out["lat_across_ranks"] = {
+        "mesh": i0["sp_mesh"], "shape": MC_SP_SHAPE,
+        "max_abs_vs_cyclic_conv2d": max(i["sp_err"] for i, _ in ranks),
+        "overlap_impl_max_abs": max(i.get("sp_kernel_err", float("nan"))
+                                    for i, _ in ranks)}
     step = float(np.median([m for i, _ in ranks for m in i["step_ms"][1:]]))
     red = float(np.median([m for i, _ in ranks for m in i["reduce_ms"][1:]]))
     out.update(step_ms=step, single_process_step_ms=single_ms,
                all_reduce_ms=red, all_reduce_bytes=i0["reduce_bytes"])
+    lat = out["lat_across_ranks"]
     log(f"multicard {backend}: lat {i0['sp_mesh']} across ranks vs "
-        f"cyclic_conv2d max abs {out['lat_across_ranks']['max_abs_vs_cyclic_conv2d']:.3e}, "
-        f"kernel impls refused; a train step {step:.2f} ms (host clock, "
-        f"median) against {single_ms:.2f} one process unsharded; the "
-        f"gradient all-reduce {red:.3f} ms for {i0['reduce_bytes']} bytes")
+        f"cyclic_conv2d max abs {lat['max_abs_vs_cyclic_conv2d']:.3e} "
+        f"(plain), {lat['overlap_impl_max_abs']:.3e} (overlap impl); a "
+        f"train step {step:.2f} ms (host clock, median) against "
+        f"{single_ms:.2f} one process unsharded; the gradient all-reduce "
+        f"{red:.3f} ms for {i0['reduce_bytes']} bytes")
+    out["lat_across"] = check_lat_across(torch, backend, ranks, ref, need_lat)
+    return out
+
+
+def check_lat_across(torch, backend, ranks, ref, need):
+    """Phase (b)'s lat-across-ranks checks (:func:`lat_across_worker`,
+    :func:`lat_across_plain`): the halo kernel bit-equal to the
+    one-process kernel, one launch a call on every rank; both overlap
+    kernels within TOL_F32 of their plain versions and bit-equal to the
+    one-process kernel; the IPC times; the train steps against the
+    one-process unsharded card run at TOL_TRAIN with ``need`` launches on
+    each rank; the spectral core and the lon ring. Where the machine
+    refused IPC, the error and the unverified items."""
+    out = {}
+    refused = [i.get("ipc_refused") for i, _ in ranks]
+    if any(refused):
+        out["ipc_refused"] = refused
+        log(f"multicard {backend} lat across ranks: CUDA IPC refused: "
+            f"{refused}; unverified: the halo and overlap kernels across "
+            "processes, their launch counts and times, and the train steps "
+            "through them")
+    else:
+        for info, _ in ranks:
+            r = info["rank"]
+            h = info["ipc_halo"]
+            for key in ("lat2", "lat4"):
+                ok = h[key]["bit_equal"] and h[key]["launches"] == 1
+                log(f"multicard {backend} rank {r}: halo_exchange over IPC, "
+                    f"{h['conv']} {h['shape']} halo {h['halo']}, {key}: "
+                    f"bit-equal to the one-process kernel {h[key]['bit_equal']}"
+                    f", launches {h[key]['launches']}")
+                if not ok:
+                    raise AssertionError(f"{backend} rank {r} halo {key}: "
+                                         f"{h[key]}")
+            for row in info["ipc_overlap"]:
+                for kname in ("overlap_conv", "overlap_conv_db"):
+                    v = row[kname]
+                    log(f"multicard {backend} rank {r}: {kname} over IPC, "
+                        f"{row['conv']} {row['shape']}->{row['O']}: max|"
+                        f"kernel-plain| {v['max_abs_vs_plain']:.3e}, bit-"
+                        f"equal to the one-process kernel "
+                        f"{v['bit_equal_one_process']}, launches "
+                        f"{v['launches']}")
+                    if not (v["max_abs_vs_plain"] <= TOL_F32
+                            and v["bit_equal_one_process"]
+                            and v["launches"] == 1):
+                        raise AssertionError(f"{backend} rank {r} {kname} "
+                                             f"{row['conv']}: {v}")
+            rec = info["ipc_overlap"][0]
+            for label, t in (("halo_exchange " + h["conv"], h["timing"]),
+                             ("overlap_conv " + rec["conv"], rec["timing"]),
+                             (f"overlap_conv_db {rec['conv']} chunk "
+                              f"{rec['chunk']}", rec["timing_db"])):
+                i, c = t["ipc"], t["repeated_card"]
+                log(f"multicard {backend} rank {r}: {label} a call over IPC "
+                    f"{i['host_ms']:.4f} ms host clock, {i['device_ms']:.4f} "
+                    f"ms device (events; kernel {i['kernel_device_ms']}, "
+                    f"edge copies {i['copy_device_ms']}), barrier "
+                    f"{i['barrier_ms']:.4f} ms ({100 * i['barrier_share']:.1f}"
+                    f"% of the host time); the repeated-card launch "
+                    f"{c['host_ms']:.4f} ms host, {c['device_ms']:.4f} ms "
+                    f"device (kernel {c['kernel_device_ms']}); opening the "
+                    f"handles once {t['open_ms']:.1f} ms")
+            if info["lat_launches"] != need:
+                raise AssertionError(f"{backend} rank {r} lat train launches "
+                                     f"{info['lat_launches']} != {need}")
+        i0, a0 = ranks[0]
+        got = {"losses": i0["lat_losses"],
+               "grads": {k[9:]: torch.from_numpy(v) for k, v in a0.items()
+                         if k.startswith("lat_grad/")},
+               "params": {k[10:]: torch.from_numpy(v) for k, v in a0.items()
+                          if k.startswith("lat_param/")}}
+        errs = train_errors(got, ref)
+        step = float(np.median([m for i, _ in ranks
+                                for m in i["lat_step_ms"][1:]]))
+        log(f"multicard {backend}: lat {i0['lat_mesh']} across {MC_NPROC} "
+            f"ranks (overlap impl, CUDA IPC), {TRAIN_CHECK_STEPS} steps at "
+            f"B={TRAIN_B} against one process unsharded on the card: {errs};"
+            f" parameters and first gradient bit-equal across ranks; "
+            f"launches a rank {i0['lat_launches']}; a step {step:.2f} ms "
+            "(host clock, median)")
+        if not (errs["loss_rel"] <= TOL_TRAIN["loss"]
+                and errs["grad_rel_rms_unforced"] <= TOL_TRAIN["grad"]
+                and errs["params_rel_rms"] <= TOL_TRAIN["params"]):
+            raise AssertionError(f"multicard {backend} lat training: {errs}")
+        out.update(
+            halo=[i["ipc_halo"] for i, _ in ranks],
+            overlap=[i["ipc_overlap"] for i, _ in ranks],
+            train_vs_one_process=errs, step_ms=step,
+            launches_by_rank=[i["lat_launches"] for i, _ in ranks])
+    for info, _ in ranks:
+        sp, lon = info["lat_spectral"], info["lon_ring"]
+        log(f"multicard {backend} rank {info['rank']}: spectral core with "
+            f"lat across ranks (bands {sp['mine']}), Gaussian "
+            f"{SHARD_GRID[0]}x{SHARD_GRID[1]} T{SHARD_GRID[2]}: max err / "
+            "scale " + ", ".join(f"{k} {v:.2e}" for k, v in
+                                 sp["errors"].items())
+            + f" (limit {TOL_SHARD}); {SHARD_STEPS} barotropic steps "
+            f"relative RMS {sp['barotropic_rel_rms']:.2e} (limit "
+            f"{TOL_SHARD_BARO}); lon ring {lon['mesh']} across ranks vs "
+            f"cyclic_conv2d max abs {lon['max_abs_vs_cyclic_conv2d']:.3e}")
+        if not (max(sp["errors"].values()) <= TOL_SHARD
+                and sp["barotropic_rel_rms"] <= TOL_SHARD_BARO
+                and lon["max_abs_vs_cyclic_conv2d"] <= TOL_F32):
+            raise AssertionError(f"{backend} rank {info['rank']}: {sp} {lon}")
+    out["spectral"] = [i["lat_spectral"] for i, _ in ranks]
+    out["lon_ring"] = [i["lon_ring"] for i, _ in ranks]
     return out
 
 
@@ -4592,18 +4932,23 @@ def run_multicard(torch, dev):
                                                      2))
     need = {k: TRAIN_CHECK_STEPS * v for k, v in dispatch_launches(
         torch, cpu, TRAIN_B // MC_NPROC).items()}
+    # With lat across the ranks, each rank's launches over its steps: one
+    # forward's dispatch of the whole batch on a lat=2 mesh (a launch
+    # covers the rank's one band where the mesh's covers both).
+    need_lat = {k: TRAIN_CHECK_STEPS * v for k, v in dispatch_launches(
+        torch, cpu, TRAIN_B).items()}
     xd, yd = (card.trainer._to_device(a) for a in batches[0])
     single_ms = timed_ms(lambda: card.trainer.train_step(xd, yd), reps=3,
                          inner=MC_TIME_STEPS, warmup=1)
     here = f"cuda:{torch.cuda.current_device()}"
     out["gloo"] = check_ranks(
         torch, "gloo", spawn_ranks(torch, "gloo", [here] * MC_NPROC),
-        ref, single_ms, need)
+        ref, single_ms, need, need_lat)
     if n_cards >= 2:
         out["nccl"] = check_ranks(
             torch, "nccl", spawn_ranks(
                 torch, "nccl", [f"cuda:{i}" for i in range(MC_NPROC)]),
-            ref, single_ms, need)
+            ref, single_ms, need, need_lat)
     else:
         out["nccl"] = "not run: one CUDA device"
         log("multicard (b) NCCL not run: NCCL needs a card a rank and this "

@@ -77,6 +77,12 @@
 //    peer's memory over NVLink through unified addressing (the TPU
 //    kernel's remote DMA, as a pull); the wrapper enables peer access and
 //    orders the streams (dlwp_torch/kernels/halo_exchange.py).
+// 7. Lat neighbours in another process: a source-only entry may be a
+//    mapped slab of that process's edge mailbox (csrc/halo_exchange.cu)
+//    of 2 rows an image (its band's first row, then its last) in place
+//    of a whole band; every source carries its rows per image, so the
+//    kernel reads the slab's last row as a northern neighbour's and its
+//    first row as a southern one's, and never another process's band.
 //
 // Every output sums in the same order (slabs ascending, then dy, then dx,
 // then the tensor core's k8 or k4 sum), whatever the tile, so the two
@@ -110,6 +116,7 @@ struct Table {
   float* y[MAX_SHARDS];
   int north[MAX_SHARDS];
   int south[MAX_SHARDS];
+  int rows[MAX_SHARDS];  // rows per image of each source (H for a band)
 };
 
 // Plan values, in the order of the `plan` array of the C entry points.
@@ -131,10 +138,11 @@ struct Params {
 
 // A tile, with the start of its first sample in its shard and in the
 // neighbours' edge rows (the north's last row, the south's first; nullptr
-// where there is no neighbour).
+// where there is no neighbour), and the neighbours' image sizes.
 struct Tile {
   int s, b0, nb, h0, nr, og;
   const float *north, *self, *south;
+  size_t north_img, south_img;
 };
 
 __device__ __forceinline__ Tile decode(const Params& p, int t) {
@@ -150,11 +158,14 @@ __device__ __forceinline__ Tile decode(const Params& p, int t) {
   tl.s = (q / p.n_rg) % p.n;
   tl.h0 = (q % p.n_rg) * p.rb;
   tl.nr = min(p.rb, p.H - tl.h0);
-  const size_t off = (size_t)tl.b0 * p.C * p.H * p.W;
   const int n = p.t.north[tl.s], so = p.t.south[tl.s];
-  tl.self = p.t.x[tl.s] + off;
-  tl.north = n >= 0 ? p.t.x[n] + off + (size_t)(p.H - 1) * p.W : nullptr;
-  tl.south = so >= 0 ? p.t.x[so] + off : nullptr;
+  tl.north_img = n >= 0 ? (size_t)p.t.rows[n] * p.W : 0;
+  tl.south_img = so >= 0 ? (size_t)p.t.rows[so] * p.W : 0;
+  tl.self = p.t.x[tl.s] + (size_t)tl.b0 * p.C * p.H * p.W;
+  tl.north = n >= 0 ? p.t.x[n] + tl.b0 * p.C * tl.north_img +
+                          (size_t)(p.t.rows[n] - 1) * p.W
+                    : nullptr;
+  tl.south = so >= 0 ? p.t.x[so] + tl.b0 * p.C * tl.south_img : nullptr;
   return tl;
 }
 
@@ -178,7 +189,9 @@ __device__ void stage_x(float* xs, const Params& p, const Tile& tl, int c0) {
     if (bl < tl.nb && c < p.C && r <= tl.nr + 1) {
       const float* base =
           gr < 0 ? tl.north : (gr >= H ? tl.south : tl.self + (size_t)gr * W);
-      if (base) src = base + (size_t)(bl * p.C + c) * H * W;
+      const size_t img =
+          gr < 0 ? tl.north_img : (gr >= H ? tl.south_img : (size_t)H * W);
+      if (base) src = base + (bl * p.C + c) * img;
     }
     float* dst = xs + row * p.rs + LM;
     if (!src) {
@@ -431,15 +444,20 @@ int launch(const Params& p, int threads, int smem, bool persistent,
   return (int)cudaGetLastError();
 }
 
-int dispatch(const float* const* x, float* const* y, const int* north,
-             const int* south, int n, int n_src, const float* k, int B,
-             int C, int H, int W, int O, int chunk, const int* plan,
-             bool persistent, void* stream, int* grid_out) {
+int dispatch(const float* const* x, const int* x_rows, float* const* y,
+             const int* north, const int* south, int n, int n_src,
+             const float* k, int B, int C, int H, int W, int O, int chunk,
+             const int* plan, bool persistent, void* stream, int* grid_out) {
   if (n < 1 || n_src < n || n_src > MAX_SHARDS || chunk < 1 || B < 1 ||
       H < 2)
     return (int)cudaErrorInvalidValue;
   Params p;
-  for (int i = 0; i < n_src; ++i) p.t.x[i] = x[i];
+  for (int i = 0; i < n_src; ++i) {
+    if (x_rows[i] < 1 || (i < n && x_rows[i] != H))
+      return (int)cudaErrorInvalidValue;
+    p.t.x[i] = x[i];
+    p.t.rows[i] = x_rows[i];
+  }
   for (int i = 0; i < n; ++i) {
     if (north[i] < -1 || north[i] >= n_src || south[i] < -1 ||
         south[i] >= n_src)
@@ -492,24 +510,26 @@ extern "C" int dlwp_overlap_conv_max_shards() { return MAX_SHARDS; }
 // Both launch on `stream` and return the first CUDA error of the set-up
 // (shared-memory attribute, occupancy query) or cudaGetLastError() after
 // the launch (0 = ok). x: n_src >= n shard pointers (host array), the n
-// outputs' own shards first; y, north, south: one per output, north and
-// south indexing x; plan: the P_FIELDS values of the wrapper's _plan;
-// grid_out receives the blocks launched.
-extern "C" int dlwp_overlap_conv(const float* const* x, float* const* y,
-                                 const int* north, const int* south, int n,
-                                 int n_src, const float* k, int B, int C,
-                                 int H, int W, int O, const int* plan,
-                                 void* stream, int* grid_out) {
-  return dispatch(x, y, north, south, n, n_src, k, B, C, H, W, O, B, plan,
-                  false, stream, grid_out);
+// outputs' own shards first, each with x_rows[i] rows per image (H for the
+// outputs' own shards, 2 for a mapped edge slab); y, north, south: one per
+// output, north and south indexing x; plan: the P_FIELDS values of the
+// wrapper's _plan; grid_out receives the blocks launched.
+extern "C" int dlwp_overlap_conv(const float* const* x, const int* x_rows,
+                                 float* const* y, const int* north,
+                                 const int* south, int n, int n_src,
+                                 const float* k, int B, int C, int H, int W,
+                                 int O, const int* plan, void* stream,
+                                 int* grid_out) {
+  return dispatch(x, x_rows, y, north, south, n, n_src, k, B, C, H, W, O, B,
+                  plan, false, stream, grid_out);
 }
 
-extern "C" int dlwp_overlap_conv_db(const float* const* x, float* const* y,
-                                    const int* north, const int* south, int n,
-                                    int n_src, const float* k, int B, int C,
-                                    int H, int W, int O, int chunk,
-                                    const int* plan, void* stream,
-                                    int* grid_out) {
-  return dispatch(x, y, north, south, n, n_src, k, B, C, H, W, O, chunk,
-                  plan, true, stream, grid_out);
+extern "C" int dlwp_overlap_conv_db(const float* const* x, const int* x_rows,
+                                    float* const* y, const int* north,
+                                    const int* south, int n, int n_src,
+                                    const float* k, int B, int C, int H, int W,
+                                    int O, int chunk, const int* plan,
+                                    void* stream, int* grid_out) {
+  return dispatch(x, x_rows, y, north, south, n, n_src, k, B, C, H, W, O,
+                  chunk, plan, true, stream, grid_out);
 }

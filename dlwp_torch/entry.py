@@ -10,12 +10,15 @@ grid with the northern-hemisphere crop, 36x144, B=8. Exporting it with
 tiny shapes over an n-entry mesh and runs the sharded spectral and
 barotropic cores. ``train_distributed()`` is the multi-process run: under
 ``torchrun``, each process joins the group, builds a mesh whose data axis
-spans the processes and whose lat axis lies on its own card, and takes a
-few flagship train steps::
+spans the processes and whose lat axis lies on its own card (or, with
+``--lat-across``, a lat axis of one band a process), and takes a few
+flagship train steps::
 
     python -m dlwp_torch.entry              # on the card; --device cpu here
     python -m dlwp_torch.entry --dryrun 8   # 8 mesh entries over the cards
     torchrun --nproc_per_node N -m dlwp_torch.entry --distributed
+    torchrun --nproc_per_node N -m dlwp_torch.entry --distributed \
+        --lat-across
 """
 
 from __future__ import annotations
@@ -200,7 +203,7 @@ def dryrun_multichip(n_devices: int, devices=None) -> dict[str, float]:
     return losses
 
 
-def train_distributed(device=None) -> dict:
+def train_distributed(device=None, lat_across: bool = False) -> dict:
     """3 train steps of the flagship (36x144, random weights and batches
     from seed 0, 8 samples a process) with data parallelism across
     processes: joins the process group from ``torchrun``'s environment
@@ -208,8 +211,11 @@ def train_distributed(device=None) -> dict:
     2 lat bands on the process's card (``cuda:LOCAL_RANK``, repeated; the
     CPU for ``device="cpu"``), and builds the mesh with
     :func:`~dlwp_torch.parallel.distributed.multihost_mesh` (data across
-    processes). Returns this process's rank, backend, losses, ms a step
-    and a checksum of the parameters (equal on every rank)."""
+    processes). With ``lat_across``, the mesh is ``MeshConfig(data=1,
+    lat=-1)`` instead: one lat band a process, every process on the same
+    8 samples, the overlap kernels reading the neighbours' edge rows over
+    CUDA IPC. Returns this process's rank, backend, losses, ms a step and
+    a checksum of the parameters (equal on every rank)."""
     import os
     import time
 
@@ -229,11 +235,15 @@ def train_distributed(device=None) -> dict:
         dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0))
                            % torch.cuda.device_count())
     n, steps, lat = process_count(), 3, 2
-    mesh = multihost_mesh(MeshConfig(data=n, lat=lat), devices=[dev] * lat)
+    if lat_across:
+        mesh = multihost_mesh(MeshConfig(data=1, lat=-1), devices=[dev])
+    else:
+        mesh = multihost_mesh(MeshConfig(data=n, lat=lat),
+                              devices=[dev] * lat)
     spatial = SpatialSharding(mesh, impl="overlap")
     model = build_sequential(convlstm_specs(), spatial=spatial, device=dev)
     rs = np.random.RandomState(0)
-    B = 8 * n
+    B = 8 if lat_across else 8 * n
     x = rs.randn(steps, B, 2, 3, 36, 144).astype(np.float32)
     y = rs.randn(steps, B, 2, 2, 36, 144).astype(np.float32)
     model.init(torch.from_numpy(x[0, :1]).to(dev), seed=0)
@@ -266,11 +276,18 @@ def main(argv=None) -> int:
     parser.add_argument("--distributed", action="store_true",
                         help="under torchrun: train_distributed() alone, "
                              "printing each rank's result")
+    parser.add_argument("--lat-across", action="store_true",
+                        help="with --distributed: a lat axis of one band a "
+                             "process in place of data parallelism")
     args = parser.parse_args(argv)
     if args.distributed:
-        out = train_distributed(device=args.device)
+        out = train_distributed(device=args.device,
+                                lat_across=args.lat_across)
         print(f"train_distributed rank {out['rank']}: {json.dumps(out)}",
               flush=True)
+        from dlwp_torch.kernels.halo_exchange import release_mailboxes
+
+        release_mailboxes()
         torch.distributed.destroy_process_group()
         return 0
     forward, (params, x) = entry(args.device)

@@ -10,8 +10,11 @@ the neighbouring bands' edge rows, in float32 whatever the input dtype,
 and agree bit for bit. For CUDA tensors each launches its kernel once per
 card, covering every shard on it, with the tiling of :func:`_plan` (over
 the card's own shards); a lat neighbour on another card is read there
-through peer access, as in :mod:`dlwp_torch.kernels.halo_exchange`. For
-CPU tensors both take the plain version, :func:`overlap_conv_plain`.
+through peer access, and one in another process from that process's edge
+mailbox, mapped over CUDA IPC, as in
+:mod:`dlwp_torch.kernels.halo_exchange` (a ``Remote`` shard comes back as
+it is). For CPU tensors both take the plain version,
+:func:`overlap_conv_plain`.
 ``.launches`` counts kernel launches; ``.last_launch`` holds the plan and
 grid of the last one.
 """
@@ -38,24 +41,26 @@ from dlwp_torch.kernels.halo_exchange import (
     check_contiguous,
     check_shards,
     device_groups,
-    halo_rows_plain,
+    halo_exchange_plain,
+    is_remote,
+    mailbox,
     release_peers,
+    source_rows,
     wait_for_peers,
 )
 from dlwp_torch.ops.padding import pad_latlon
 
 
 def overlap_conv_plain(shards, kernel):
-    """Per shard: neighbour rows, longitude wrap, VALID conv, in float32."""
-    out = []
-    for row in shards:
-        row = [s.float() for s in row]
-        out.append([
-            F.conv2d(pad_latlon(p, (0, 0), (1, 1)),
-                     kernel.to(device=p.device, dtype=torch.float32))
-            for p in halo_rows_plain(row, (1, 1))
-        ])
-    return out
+    """Per shard: neighbour rows, longitude wrap, VALID conv, in float32
+    (a ``Remote`` shard stays)."""
+    padded = halo_exchange_plain(
+        [[s if is_remote(s) else s.float() for s in row] for row in shards],
+        (1, 1))
+    return [[p if is_remote(p) else
+             F.conv2d(pad_latlon(p, (0, 0), (1, 1)),
+                      kernel.to(device=p.device, dtype=torch.float32))
+             for p in row] for row in padded]
 
 
 def _check(shards, kernel, name):
@@ -189,7 +194,7 @@ def _tile(plan: Plan, B, H, n_shards, t):
 @functools.cache
 def _lib():
     lib = _build.load("overlap_conv")
-    head = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    head = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
     tail = [ctypes.c_void_p] * 3  # plan, stream, grid_out
     lib.dlwp_overlap_conv.argtypes = head + [ctypes.c_int] * 5 + tail
     lib.dlwp_overlap_conv_db.argtypes = head + [ctypes.c_int] * 6 + tail
@@ -201,15 +206,21 @@ def _lib():
 
 def _launch(shards, kernel, chunk, name):
     """One launch per card; ``chunk`` None selects ``dlwp_overlap_conv``."""
-    first = shards[0][0]
+    first = check_shards(shards, name)
     B, C, H, W = first.shape
     O = kernel.shape[0]
     if first.dtype != torch.float32:
         raise ValueError(f"{name}: shards must be float32, got {first.dtype}")
     check_contiguous(shards, name)
-    groups = device_groups([[s.device for s in row] for row in shards])
+    layout = tuple(tuple(s if is_remote(s) else s.device for s in row)
+                   for row in shards)
+    groups = device_groups(layout)
     lib = _lib()
-    out = [[None] * len(row) for row in shards]
+    out = [[s if is_remote(s) else None for s in row] for row in shards]
+    readers = [dev for dev, g in groups.items() if g.slabs]
+    box = mailbox(layout, first, (1, 1), name) if readers else None
+    if box is not None:
+        box.post(shards, readers)
     for dev, g in groups.items():
         n, n_src = len(g.outputs), len(g.sources)
         if n_src > lib.dlwp_overlap_conv_max_shards():
@@ -220,7 +231,9 @@ def _launch(shards, kernel, chunk, name):
             raise ValueError(f"{name}: {n} shards of {tuple(first.shape)} "
                              "are too large")
         k = kernel.to(device=dev, dtype=torch.float32).contiguous()
-        xs = [shards[d][l].data_ptr() for d, l in g.sources]
+        slabs = {i: box.slab(rank, slot) for i, rank, slot in g.slabs}
+        xs = [slabs[i] if i in slabs else shards[d][l].data_ptr()
+              for i, (d, l) in enumerate(g.sources)]
         for d, l in g.outputs:
             out[d][l] = torch.empty((B, O, H, W), device=dev,
                                     dtype=torch.float32)
@@ -232,6 +245,7 @@ def _launch(shards, kernel, chunk, name):
         grid = ctypes.c_int(0)
         args = [
             (ctypes.c_void_p * n_src)(*xs),
+            (ctypes.c_int * n_src)(*source_rows(g, H, 2)),
             (ctypes.c_void_p * n)(*[out[d][l].data_ptr()
                                     for d, l in g.outputs]),
             (ctypes.c_int * n)(*g.north), (ctypes.c_int * n)(*g.south), n,
@@ -251,14 +265,15 @@ def _launch(shards, kernel, chunk, name):
         wrapper = overlap_conv_db if chunk else overlap_conv
         wrapper.launches += 1
         wrapper.last_launch = (plan, grid.value)
+    if box is not None:
+        box.done(readers)
     return out
 
 
 def overlap_conv(shards, kernel):
     """``shards[d][l]`` (B, C, H, W), kernel (O, C, 3, 3) -> (B, O, H, W)
     float32 per shard."""
-    _check(shards, kernel, "overlap_conv")
-    if shards[0][0].device.type == "cpu":
+    if _check(shards, kernel, "overlap_conv").device.type == "cpu":
         return overlap_conv_plain(shards, kernel)
     return _launch(shards, kernel, None, "overlap_conv")
 
@@ -266,10 +281,10 @@ def overlap_conv(shards, kernel):
 def overlap_conv_db(shards, kernel, chunk: int):
     """As :func:`overlap_conv`, each block walking the batch in ``chunk``
     samples at a time (the batch need not divide into chunks)."""
-    _check(shards, kernel, "overlap_conv_db")
+    first = _check(shards, kernel, "overlap_conv_db")
     if chunk < 1:
         raise ValueError(f"overlap_conv_db: chunk {chunk} < 1")
-    if shards[0][0].device.type == "cpu":
+    if first.device.type == "cpu":
         return overlap_conv_plain(shards, kernel)
     return _launch(shards, kernel, int(chunk), "overlap_conv_db")
 

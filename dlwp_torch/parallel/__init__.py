@@ -14,7 +14,10 @@ One program drives a mesh of devices, which may repeat one card (see
   cyclic ring of tiles (``halo``, plain PyTorch only);
 - several processes: ``torch.distributed`` ranks, a mesh over them from
   ``distributed.multihost_mesh`` (data across processes, lat within each,
-  or lat across them), data parallelism in the trainer.
+  or lat and lon across them: the kernels read another process's edge
+  rows over CUDA IPC, the plain path and the gradients move them with
+  ``torch.distributed`` messages, the spectral transposes are
+  ``all_to_all``), data parallelism in the trainer.
 """
 
 from dlwp_torch.parallel.barotropic import ShardedBarotropicModel
@@ -23,7 +26,12 @@ from dlwp_torch.parallel.halo import (
     halo_exchange_lon,
     sharded_cyclic_conv2d,
 )
-from dlwp_torch.parallel.mesh import Mesh, MeshConfig, build_mesh
+from dlwp_torch.parallel.mesh import (
+    Mesh,
+    MeshConfig,
+    batch_sharding,
+    build_mesh,
+)
 from dlwp_torch.parallel.pallas_halo import pallas_sharded_cyclic_conv2d
 from dlwp_torch.parallel.pallas_overlap import overlapped_cyclic_conv2d
 from dlwp_torch.parallel.spatial import SpatialSharding
@@ -35,6 +43,7 @@ __all__ = [
     "ShardedBarotropicModel",
     "ShardedSphericalHarmonics",
     "SpatialSharding",
+    "batch_sharding",
     "build_mesh",
     "halo_exchange_lat",
     "halo_exchange_lon",

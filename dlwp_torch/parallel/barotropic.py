@@ -7,7 +7,9 @@ the Robert-filtered leapfrog -- composed from the ``local_*`` stages of
 :class:`~dlwp_torch.parallel.spectral.ShardedSphericalHarmonics`: the state
 lives as m-band shards over the mesh's ``lat`` axis, each shard owning
 (T+1) / n zonal wavenumbers and nlat / n grid rows, with the two
-transposes of each transform between them.
+transposes of each transform between them. Where the lat axis spans
+processes, each process steps its own shards, and the transposes are
+``all_to_all`` across the processes.
 """
 
 from __future__ import annotations
@@ -46,7 +48,7 @@ class ShardedBarotropicModel(BarotropicModel):
         ssh, sh = self.ssh, self.sh
         J = self.grid.nlat
         stacked = []
-        for l, v in enumerate(vrt):
+        for l, v in zip(ssh.mine, vrt):
             e = ssh.engines[l]
             psi = (v * ssh.mslice(l, "inv_laplacian_eig")).to(sh.cdtype)
             modes = e._legendre_syn(
@@ -63,7 +65,7 @@ class ShardedBarotropicModel(BarotropicModel):
         grids = ssh.local_inv_fourier(ssh._transpose_to_grid(stacked))
         jp = ssh.j_per
         dudt, dvdt = [], []
-        for l, g in enumerate(grids):
+        for l, g in zip(ssh.mine, grids):
             f_loc = self.f_grid[l * jp:(l + 1) * jp].to(g.device)
             abs_vrt = f_loc + g[0]
             dudt.append(-abs_vrt * g[2])
@@ -75,7 +77,7 @@ class ShardedBarotropicModel(BarotropicModel):
         r, dt = self.robert_coefficient, self.dt
         dzdt = self._local_tendency(vrt)
         new, filtered = [], []
-        for l, (cur, old, dz) in enumerate(zip(vrt, prev, dzdt)):
+        for l, cur, old, dz in zip(self.ssh.mine, vrt, prev, dzdt):
             damping = self.ssh.mslice(l, "damping", self.damping)
             dz = (dz - damping * old) / (1.0 + damping * dt)
             if step == 0:

@@ -11,11 +11,16 @@ span the processes; it also takes a ``lat`` axis that spans them, as the
 JAX worker's ``MeshConfig(data=1, lat=-1)`` does.
 
 The moves between processes are plain ``torch.distributed`` calls:
-:func:`exchange_edges` (a lat band's edge rows to and from the band on
-another process: ``batch_isend_irecv``, the port of the cross-host
-``ppermute``), :func:`broadcast_block` (a block from its owner: the
-join's ``process_allgather``), :func:`all_reduce_mean` (the gradient
-mean of data parallelism) and :func:`broadcast_params`.
+:func:`exchange_edges` (a block's edge rows or columns to and from the
+neighbouring block on another process along a lat line or a cyclic lon
+ring: ``batch_isend_irecv``, the port of the cross-host ``ppermute``)
+and :func:`return_edges`, its transpose (each received edge's gradient
+back to its sender, the same messages reversed), :func:`broadcast_block`
+(a block from its owner: the join's ``process_allgather``),
+:func:`all_reduce_mean` / :func:`all_reduce_sum` (the gradient mean of
+data parallelism, the sum of a conv kernel's gradient over the bands of
+other processes) and :func:`broadcast_params`. A collective over a part
+of the processes runs in :func:`process_group`'s group of them.
 
 gloo carries host memory only: its send and receive take CPU tensors. So
 under gloo each of these stages its tensors through the CPU
@@ -147,74 +152,173 @@ def _wire(t: torch.Tensor) -> torch.Tensor:
     return t.to(wire_device(t.device)).contiguous()
 
 
-def broadcast_block(block, like: torch.Tensor) -> torch.Tensor:
+_GROUPS: dict = {}  # sorted ranks -> process group
+
+
+def process_group(ranks):
+    """The process group of ``ranks`` (global ranks): None, the default
+    group, where they are every process; else a group made at first use
+    by its members alone (``use_local_synchronization``), so that groups
+    of disjoint processes may be made at once."""
+    ranks = tuple(sorted({int(r) for r in ranks}))
+    if len(ranks) == dist.get_world_size():
+        return None
+    group = _GROUPS.get(ranks)
+    if group is None:
+        group = _GROUPS[ranks] = dist.new_group(
+            list(ranks), use_local_synchronization=True)
+    return group
+
+
+def broadcast_block(block, like: torch.Tensor, group=None) -> torch.Tensor:
     """A block from its owner: ``block`` is this process's tensor, or a
     :class:`~dlwp_torch.parallel.mesh.Remote` whose process sends it
-    (shaped like ``like``). Every process calls it (collective)."""
+    (shaped like ``like``). Every process of ``group`` calls it
+    (collective)."""
     if isinstance(block, Remote):
         buf = torch.empty(like.shape, dtype=like.dtype,
                           device=wire_device(like.device))
-        dist.broadcast(buf, src=block.rank)
+        dist.broadcast(buf, src=block.rank, group=group)
         return buf.to(like.device)
-    dist.broadcast(_wire(block), src=dist.get_rank())
+    dist.broadcast(_wire(block), src=dist.get_rank(), group=group)
     return block
 
 
-def exchange_edges(row: list, halo: tuple[int, int]) -> dict:
-    """The edge rows a lat-ordered data row needs from other processes:
-    ``row`` holds this process's bands and
-    :class:`~dlwp_torch.parallel.mesh.Remote` markers. At each boundary
-    between a band here and a band on another process, this side sends
-    its edge rows (the last ``top`` south, the first ``bot`` north) and
-    receives the other's, in one ``batch_isend_irecv``. Returns
-    ``{(i, "north" | "south"): rows}`` for band ``i`` here."""
+def _boundaries(row: list, cyclic: bool):
+    """``(b, i, j)``: the boundaries of a line of blocks, between block i
+    and the next, j, where one is here and the other on another process
+    (with ``cyclic``, the last block's next is the first)."""
+    n = len(row)
+    for b in range(n if cyclic and n > 1 else n - 1):
+        i, j = b, (b + 1) % n
+        if isinstance(row[i], Remote) != isinstance(row[j], Remote):
+            yield b, i, j
+
+
+def _run(ops) -> None:
+    if ops:
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+
+
+def _messages(row, halo, dim, cyclic, tag, send_first, recv_last):
+    """The two messages of each boundary of a line (a :func:`_boundaries`
+    boundary b between block i and block j): block i's last ``top`` rows
+    go to j (tag ``tag + 2b``), block j's first ``bot`` rows go to i (tag
+    ``tag + 2b + 1``); both sides list them in that order. ``send_first``
+    / ``recv_last`` build the sides' payloads and buffers; returns the
+    received buffers by key."""
     top, bot = halo
     like = next(b for b in row if not isinstance(b, Remote))
     wire = wire_device(like.device)
     ops, got = [], {}
 
-    def recv(key, rows, src, tag):
-        buf = torch.empty(like.shape[:-2] + (rows, like.shape[-1]),
-                          dtype=like.dtype, device=wire)
+    def recv(key, rows, src, t):
+        shape = list(like.shape)
+        shape[dim] = rows
+        buf = torch.empty(shape, dtype=like.dtype, device=wire)
         got[key] = buf
-        ops.append(dist.P2POp(dist.irecv, buf, src, tag=tag))
+        ops.append(dist.P2POp(dist.irecv, buf, src, tag=t))
 
-    def send(t, dst, tag):
-        ops.append(dist.P2POp(dist.isend, _wire(t), dst, tag=tag))
+    def send(t, dst, tg):
+        ops.append(dist.P2POp(dist.isend, _wire(t), dst, tag=tg))
 
-    for i in range(len(row) - 1):
-        a, b = row[i], row[i + 1]
-        if isinstance(a, Remote) == isinstance(b, Remote):
-            continue
-        # Both sides list the boundary's two moves in the same order:
-        # southward (tag 2i), then northward (tag 2i + 1).
-        if isinstance(b, Remote):
+    for b, i, j in _boundaries(row, cyclic):
+        if isinstance(row[j], Remote):  # block i is here
             if top > 0:
-                send(a[..., a.shape[-2] - top:, :], b.rank, 2 * i)
+                if send_first:
+                    send(row[i].narrow(dim, row[i].shape[dim] - top, top),
+                         row[j].rank, tag + 2 * b)
+                else:
+                    recv((i, "last"), top, row[j].rank, tag + 2 * b)
             if bot > 0:
-                recv((i, "south"), bot, b.rank, 2 * i + 1)
-        else:
+                if send_first:
+                    recv((i, "south"), bot, row[j].rank, tag + 2 * b + 1)
+                else:
+                    send(recv_last[(i, "south")], row[j].rank,
+                         tag + 2 * b + 1)
+        else:  # block j is here
             if top > 0:
-                recv((i + 1, "north"), top, a.rank, 2 * i)
+                if send_first:
+                    recv((j, "north"), top, row[i].rank, tag + 2 * b)
+                else:
+                    send(recv_last[(j, "north")], row[i].rank, tag + 2 * b)
             if bot > 0:
-                send(b[..., :bot, :], a.rank, 2 * i + 1)
-    if ops:
-        for req in dist.batch_isend_irecv(ops):
-            req.wait()
+                if send_first:
+                    send(row[j].narrow(dim, 0, bot), row[i].rank,
+                         tag + 2 * b + 1)
+                else:
+                    recv((j, "first"), bot, row[i].rank, tag + 2 * b + 1)
+    _run(ops)
     return {k: v.to(like.device) for k, v in got.items()}
 
 
-def all_reduce_mean(tensors: list[torch.Tensor]) -> list[torch.Tensor]:
-    """The mean over processes of each tensor (one flat ``all_reduce``);
-    every process gets the same bits."""
+def exchange_edges(row: list, halo: tuple[int, int], *, dim: int = -2,
+                   cyclic: bool = False, tag: int = 0) -> dict:
+    """The edge rows a line of blocks needs from other processes: ``row``
+    holds this process's blocks and
+    :class:`~dlwp_torch.parallel.mesh.Remote` markers, in order along
+    ``dim`` (lat bands along -2; lon tiles along -1, ``cyclic``). At each
+    boundary between a block here and a block on another process, this
+    side sends its edge (the last ``top`` to the next block, the first
+    ``bot`` to the previous one) and receives the other's, in one
+    ``batch_isend_irecv`` under tags from ``tag`` (two a boundary; a
+    caller with several lines gives each its own). Returns ``{(i, "north"
+    | "south"): rows}`` for block i here: from the previous block and from
+    the next."""
+    return _messages(row, halo, dim, cyclic, tag, True, None)
+
+
+def return_edges(row: list, halo: tuple[int, int], grads: dict, *,
+                 dim: int = -2, cyclic: bool = False, tag: int = 0) -> dict:
+    """The transpose of :func:`exchange_edges` (the cross-host
+    ``ppermute``'s): ``grads`` holds, under the keys that
+    :func:`exchange_edges` returned, the gradient of each received edge;
+    each goes back to the block that sent it, with the same tag. Returns
+    ``{(i, "last" | "first"): gradient}`` of the edges block i here sent
+    (its last ``top`` to the next block, its first ``bot`` to the previous
+    one), which the caller adds into block i's gradient."""
+    return _messages(row, halo, dim, cyclic, tag, False, grads)
+
+
+def _all_reduce(tensors: list[torch.Tensor], group, mean: bool):
     flat = _wire(torch.cat([t.reshape(-1) for t in tensors]))
-    dist.all_reduce(flat)
-    flat = (flat / dist.get_world_size()).to(tensors[0].device)
+    dist.all_reduce(flat, group=group)
+    if mean:
+        flat = flat / dist.get_world_size(group)
+    flat = flat.to(tensors[0].device)
     out, at = [], 0
     for t in tensors:
         out.append(flat[at:at + t.numel()].view_as(t))
         at += t.numel()
     return out
+
+
+def broadcast_flat(tensors: list[torch.Tensor], src: int,
+                   group=None) -> list[torch.Tensor]:
+    """Process ``src``'s tensors on every process of ``group`` (one flat
+    ``broadcast``)."""
+    flat = _wire(torch.cat([t.reshape(-1) for t in tensors]))
+    dist.broadcast(flat, src=src, group=group)
+    flat = flat.to(tensors[0].device)
+    out, at = [], 0
+    for t in tensors:
+        out.append(flat[at:at + t.numel()].view_as(t))
+        at += t.numel()
+    return out
+
+
+def all_reduce_mean(tensors: list[torch.Tensor],
+                    group=None) -> list[torch.Tensor]:
+    """The mean over the processes of ``group`` (default: all) of each
+    tensor (one flat ``all_reduce``); every process gets the same bits."""
+    return _all_reduce(tensors, group, True)
+
+
+def all_reduce_sum(tensors: list[torch.Tensor],
+                   group=None) -> list[torch.Tensor]:
+    """The sum over the processes of ``group`` of each tensor."""
+    return _all_reduce(tensors, group, False)
 
 
 @torch.no_grad()
@@ -228,13 +332,17 @@ def broadcast_params(module: torch.nn.Module) -> None:
 
 __all__ = [
     "all_reduce_mean",
+    "all_reduce_sum",
     "broadcast_block",
+    "broadcast_flat",
     "broadcast_params",
     "exchange_edges",
     "initialize_distributed",
     "is_primary",
     "multihost_mesh",
     "process_count",
+    "process_group",
     "process_index",
+    "return_edges",
     "wire_device",
 ]

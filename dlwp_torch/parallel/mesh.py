@@ -16,9 +16,12 @@ allocation. This is the counterpart of the virtual CPU devices
 (``--xla_force_host_platform_device_count``) the JAX package tests its
 meshes on; ``devices=[torch.device("cpu")] * n`` is the same on the CPU.
 
-The JAX module's ``*_sharding`` helpers have no counterpart: where the JAX
-package passes a ``PartitionSpec``, the port passes a plain tuple of axis
-names such as ``("data", None, "lat", None)``.
+Where the JAX package passes a ``PartitionSpec``, the port passes a plain
+tuple of axis names such as ``("data", None, "lat", None)``; the JAX
+module's ``*_sharding`` helpers return the ``(Mesh, axis names)`` pair
+that :class:`~dlwp_torch.data.device_sampler.DeviceSeriesSampler` takes
+as ``sharding=`` (:func:`batch_sharding`, :func:`space_sharding`,
+:func:`batch_space_sharding`).
 
 A mesh may span processes (:func:`dlwp_torch.parallel.distributed.
 multihost_mesh`): ``Mesh.ranks`` then names the process that owns each
@@ -116,6 +119,23 @@ class Mesh:
         k = self.axis_names.index(axis)
         return bool((self.ranks != self.ranks.take([0], axis=k)).any())
 
+    def line(self, axis: str) -> list[int]:
+        """The processes along ``axis`` through this process's first
+        entry (the ranks that share its place on the other axes)."""
+        k = self.axis_names.index(axis)
+        at = list(np.argwhere(self.ranks == self.process_index)[0])
+        at[k] = slice(None)
+        return [int(r) for r in self.ranks[tuple(at)]]
+
+    def plane(self, axis: str | None) -> list[int]:
+        """The processes that share this process's index along ``axis``
+        (every process of the mesh for None), sorted."""
+        if axis is None:
+            return sorted({int(r) for r in self.ranks.flat})
+        k = self.axis_names.index(axis)
+        i = int(np.argwhere(self.ranks == self.process_index)[0][k])
+        return sorted({int(r) for r in self.ranks.take([i], axis=k).flat})
+
     def process_rows(self, axis: str) -> tuple[int, int]:
         """``(start, stop)``: the contiguous indices along ``axis`` at
         which this process owns entries."""
@@ -164,6 +184,29 @@ def build_mesh(config: MeshConfig | None = None, devices=None,
     grid[:] = devices
     return Mesh(grid.reshape((d, l, lo) if len(axis_names) == 3 else (d, l)),
                 tuple(axis_names))
+
+
+def batch_sharding(mesh: Mesh, extra_dims: int = 3) -> tuple[Mesh, tuple]:
+    """A (batch, ...) array's layout: batch over 'data', the rest whole."""
+    return mesh, ("data",) + (None,) * extra_dims
+
+
+def space_sharding(mesh: Mesh, ndim: int,
+                   lat_axis: int) -> tuple[Mesh, tuple]:
+    """The latitude axis of a rank-``ndim`` array over 'lat' (the others
+    whole)."""
+    spec = [None] * ndim
+    spec[lat_axis] = "lat"
+    return mesh, tuple(spec)
+
+
+def batch_space_sharding(mesh: Mesh, ndim: int,
+                         lat_axis: int) -> tuple[Mesh, tuple]:
+    """Batch over 'data' and latitude over 'lat' (the dp x sp layout)."""
+    spec = [None] * ndim
+    spec[0] = "data"
+    spec[lat_axis] = "lat"
+    return mesh, tuple(spec)
 
 
 def axis_size(mesh: Mesh, axis: str | None) -> int:
@@ -227,12 +270,17 @@ def _gather_remote(grid: list) -> list:
     if not any(isinstance(b, Remote) for b in flat):
         return grid
     # Imported here: the distributed module builds meshes with this one.
-    from dlwp_torch.parallel.distributed import broadcast_block
+    from dlwp_torch.parallel.distributed import (
+        broadcast_block,
+        process_group,
+    )
 
     like = next((b for b in flat if not isinstance(b, Remote)), None)
     if like is None:
         raise ValueError("this process holds no block of the mesh")
-    flat = [broadcast_block(b, like) for b in flat]
+    group = process_group({b.rank for b in flat if isinstance(b, Remote)}
+                          | {torch.distributed.get_rank()})
+    flat = [broadcast_block(b, like, group) for b in flat]
 
     def build(node):
         return ([build(n) for n in node] if isinstance(node, list)

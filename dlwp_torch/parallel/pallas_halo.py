@@ -8,9 +8,14 @@ returns the padded blocks with zero outer halos directly; the JAX wrapper's
 one-row over-exchange and crop for a 0-sided halo is a Mosaic workaround
 and has no counterpart.
 
-On a mesh over several processes each computes the data rows it holds
-and the join gathers the rest; a lat axis across processes is refused
-(:func:`local_rows`).
+On a mesh over several processes the kernels take the whole grid of
+shards, another process's as ``Remote`` markers: each process computes
+the bands it holds and the join gathers the rest. Where the lat axis
+spans processes, a band whose neighbour is another process's reads that
+neighbour's edge rows inside the kernel from the other process's edge
+mailbox, mapped over CUDA IPC
+(:class:`~dlwp_torch.kernels.halo_exchange.Mailbox`); on the CPU the
+plain versions get them with ``torch.distributed`` messages.
 """
 
 from __future__ import annotations
@@ -23,24 +28,6 @@ from dlwp_torch.parallel.halo import _valid_conv
 from dlwp_torch.parallel.mesh import Mesh, Remote, join_shards, split_shards
 
 
-def local_rows(shards, mesh: Mesh, lat_axis_name: str, fn, name: str):
-    """``fn`` (a kernel over ``shards[d][l]``) on the data rows this
-    process holds; the other rows stay :class:`Remote` for the join.
-    Raises where the lat axis spans processes: a kernel cannot read
-    another process's bands yet (CUDA IPC, ROADMAP.md section 1, item
-    6f)."""
-    if mesh.spans_processes(lat_axis_name):
-        raise NotImplementedError(
-            f"{name}: the lat axis spans processes, and a kernel cannot "
-            "read another process's bands yet (CUDA IPC, ROADMAP.md "
-            "section 1, item 6f); use impl 'ppermute' or keep lat within "
-            "each process")
-    mine = [not isinstance(row[0], Remote) for row in shards]
-    done = iter(fn([r for r, m in zip(shards, mine) if m]) if any(mine)
-                else ())
-    return [next(done) if m else row for row, m in zip(shards, mine)]
-
-
 def pallas_halo_exchange_lat(x: torch.Tensor, halo: tuple[int, int],
                              mesh: Mesh, data_axis: str | None = None,
                              lat_axis_name: str = "lat") -> torch.Tensor:
@@ -49,10 +36,7 @@ def pallas_halo_exchange_lat(x: torch.Tensor, halo: tuple[int, int],
     latitude: (B, ..., n_lat * (top + H / n_lat + bottom), W), as the JAX
     function's global output under ``shard_map``."""
     shards = split_shards(x, mesh, data_axis, lat_axis_name)
-    return join_shards(
-        local_rows(shards, mesh, lat_axis_name,
-                   lambda s: halo_exchange(s, halo), "pallas_halo"),
-        x.device)
+    return join_shards(halo_exchange(shards, halo), x.device)
 
 
 def pallas_sharded_cyclic_conv2d(x: torch.Tensor, kernel: torch.Tensor,
@@ -67,10 +51,9 @@ def pallas_sharded_cyclic_conv2d(x: torch.Tensor, kernel: torch.Tensor,
     ew = (kernel.shape[-1] - 1) * dilation[1]
     shards = split_shards(x, mesh, data_axis, lat_axis_name)
 
-    def conv(rows):
-        return [[_valid_conv(pad_latlon(p, (0, 0), (ew // 2, ew - ew // 2)),
-                             kernel.to(p.device), dilation) for p in row]
-                for row in halo_exchange(rows, (eh // 2, eh - eh // 2))]
-
     return join_shards(
-        local_rows(shards, mesh, lat_axis_name, conv, "pallas"), x.device)
+        [[p if isinstance(p, Remote) else
+          _valid_conv(pad_latlon(p, (0, 0), (ew // 2, ew - ew // 2)),
+                      kernel.to(p.device), dilation) for p in row]
+         for row in halo_exchange(shards, (eh // 2, eh - eh // 2))],
+        x.device)

@@ -14,8 +14,7 @@ from __future__ import annotations
 import torch
 
 from dlwp_torch.kernels.overlap_conv import overlap_conv, overlap_conv_db
-from dlwp_torch.parallel.mesh import Mesh, join_shards, split_shards
-from dlwp_torch.parallel.pallas_halo import local_rows
+from dlwp_torch.parallel.mesh import Mesh, Remote, join_shards, split_shards
 
 # The dispatch constants are the TPU's (the JAX module's, unchanged): the
 # 16 MiB scoped-VMEM stack with headroom, the VMEM size, and the cap on the
@@ -26,17 +25,23 @@ _VMEM_BUDGET_BYTES = 96 * 1024 * 1024
 _MAX_PIPELINE_CHUNKS = 32
 
 
+def _first(shards) -> torch.Tensor:
+    """The first band this process holds."""
+    return next(s for row in shards for s in row if not isinstance(s, Remote))
+
+
 def _pieces(shards, size):
     """The shards cut along the batch into pieces of ``size`` samples
-    (contiguous views)."""
-    B = shards[0][0].shape[0]
-    return [[[s[i:i + size] for s in row] for row in shards]
-            for i in range(0, B, size)]
+    (contiguous views; a ``Remote`` band stays)."""
+    B = _first(shards).shape[0]
+    return [[[s if isinstance(s, Remote) else s[i:i + size] for s in row]
+             for row in shards] for i in range(0, B, size)]
 
 
 def _concat(outs):
     """Inverse of :func:`_pieces` on the per-piece results."""
-    return [[torch.cat([o[d][l] for o in outs], dim=0)
+    return [[outs[0][d][l] if isinstance(outs[0][d][l], Remote) else
+             torch.cat([o[d][l] for o in outs], dim=0)
              for l in range(len(outs[0][d]))] for d in range(len(outs[0]))]
 
 
@@ -51,7 +56,7 @@ def _overlap_local(shards, kernel):
     VMEM mirror takes the single-shot kernel, a larger one the pipelined
     kernel with the largest chunk that fits, in pieces where the halo
     buffers of the whole batch would not fit."""
-    B, C, H, W = shards[0][0].shape
+    B, C, H, W = _first(shards).shape
     O = kernel.shape[0]
     if kernel.shape[-2:] != (3, 3):
         raise ValueError("overlap kernel supports 3x3 only")
@@ -89,7 +94,7 @@ def _overlap_local(shards, kernel):
             if size >= B:
                 return _overlap_local_db(shards, kernel, min(chunk, B))
             return _concat([
-                _overlap_local_db(p, kernel, min(chunk, p[0][0].shape[0]))
+                _overlap_local_db(p, kernel, min(chunk, _first(p).shape[0]))
                 for p in _pieces(shards, size)
             ])
         n_chunks = -(-B // max_b)
@@ -106,7 +111,4 @@ def overlapped_cyclic_conv2d(x: torch.Tensor, kernel: torch.Tensor,
     rows read inside the kernel; ``cyclic_conv2d(x, kernel,
     lat_mode='zero')`` in float32."""
     shards = split_shards(x.float(), mesh, data_axis, lat_axis_name)
-    return join_shards(
-        local_rows(shards, mesh, lat_axis_name,
-                   lambda s: _overlap_local(s, kernel.float()), "overlap"),
-        x.device)
+    return join_shards(_overlap_local(shards, kernel.float()), x.device)

@@ -22,10 +22,12 @@ On a mesh over several processes: where the data axis spans them, a
 layer's activations are the process's own block of the batch (the
 trainer keeps it) and each conv cuts that block over the process's own
 entries (``Mesh.process_local``); lat neighbours on other cards of the
-process take the kernels through peer access. A lat axis that spans
-processes runs the 'ppermute' path only: the kernel impls raise there,
-because a kernel cannot yet read another process's memory (CUDA IPC,
-ROADMAP.md section 1, item 6f).
+process take the kernels through peer access. Where the lat axis spans
+processes, the kernels read a neighbour band's edge rows from its
+process's edge mailbox over CUDA IPC, and the backward recomputes through
+the 'ppermute' path, whose messages and their transposes give every
+process the one-process gradient (:mod:`dlwp_torch.parallel.halo`); a
+lon axis across processes is a ring of such messages.
 """
 
 from __future__ import annotations

@@ -16,12 +16,23 @@ m-band slices of the packed tables.
 Layout: nlat and T+1 must both divide by the ``lat`` axis size. Longitude
 is never sharded. The ``local_*`` methods take and give shard lists; the
 public methods take and give global tensors on the caller's device.
+
+On a mesh whose ``lat`` axis spans processes (``Mesh.ranks``), a process
+holds and computes only its own lat and m bands (``mine``, the lat
+indices it owns; the shard lists hold those alone), and each transpose
+trades the blocks bound for other processes in one
+``dist.all_to_all_single`` (gloo on the CPU, NCCL on cards; complex
+blocks travel as their real views), the moves within a process staying
+as they are: the port of JAX's ``lax.all_to_all`` across hosts. The
+public methods' join gives every process the global tensor.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
+from dlwp_torch.parallel.distributed import process_group, wire_device
 from dlwp_torch.spectral.transforms import SphericalHarmonics
 
 
@@ -41,6 +52,8 @@ class ShardedSphericalHarmonics:
 
     Grid shards: (..., nlat / n, nlon), latitude band l on lat entry l.
     Spectral shards: (..., (T+1) / n, T+1), m band l on lat entry l.
+    The shard lists hold the bands of ``mine``, the lat entries this
+    process owns (all of them on a one-process mesh), in order.
     Results equal the single-device engine's up to summation order.
     """
 
@@ -59,9 +72,19 @@ class ShardedSphericalHarmonics:
         self.m_per, self.j_per = M // n, J // n
         self.devices = [mesh.device_at(**{lat_axis_name: i})
                         for i in range(n)]
+        # Across processes where the lat axis spans them; else this
+        # process computes every band.
+        self.across = mesh.spans_processes(lat_axis_name)
+        self.owners = [mesh.owner(**{lat_axis_name: i}) if self.across
+                       else mesh.process_index for i in range(n)]
+        self.mine = [i for i in range(n)
+                     if self.owners[i] == mesh.process_index]
+        self.group = process_group(self.owners) if self.across else None
         engines = {}
-        self.engines = [engines.setdefault(str(d), sh.to(d))
-                        for d in self.devices]
+        # lat index -> engine, for this process's entries
+        self.engines = {l: engines.setdefault(str(self.devices[l]),
+                                              sh.to(self.devices[l]))
+                        for l in self.mine}
         self._slices: dict = {}
 
     # ------------------------------------------------------- m-band tables
@@ -91,28 +114,69 @@ class ShardedSphericalHarmonics:
         return self.mslice(l, "m_vals")
 
     # ----------------------------------------------------------- transposes
+    def _trade(self, F: list[torch.Tensor], block) -> dict:
+        """Every block a transpose needs: ``block(f, t, s)`` cuts source
+        ``s``'s shard ``f`` for target ``t``. Returns ``{(t, s): block}``
+        for each target t here and every source s, on t's device; the
+        blocks between processes go in one ``all_to_all_single``."""
+        got = {(t, s): block(f, t, s).to(self.devices[t])
+               for t in self.mine for s, f in zip(self.mine, F)}
+        if not self.across:
+            return got
+        like = block(F[0], self.mine[0], self.mine[0])
+        peers = sorted(set(self.owners))
+        wire = wire_device(like.device)
+
+        def flat(t):
+            t = torch.view_as_real(t) if t.is_complex() else t
+            return t.reshape(-1).to(wire)
+
+        send = [[block(f, t, s) for t in range(self.n_shards)
+                 if self.owners[t] == r for s, f in zip(self.mine, F)]
+                if r != self.mesh.process_index else [] for r in peers]
+        ins = [flat(b) for blocks in send for b in blocks]
+        size = flat(like).numel()
+        keys = [[(t, s) for t in self.mine for s in range(self.n_shards)
+                 if self.owners[s] == r]
+                if r != self.mesh.process_index else [] for r in peers]
+        out = torch.empty(size * sum(map(len, keys)), dtype=ins[0].dtype,
+                          device=wire)
+        dist.all_to_all_single(
+            out, torch.cat(ins), [size * len(b) for b in send],
+            [size * len(k) for k in keys], group=self.group)
+        at = 0
+        for key in (k for ks in keys for k in ks):
+            b = out[at:at + size]
+            at += size
+            if like.is_complex():
+                b = torch.view_as_complex(b.reshape(like.shape + (2,)))
+            got[key] = b.reshape(like.shape).to(self.devices[key[0]])
+        return got
+
     def _transpose_to_spec(self, F: list[torch.Tensor]) -> list[torch.Tensor]:
         """(.., m_all, j_local) shards -> (.., m_local, j_all) shards."""
         mp = self.m_per
-        return [torch.cat([f[..., t * mp:(t + 1) * mp, :].to(dev) for f in F],
-                          dim=-1)
-                for t, dev in enumerate(self.devices)]
+        got = self._trade(F, lambda f, t, s: f[..., t * mp:(t + 1) * mp, :])
+        return [torch.cat([got[(t, s)] for s in range(self.n_shards)],
+                          dim=-1) for t in self.mine]
 
     def _transpose_to_grid(self, F: list[torch.Tensor]) -> list[torch.Tensor]:
         """(.., m_local, j_all) shards -> (.., m_all, j_local) shards."""
         jp = self.j_per
-        return [torch.cat([f[..., t * jp:(t + 1) * jp].to(dev) for f in F],
-                          dim=-2)
-                for t, dev in enumerate(self.devices)]
+        got = self._trade(F, lambda f, t, s: f[..., t * jp:(t + 1) * jp])
+        return [torch.cat([got[(t, s)] for s in range(self.n_shards)],
+                          dim=-2) for t in self.mine]
 
     # ------------------------------------------------------ local building
     def local_fourier(self, x: list[torch.Tensor]) -> list[torch.Tensor]:
         """Grid shards -> (.., m_all, j_local) one-sided Fourier modes: the
         longitude stage is unsharded, so the engine's applies to any band."""
-        return [e._fourier(s.to(e.dtype)) for e, s in zip(self.engines, x)]
+        return [self.engines[l]._fourier(s.to(self.engines[l].dtype))
+                for l, s in zip(self.mine, x)]
 
     def local_inv_fourier(self, F: list[torch.Tensor]) -> list[torch.Tensor]:
-        return [e._inv_fourier(f) for e, f in zip(self.engines, F)]
+        return [self.engines[l]._inv_fourier(f)
+                for l, f in zip(self.mine, F)]
 
     def _syn(self, l: int, name: str, spec: torch.Tensor) -> torch.Tensor:
         """Shard ``l``'s m-band Legendre synthesis through table ``name``
@@ -132,11 +196,11 @@ class ShardedSphericalHarmonics:
 
     def local_analyze(self, x: list[torch.Tensor]) -> list[torch.Tensor]:
         F = self._transpose_to_spec(self.local_fourier(x))
-        return [self._ana(l, "A", f) for l, f in enumerate(F)]
+        return [self._ana(l, "A", f) for l, f in zip(self.mine, F)]
 
     def local_synthesize(self, spec: list[torch.Tensor]) -> list[torch.Tensor]:
         cd = self.sh.cdtype
-        F = [self._syn(l, "P", s.to(cd)) for l, s in enumerate(spec)]
+        F = [self._syn(l, "P", s.to(cd)) for l, s in zip(self.mine, spec)]
         return self.local_inv_fourier(self._transpose_to_grid(F))
 
     def _im_over_a(self, l: int) -> torch.Tensor:
@@ -147,7 +211,7 @@ class ShardedSphericalHarmonics:
                              div: list[torch.Tensor]):
         a, cd = self.sh.grid.radius, self.sh.cdtype
         u_m, v_m = [], []
-        for l, (vs, ds) in enumerate(zip(vrt, div)):
+        for l, vs, ds in zip(self.mine, vrt, div):
             inv = self.mslice(l, "inv_laplacian_eig")
             psi, chi = (vs * inv).to(cd), (ds * inv).to(cd)
             im = self._im_over_a(l)
@@ -161,7 +225,7 @@ class ShardedSphericalHarmonics:
         u_m = self._transpose_to_spec(self.local_fourier(u))
         v_m = self._transpose_to_spec(self.local_fourier(v))
         vrt, div = [], []
-        for l, (um, vm) in enumerate(zip(u_m, v_m)):
+        for l, um, vm in zip(self.mine, u_m, v_m):
             psi = self._ana(l, "AuPsi", um) + 1j * self._ana(l, "AvPsi", vm)
             chi = 1j * self._ana(l, "AuChi", um) + self._ana(l, "AvChi", vm)
             lap = self.mslice(l, "laplacian_eig")
@@ -172,13 +236,31 @@ class ShardedSphericalHarmonics:
     # ----------------------------------------------------------- public API
     def split(self, x: torch.Tensor) -> list[torch.Tensor]:
         """A global grid (..., nlat, nlon) or spectrum (..., m, n) cut into
-        its shards (axis -2)."""
-        return split_dim(x, self.devices, -2)
+        this process's shards (axis -2)."""
+        blocks = torch.chunk(x, self.n_shards, dim=-2)
+        return [blocks[l].to(self.devices[l]) for l in self.mine]
 
     def join(self, shards: list[torch.Tensor], device=None) -> torch.Tensor:
         """The global tensor of grid or spectral shards on ``device``
-        (default: the first shard's)."""
-        return join_dim(shards, device or shards[0].device, -2)
+        (default: the first shard's); across processes every process
+        sends its shards to the others (one broadcast a shard)."""
+        device = device or shards[0].device
+        if not self.across:
+            return join_dim(shards, device, -2)
+        like = shards[0]
+        wire = wire_device(like.device)
+        real = (lambda t: torch.view_as_real(t)) if like.is_complex() else (
+            lambda t: t)
+        mine = dict(zip(self.mine, shards))
+        out = []
+        for l in range(self.n_shards):
+            buf = (real(mine[l]).to(wire).contiguous() if l in mine else
+                   torch.empty(real(like).shape, dtype=real(like).dtype,
+                               device=wire))
+            dist.broadcast(buf, src=self.owners[l], group=self.group)
+            out.append(torch.view_as_complex(buf) if like.is_complex()
+                       else buf)
+        return join_dim(out, device, -2)
 
     def analyze(self, field: torch.Tensor) -> torch.Tensor:
         return self.join(self.local_analyze(self.split(field)), field.device)

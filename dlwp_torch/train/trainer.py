@@ -58,8 +58,10 @@ from torch.utils.checkpoint import checkpoint
 from dlwp_torch.ops import losses as loss_lib
 from dlwp_torch.parallel.distributed import (
     all_reduce_mean,
+    broadcast_flat,
     broadcast_params,
     is_primary,
+    process_group,
 )
 from dlwp_torch.train.optim import OPTIMIZERS, add_decayed_weights
 
@@ -218,13 +220,26 @@ class Trainer:
                 target_spec = (self.batch_spec[0], None) + self.batch_spec[1:]
             self.target_spec = (tuple(target_spec) if target_spec is not None
                                 else self.batch_spec)
-        # Data parallelism across processes: the batch spec's data axis
-        # spans them.
+        # A mesh over several processes (its entries' ``ranks``): they start
+        # from process 0's parameters and process 0 writes checkpoints.
+        # Data parallelism across them: the batch spec's data axis spans
+        # them, and gradients average over the processes along it.
+        self._spans = mesh is not None and mesh.ranks is not None
         self._across = (self.batch_spec is not None
                         and mesh.spans_processes(self.batch_spec[0]))
+        self._data_group = (process_group(mesh.line(self.batch_spec[0]))
+                            if self._across else None)
+        # The processes along the lat / lon axes (those that share this
+        # one's data index) compute the same gradient; the card's
+        # nondeterministic reductions (cuDNN's backward, atomics) may round
+        # it differently on each, so each step takes the first one's.
+        space = (mesh.plane(self.batch_spec[0] if self.batch_spec else None)
+                 if self._spans else [])
+        self._space = ((space[0], process_group(space)) if len(space) > 1
+                       else None)
         self.optimizer = None
         self._warned_ragged = False
-        if self._across and model.built:
+        if self._spans and model.built:
             broadcast_params(model)
 
     @property
@@ -242,7 +257,7 @@ class Trainer:
         """Random parameters from ``config.seed`` for layers that have none
         (loaded weights are kept), gradients on, and a fresh optimizer."""
         self.model.init(self._to_device(sample_x[:1]), seed=self.config.seed)
-        if self._across:
+        if self._spans:
             broadcast_params(self.model)
         for p in self.model.parameters():
             p.requires_grad_(True)
@@ -339,21 +354,28 @@ class Trainer:
         with torch.no_grad():
             for name, fn in self.metrics.items():
                 out[name] = fn(y, pred.detach())
-        if self._across:
-            self._average(params, out)
+        if self._across or self._space is not None:
+            self._share(params, out)
         if self.config.weight_decay:
             add_decayed_weights(params, self.config.weight_decay)
         self.optimizer.step()
         return out
 
     @torch.no_grad()
-    def _average(self, params, out: dict) -> None:
-        """Gradients, loss and metrics replaced by their means over
-        processes, in one ``all_reduce``."""
+    def _share(self, params, out: dict) -> None:
+        """Gradients, loss and metrics made the same on every process:
+        their means over the data axis's processes (one ``all_reduce``),
+        then, where the lat or lon axis spans processes, the first such
+        process's (one broadcast)."""
         have = [p for p in params if p.grad is not None]
         dtype = out["loss"].dtype
         stats = torch.stack([v.to(dtype) for v in out.values()])
-        *grads, stats = all_reduce_mean([p.grad for p in have] + [stats])
+        tensors = [p.grad for p in have] + [stats]
+        if self._across:
+            tensors = all_reduce_mean(tensors, self._data_group)
+        if self._space is not None:
+            tensors = broadcast_flat(tensors, *self._space)
+        *grads, stats = tensors
         for p, g in zip(have, grads):
             p.grad = g
         for k, v in zip(list(out), stats):
@@ -444,13 +466,13 @@ class Trainer:
                 and (epoch + 1) % run["checkpoint_every"] == 0):
             from dlwp_torch.train.checkpoint import save_checkpoint
 
-            if not self._across or is_primary():
+            if not self._spans or is_primary():
                 save_checkpoint(
                     run["checkpoint_dir"], self.model.state_dict(),
                     self.optimizer.state_dict(), step=epoch,
                     metadata={"epoch": epoch, **metrics},
                 )
-            if self._across:
+            if self._spans:
                 torch.distributed.barrier()
         if run["verbose"]:
             desc = " ".join(f"{k}={v:.6g}" for k, v in metrics.items())

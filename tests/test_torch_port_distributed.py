@@ -10,13 +10,23 @@ one rank, ``multihost_mesh``'s shape, the linear-loss data-parallel
 gradient bit-equal across ranks and equal to its numpy oracle and to
 ``jax.value_and_grad`` on the full batch), ``sharded_cyclic_conv2d`` on a
 lat axis of 4 bands across the 2 ranks in float64 against the JAX
-``cyclic_conv2d`` at 1e-12, the routing of the kernel impls on such a
-mesh, and 3 train steps of a narrow flagship with the data axis across
-ranks in float64 against the JAX ``Trainer`` on the whole batch at 1e-9,
-with the parameters bit-equal across ranks and a checkpoint written by
-rank 0 alone and resumed by both. ``python -m dlwp_torch.entry
---distributed`` runs in two processes given torchrun's environment
-variables. One-process cases run in the test process itself.
+``cyclic_conv2d`` at 1e-12, and 3 train steps of a narrow flagship with
+the data axis across ranks in float64 against the JAX ``Trainer`` on the
+whole batch at 1e-9, with the parameters bit-equal across ranks and a
+checkpoint written by rank 0 alone and resumed by both.
+
+A lat axis across the processes (lat 4 over the 2 ranks; over 4 ranks of
+one entry each in the second spawn, :func:`grid_worker`): the kernel
+impls' conv (float32, 1e-5) and the gradients of the plain conv (float64,
+1e-12) and of the kernel impls (``_FastConv``, float32) against
+``jax.vjp``; the lon ring across ranks and its gradient; the sharded
+spectral engine and 20 barotropic steps, each rank on its own bands,
+against the JAX single-device engine; and the narrow flagship's 3 train
+steps on lat 4 over 2 ranks and on (data 2 across ranks) x (lat 2 across
+ranks) against the JAX ``Trainer`` at 1e-9. ``python -m dlwp_torch.entry
+--distributed`` (and ``--lat-across``) runs in two processes given
+torchrun's environment variables. One-process cases run in the test
+process itself.
 """
 
 import json
@@ -143,19 +153,11 @@ def worker(address, nproc, pid, out_dir):
     arrays["spconv_ppermute"] = SpatialSharding(
         mesh_sp, data_axis=None, impl="ppermute").conv(
             f32, kernel.float()).numpy()
-    for impl in ("pallas", "overlap"):
-        try:
-            SpatialSharding(mesh_sp, data_axis=None, impl=impl).conv(
-                f32, kernel.float())
-            info[f"refused_{impl}"] = ""
-        except NotImplementedError as e:
-            info[f"refused_{impl}"] = str(e)
-    try:
-        sharded_cyclic_conv2d(field, kernel.clone().requires_grad_(True),
-                              mesh_sp, data_axis=None)
-        info["refused_grad"] = ""
-    except NotImplementedError as e:
-        info["refused_grad"] = str(e)
+    lat_across_checks(mesh_sp, arrays)
+    arrays.update(lon_ring(multihost_mesh(
+        MeshConfig(data=1, lat=1, lon=-1), devices=cpu[:1])))
+    arrays.update(spectral_core(multihost_mesh(MeshConfig(data=1, lat=-1),
+                                               devices=cpu)))
     # The kernel impls on (data across ranks, lat within each): this
     # rank's block of the batch.
     block = torch.from_numpy(np.random.RandomState(5).randn(2, 3, 8, 16)
@@ -200,10 +202,117 @@ def worker(address, nproc, pid, out_dir):
         torch.equal(a, b) for a, b in zip(again.state_dict().values(),
                                           model.state_dict().values()))
 
+    # 4. the same training with the lat axis across the ranks (4 bands,
+    # two a rank; every rank on the whole batch).
+    lat_model = build_sequential(small_specs(),
+                                 spatial=SpatialSharding(mesh_sp),
+                                 device="cpu")
+    lat_model.init(torch.from_numpy(xs[:1]), seed=pid)  # rank 0's wins
+    steps.clear()
+    hist = Trainer(lat_model, TrainConfig(learning_rate=LR, epochs=1,
+                                          batch_size=BATCH),
+                   mesh=mesh_sp, batch_spec=spec).fit(
+        xs, ys, verbose=False, callbacks=[Steps()])
+    info["lat_steps"], info["lat_history"] = steps, hist.history["loss"]
+    for k, v in lat_model.state_dict().items():
+        arrays[f"lat_param/{k}"] = v.detach().numpy()
+
     np.savez(os.path.join(out_dir, f"rank{pid}.npz"), **arrays)
     with open(os.path.join(out_dir, f"rank{pid}.json"), "w") as f:
         json.dump(info, f)
     torch.distributed.destroy_process_group()
+
+
+def cotangent(shape):
+    return np.random.RandomState(6).randn(*shape)
+
+
+def lat_across_checks(mesh, arrays):
+    """On a mesh whose lat axis spans the ranks: the float64 plain conv's
+    gradient (``sharded_cyclic_conv2d``, dilated), and the kernel impls'
+    float32 conv and gradient (``_FastConv``) at a fixed cotangent."""
+    from dlwp_torch.parallel import SpatialSharding
+    from dlwp_torch.parallel.halo import sharded_cyclic_conv2d
+
+    field, kernel = (torch.from_numpy(a) for a in conv_data())
+    x, k = field.requires_grad_(True), kernel.requires_grad_(True)
+    y = sharded_cyclic_conv2d(x, k, mesh, dilation=(2, 1), data_axis=None)
+    cot = torch.from_numpy(cotangent(y.shape))
+    arrays["plain_grad_x"], arrays["plain_grad_k"] = (
+        g.numpy() for g in torch.autograd.grad(y, [x, k], cot))
+    for impl in ("pallas", "overlap"):
+        x32 = field.detach().float().requires_grad_(True)
+        k32 = kernel.detach().float().requires_grad_(True)
+        y = SpatialSharding(mesh, data_axis=None, impl=impl).conv(x32, k32)
+        arrays[f"spconv_{impl}"] = y.detach().numpy()
+        arrays[f"grad_x_{impl}"], arrays[f"grad_k_{impl}"] = (
+            g.numpy() for g in torch.autograd.grad(y, [x32, k32],
+                                                   cot.float()))
+
+
+def lon_ring(mesh) -> dict:
+    """A float64 conv on lat x lon tiles whose lon ring (and lat axis, on
+    a 2 x 2 mesh) spans the ranks, and its gradient."""
+    from dlwp_torch.parallel.halo import sharded_cyclic_conv2d
+
+    field, kernel = (torch.from_numpy(a).requires_grad_(True)
+                     for a in conv_data())
+    y = sharded_cyclic_conv2d(field, kernel, mesh, data_axis=None,
+                              lon_axis_name="lon")
+    gx, gk = torch.autograd.grad(y, [field, kernel],
+                                 torch.from_numpy(cotangent(y.shape)))
+    return {"lon": y.detach().numpy(), "lon_grad_x": gx.numpy(),
+            "lon_grad_k": gk.numpy()}
+
+
+SPEC_T, SPEC_NLAT, SPEC_NLON = 15, 16, 32
+BARO_T, BARO_NLAT, BARO_NLON = 15, 32, 64
+
+
+def spectral_fields():
+    rng = np.random.RandomState(8)
+    M = SPEC_T + 1
+    spec = rng.randn(2, M, M) + 1j * rng.randn(2, M, M)
+    spec = 1e-5 * spec * (np.arange(M)[None, :] >= np.arange(M)[:, None])
+    spec[..., 0, :] = spec[..., 0, :].real
+    return rng.randn(2, SPEC_NLAT, SPEC_NLON), spec
+
+
+def baro_z(grid):
+    lat = np.radians(grid.lat)[:, None]
+    lon = np.radians(grid.lon)[None, :]
+    return (5500.0 - 300.0 * np.sin(lat) ** 2
+            + 60.0 * np.cos(lat) ** 3 * np.cos(3 * lon))
+
+
+def spectral_core(mesh) -> dict:
+    """The sharded spectral engine (analysis, synthesis, the wind pair)
+    and 20 steps of the sharded barotropic model, float64, with the lat
+    axis across the ranks; each rank holds its own bands."""
+    from dlwp_torch import BarotropicModel, LatLonGrid, SphericalHarmonics
+    from dlwp_torch.parallel import (
+        ShardedBarotropicModel,
+        ShardedSphericalHarmonics,
+    )
+
+    sh = SphericalHarmonics.build(LatLonGrid.gaussian(SPEC_NLAT, SPEC_NLON),
+                                  SPEC_T, dtype=torch.float64, device="cpu")
+    ssh = ShardedSphericalHarmonics(sh, mesh)
+    field, spec = (torch.from_numpy(a) for a in spectral_fields())
+    u, v = ssh.uv_from_vrtdiv(spec, 0.5 * spec)
+    out = {"sph_analyze": ssh.analyze(field).numpy(),
+           "sph_synthesize": ssh.synthesize(spec).numpy(),
+           "sph_u": u.numpy(), "sph_v": v.numpy(),
+           "sph_mine": np.asarray(ssh.mine)}
+    grid = LatLonGrid.gaussian(BARO_NLAT, BARO_NLON)
+    kw = dict(dt=1800.0, damping_coefficient=1e-4, dtype=torch.float64,
+              device="cpu")
+    ref = BarotropicModel(grid, BARO_T, **kw)
+    model = ShardedBarotropicModel(grid, BARO_T, mesh=mesh, **kw)
+    state = model.run_sharded(ref.from_z(baro_z(grid)), 20)
+    out["baro_vrt"] = state.vrt_spec.numpy()
+    out["baro_prev"] = state.vrt_spec_prev.numpy()
+    return out
 
 
 def grid_worker(address, nproc, pid, out_dir):
@@ -215,7 +324,7 @@ def grid_worker(address, nproc, pid, out_dir):
     torch.set_num_threads(1)
     from dlwp_torch import build_sequential
     from dlwp_torch.kernels.halo_exchange import halo_rows_plain
-    from dlwp_torch.parallel import MeshConfig, build_mesh
+    from dlwp_torch.parallel import MeshConfig, SpatialSharding, build_mesh
     from dlwp_torch.parallel.distributed import (
         initialize_distributed,
         multihost_mesh,
@@ -246,6 +355,31 @@ def grid_worker(address, nproc, pid, out_dir):
     info["halo_equal"] = all(
         isinstance(g, Remote) or torch.equal(g, want)
         for g, want in zip(halo_exchange_lat(row, (2, 1)), whole))
+    lat_across_checks(lat4, arrays)
+    arrays.update(lon_ring(multihost_mesh(MeshConfig(data=1, lat=2, lon=2),
+                                          devices=cpu)))
+    # Training on (data 2 across ranks) x (lat 2 across ranks).
+    xs, ys = train_data()
+    grid_model = build_sequential(small_specs(),
+                                  spatial=SpatialSharding(grid),
+                                  device="cpu")
+    grid_model.init(torch.from_numpy(xs[:1]), seed=pid)  # rank 0's wins
+    steps = []
+
+    class Steps:
+        def __call__(self, *a):
+            pass
+
+        def on_batch(self, loss):
+            steps.append(loss)
+
+    hist = Trainer(grid_model, TrainConfig(learning_rate=LR, epochs=1,
+                                           batch_size=BATCH),
+                   mesh=grid, batch_spec=("data", None, None, "lat", None)
+                   ).fit(xs, ys, verbose=False, callbacks=[Steps()])
+    info["grid_steps"], info["grid_history"] = steps, hist.history["loss"]
+    for k, v in grid_model.state_dict().items():
+        arrays[f"grid_param/{k}"] = v.detach().numpy()
     # A mesh of the rank's own entry (not across processes): every rank
     # keeps its own checkpoints.
     xs, ys = train_data()
@@ -390,34 +524,123 @@ def test_lat_bands_across_processes_match_jax(ranks):
                                    atol=TOL_F32)
 
 
-def test_kernel_impls_refuse_a_lat_axis_across_processes(ranks):
-    for info, arrays in ranks:
-        for impl in ("pallas", "overlap"):
-            assert "spans processes" in info[f"refused_{impl}"]
-            assert "item 6f" in info[f"refused_{impl}"]
-        assert "not ported" in info["refused_grad"]
-        # Data across ranks, lat within each: the kernel impl runs.
-        block = torch.from_numpy(arrays["mixed_block"])
-        _, k = conv_data()
-        want = cyclic_conv2d(block, torch.from_numpy(k).float()).numpy()
-        np.testing.assert_allclose(arrays["mixed_overlap"], want, rtol=0,
+@pytest.mark.parametrize("nproc", [NPROC, GRID_NPROC])
+@pytest.mark.parametrize("impl", ["pallas", "overlap"])
+def test_kernel_impls_refuse_a_lat_axis_across_processes(request, impl,
+                                                         nproc):
+    """The kernel impls no longer refuse a lat axis across processes: lat
+    4 over 2 ranks (two bands a rank) and over 4 ranks, float32, against
+    the JAX ``cyclic_conv2d`` (the kernels' plain versions here, their
+    edge rows exchanged between the processes). On (data across ranks,
+    lat within each) the kernel impl runs the rank's block as before."""
+    field, kernel = conv_data()
+    want = np.asarray(jax_cyclic(jnp.asarray(field), jnp.asarray(kernel)))
+    for _, arrays in _ranks_of(request, nproc):
+        np.testing.assert_allclose(arrays[f"spconv_{impl}"], want, rtol=0,
                                    atol=TOL_F32)
+    if nproc == NPROC:
+        for _, arrays in _ranks_of(request, nproc):
+            # Data across ranks, lat within each: the kernel impl runs.
+            block = torch.from_numpy(arrays["mixed_block"])
+            want = cyclic_conv2d(block,
+                                 torch.from_numpy(kernel).float()).numpy()
+            np.testing.assert_allclose(arrays["mixed_overlap"], want, rtol=0,
+                                       atol=TOL_F32)
 
 
-def test_data_parallel_training_matches_jax(ranks, monkeypatch):
-    """3 train steps (one epoch of 12 samples at B=4) with each rank on
-    half of every batch, against the JAX Trainer on the whole batches
-    from rank 0's initial weights."""
-    monkeypatch.delenv("DLWP_CONVLSTM_JOINT", raising=False)
-    (i0, a0), (i1, a1) = ranks
-    keys = sorted(k for k in a0 if k.startswith("param/"))
-    for k in keys:
-        np.testing.assert_array_equal(a0[k], a1[k])
-    assert i0["steps"] == i1["steps"] and len(i0["steps"]) == 3
-    assert i0["history"] == i1["history"]
-    np.testing.assert_allclose(i0["history"][0], np.mean(i0["steps"]),
-                               rtol=1e-15)
+def _ranks_of(request, nproc):
+    return request.getfixturevalue("ranks" if nproc == NPROC
+                                   else "grid_ranks")
 
+
+def _jax_conv_vjp(dilation=(1, 1)):
+    """JAX ``cyclic_conv2d`` of the conv data, and its gradient at the
+    workers' cotangent."""
+    field, kernel = conv_data()
+    y, vjp = jax.vjp(lambda x, k: jax_cyclic(x, k, dilation=dilation),
+                     jnp.asarray(field), jnp.asarray(kernel))
+    gx, gk = vjp(jnp.asarray(cotangent(y.shape)))
+    return np.asarray(y), np.asarray(gx), np.asarray(gk)
+
+
+def _close(got, want, tol):
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=tol * max(1.0, np.abs(want).max()))
+
+
+@pytest.mark.parametrize("nproc", [NPROC, GRID_NPROC])
+@pytest.mark.parametrize("path", ["plain", "pallas", "overlap"])
+def test_gradients_with_lat_across_processes_match_jax(request, path,
+                                                       nproc):
+    """The gradient of a conv whose lat axis spans the ranks, against
+    ``jax.vjp`` of ``cyclic_conv2d``: ``sharded_cyclic_conv2d`` (dilated,
+    float64, 1e-12) and the kernel impls through ``_FastConv`` (float32,
+    1e-5), on every rank."""
+    if path == "plain":
+        _, gx, gk = _jax_conv_vjp((2, 1))
+        keys, tol = ("plain_grad_x", "plain_grad_k"), TOL_EXACT
+    else:
+        _, gx, gk = _jax_conv_vjp()
+        keys, tol = (f"grad_x_{path}", f"grad_k_{path}"), TOL_F32
+    for _, arrays in _ranks_of(request, nproc):
+        _close(arrays[keys[0]], gx, tol)
+        _close(arrays[keys[1]], gk, tol)
+
+
+@pytest.mark.parametrize("nproc", [NPROC, GRID_NPROC])
+def test_lon_ring_across_processes_matches_jax(request, nproc):
+    """A conv on lat x lon tiles whose lon ring spans the ranks (lon 2 over
+    2 ranks; lat 2 x lon 2 over 4) and its gradient, float64, against
+    JAX."""
+    y, gx, gk = _jax_conv_vjp()
+    for _, arrays in _ranks_of(request, nproc):
+        _close(arrays["lon"], y, TOL_EXACT)
+        _close(arrays["lon_grad_x"], gx, TOL_EXACT)
+        _close(arrays["lon_grad_k"], gk, TOL_EXACT)
+
+
+@pytest.mark.parametrize("part", ["transforms", "barotropic"])
+def test_spectral_core_across_processes_matches_jax(ranks, part):
+    """``ShardedSphericalHarmonics`` and 20 ``ShardedBarotropicModel``
+    steps with the lat axis across the ranks (each rank its own two of
+    four bands), float64, against the JAX single-device engine and model:
+    1e-10 of the scale for the transforms, 1e-12 relative RMS for the
+    steps."""
+    from dlwp_tpu.barotropic import BarotropicModel as JModel
+    from dlwp_tpu.grid import LatLonGrid as JGrid
+    from dlwp_tpu.spectral import SphericalHarmonics as JSH
+
+    assert [list(a["sph_mine"]) for _, a in ranks] == [[0, 1], [2, 3]]
+    if part == "transforms":
+        jsh = JSH.build(JGrid.gaussian(SPEC_NLAT, SPEC_NLON), SPEC_T,
+                        dtype=jnp.float64)
+        field, spec = spectral_fields()
+        u, v = jsh.uv_from_vrtdiv(jnp.asarray(spec), jnp.asarray(0.5 * spec))
+        want = {"sph_analyze": jsh.analyze(jnp.asarray(field)),
+                "sph_synthesize": jsh.synthesize(jnp.asarray(spec)),
+                "sph_u": u, "sph_v": v}
+        for _, arrays in ranks:
+            for key, w in want.items():
+                w = np.asarray(w)
+                np.testing.assert_allclose(arrays[key], w, rtol=0,
+                                           atol=1e-10 * np.abs(w).max())
+        return
+    grid = JGrid.gaussian(BARO_NLAT, BARO_NLON)
+    jm = JModel(grid, BARO_T, dt=1800.0, damping_coefficient=1e-4,
+                dtype=jnp.float64)
+    state = jm.run(jm.from_z(jnp.asarray(baro_z(grid))), 20)
+    for _, arrays in ranks:
+        for key, w in (("baro_vrt", state.vrt_spec),
+                       ("baro_prev", state.vrt_spec_prev)):
+            w = np.asarray(w)
+            rel = (np.sqrt(np.mean(np.abs(arrays[key] - w) ** 2))
+                   / np.sqrt(np.mean(np.abs(w) ** 2)))
+            assert rel <= 1e-12, (key, rel)
+
+
+def _jax_fit():
+    """The JAX Trainer's 3 steps on the whole batches from rank 0's
+    initial weights: (step losses, history, parameter leaves)."""
     xs, ys = train_data()
     init = build_sequential(small_specs(), device="cpu")
     init.init(torch.from_numpy(xs[:1]), seed=0)
@@ -436,20 +659,62 @@ def test_data_parallel_training_matches_jax(ranks, monkeypatch):
             steps.append(loss)
 
     hist = jt.fit(x=xs, y=ys, verbose=False, callbacks=[Steps()])
-    np.testing.assert_allclose(i0["steps"], steps, rtol=TOL_RUN, atol=0)
-    np.testing.assert_allclose(i0["history"], hist.history["loss"],
-                               rtol=TOL_RUN, atol=0)
-    got = build_sequential(small_specs(), device="cpu")
-    got.init(torch.from_numpy(xs[:1]), seed=0)
-    got.load_state_dict({k[len("param/"):]: torch.from_numpy(a0[k])
-                         for k in keys})
-    want = jax.tree.map(np.asarray, jt.params)["params"]
-    mine = flax_tree(got)["params"]
-    flat_w, flat_m = jax.tree.leaves(want), jax.tree.leaves(mine)
-    assert len(flat_w) == len(flat_m)
-    for w_, m_ in zip(flat_w, flat_m):
+    leaves = jax.tree.leaves(jax.tree.map(np.asarray, jt.params)["params"])
+    return steps, hist.history["loss"], leaves
+
+
+def _check_training(got, prefix, steps_key, history_key):
+    """Every rank's steps, history and parameters (``prefix`` keys):
+    bit-equal across ranks, and the JAX Trainer's to 1e-9."""
+    i0, a0 = got[0]
+    keys = sorted(k for k in a0 if k.startswith(prefix))
+    for info, arrays in got[1:]:
+        for k in keys:
+            np.testing.assert_array_equal(a0[k], arrays[k])
+        assert info[steps_key] == i0[steps_key]
+        assert info[history_key] == i0[history_key]
+    assert len(i0[steps_key]) == 3
+    np.testing.assert_allclose(i0[history_key][0], np.mean(i0[steps_key]),
+                               rtol=1e-15)
+    steps, history, want = _jax_fit()
+    np.testing.assert_allclose(i0[steps_key], steps, rtol=TOL_RUN, atol=0)
+    np.testing.assert_allclose(i0[history_key], history, rtol=TOL_RUN,
+                               atol=0)
+    xs, _ = train_data()
+    model = build_sequential(small_specs(), device="cpu")
+    model.init(torch.from_numpy(xs[:1]), seed=0)
+    model.load_state_dict({k[len(prefix):]: torch.from_numpy(a0[k])
+                           for k in keys})
+    mine = jax.tree.leaves(flax_tree(model)["params"])
+    assert len(want) == len(mine)
+    for w_, m_ in zip(want, mine):
         np.testing.assert_allclose(m_, w_, rtol=0,
                                    atol=TOL_RUN * max(1.0, np.abs(w_).max()))
+
+
+def test_data_parallel_training_matches_jax(ranks, monkeypatch):
+    """3 train steps (one epoch of 12 samples at B=4) with each rank on
+    half of every batch, against the JAX Trainer on the whole batches
+    from rank 0's initial weights."""
+    monkeypatch.delenv("DLWP_CONVLSTM_JOINT", raising=False)
+    _check_training(ranks, "param/", "steps", "history")
+
+
+@pytest.mark.parametrize("layout", ["lat 4 over 2 ranks",
+                                    "data 2 x lat 2 over 4 ranks"])
+def test_lat_across_processes_training_matches_jax(request, monkeypatch,
+                                                   layout):
+    """The same 3 train steps, float64, with the lat axis across the
+    ranks: lat 4 over 2 ranks (every rank on the whole batch), and data 2
+    across ranks x lat 2 across ranks (gradients averaged over the data
+    axis's ranks only); parameters bit-equal across ranks."""
+    monkeypatch.delenv("DLWP_CONVLSTM_JOINT", raising=False)
+    if layout.startswith("lat"):
+        _check_training(request.getfixturevalue("ranks"), "lat_param/",
+                        "lat_steps", "lat_history")
+    else:
+        _check_training(request.getfixturevalue("grid_ranks"),
+                        "grid_param/", "grid_steps", "grid_history")
 
 
 def test_checkpoint_written_by_rank_0_and_resumed_by_both(ranks):
@@ -457,12 +722,10 @@ def test_checkpoint_written_by_rank_0_and_resumed_by_both(ranks):
         assert info["resumed_equal"]
 
 
-def test_entry_distributed_under_a_torchrun_environment():
-    """``python -m dlwp_torch.entry --distributed --device cpu`` in two
+def _run_entry(*flags):
+    """``python -m dlwp_torch.entry --distributed --device cpu`` in NPROC
     processes given torchrun's environment variables (RANK, WORLD_SIZE,
-    MASTER_ADDR, MASTER_PORT, LOCAL_RANK): the flagship's 3 train steps on
-    (data across the 2 processes, lat 2 within each), the same losses
-    and parameters on both ranks."""
+    MASTER_ADDR, MASTER_PORT, LOCAL_RANK); each rank's result line."""
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     port = str(_free_port())
     procs = []
@@ -474,8 +737,8 @@ def test_entry_distributed_under_a_torchrun_environment():
             [repo] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
         procs.append(subprocess.Popen(
             [sys.executable, "-m", "dlwp_torch.entry", "--distributed",
-             "--device", "cpu"], env=env, cwd=repo, stdout=subprocess.PIPE,
-            stderr=subprocess.PIPE, text=True))
+             "--device", "cpu", *flags], env=env, cwd=repo,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
     outs = []
     try:
         for p in procs:
@@ -490,12 +753,28 @@ def test_entry_distributed_under_a_torchrun_environment():
                 p.kill()
                 p.communicate()
     assert sorted(o["rank"] for o in outs) == [0, 1]
-    assert all(o["mesh"] == {"data": 2, "lat": 2} for o in outs)
     assert all(o["backend"] == "gloo" for o in outs)
     assert outs[0]["losses"] == outs[1]["losses"]
     assert len(outs[0]["losses"]) == 3
     assert np.isfinite(outs[0]["losses"]).all()
     assert outs[0]["param_checksum"] == outs[1]["param_checksum"]
+    return outs
+
+
+def test_entry_distributed_under_a_torchrun_environment():
+    """``python -m dlwp_torch.entry --distributed --device cpu`` in two
+    processes: the flagship's 3 train steps on (data across the 2
+    processes, lat 2 within each), the same losses and parameters on both
+    ranks."""
+    outs = _run_entry()
+    assert all(o["mesh"] == {"data": 2, "lat": 2} for o in outs)
+
+
+def test_entry_lat_across_under_a_torchrun_environment():
+    """The same with ``--lat-across``: one lat band a process, both on the
+    same batches."""
+    outs = _run_entry("--lat-across")
+    assert all(o["mesh"] == {"data": 1, "lat": 2} for o in outs)
 
 
 @pytest.mark.parametrize("layout", ["data 2 x lat 2", "lat 4"])

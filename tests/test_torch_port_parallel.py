@@ -395,3 +395,40 @@ def test_lon_axis_and_kernel_path_grads():
         assert (got - ref).abs().max() <= 1e-5 * ref.abs().max()
     with pytest.raises(ValueError, match="impl"):
         SpatialSharding(port_mesh(2), impl="nccl")
+
+
+@pytest.mark.parametrize("name,args", [
+    ("batch_sharding", ()), ("batch_sharding", (4,)),
+    ("space_sharding", (4, 2)), ("space_sharding", (5, 3)),
+    ("batch_space_sharding", (4, 2)), ("batch_space_sharding", (5, 3)),
+])
+def test_sharding_helpers_match_the_jax_specs(name, args):
+    """``batch_sharding``, ``space_sharding`` and ``batch_space_sharding``
+    give the JAX helpers' specs as axis-name tuples, with the mesh: the
+    ``(Mesh, spec)`` pair that ``DeviceSeriesSampler(sharding=)`` takes
+    (``batch_sharding`` is exported from the package, as in JAX)."""
+    import dlwp_tpu.parallel.mesh as jmesh
+
+    import dlwp_torch.parallel as tp
+    import dlwp_torch.parallel.mesh as tmesh
+
+    want = getattr(jmesh, name)(
+        jax_build_mesh(JaxMeshConfig(data=2, lat=1),
+                       devices=jax.devices()[:2]), *args).spec
+    mesh = build_mesh(MeshConfig(data=2, lat=1), devices=[CPU] * 2)
+    got_mesh, spec = getattr(tmesh, name)(mesh, *args)
+    assert got_mesh is mesh and spec == tuple(want)
+    assert tp.batch_sharding is tmesh.batch_sharding
+    from dlwp_torch.data.device_sampler import DeviceSeriesSampler
+
+    n = 6
+    sampler = SeriesSampler(PredictorDataset(
+        predictors=np.zeros((n, 2, 4, 8), np.float32),
+        sample=(np.datetime64("2007-01-01")
+                + np.arange(n) * np.timedelta64(6, "h")),
+        varlev=["HGT/500", "THICK/300-700"],
+        lat=np.linspace(87.5, 0.0, 4), lon=np.arange(8) * 45.0),
+        batch_size=2, input_time_steps=1, output_time_steps=1)
+    assert DeviceSeriesSampler(sampler, device="cpu",
+                               sharding=(got_mesh, spec)).sharding == (
+        got_mesh, spec)

@@ -8,9 +8,18 @@ reads (peers). No card is needed: the plans are built on
 ``torch.device("cuda", i)`` objects. The kernels' table semantics are
 emulated in numpy against the plain versions (``halo_rows_plain``,
 ``overlap_conv_plain``, bit for bit and in float64), the overlap kernels'
-tiles are checked to cover each card's own shards once, a pair of cards
-without peer access raises naming both, and a mesh whose lat axis spans
-processes is refused by the kernel impls and runs on the plain one.
+tiles are checked to cover each card's own shards once, and a pair of
+cards without peer access raises naming both.
+
+A lat axis across processes: the plan maps a neighbour band of another
+process to a slab of that process's edge mailbox (``Group.slabs``: owner
+and slot, the slot the band's place in the owner's ``exports``; the
+slab's rows per image from ``source_rows``); the kernels' reads through
+such a table, with the slabs packed as ``dlwp_pack_edges`` packs them,
+are emulated against the plain versions; the kernel impls on such a mesh
+match the JAX conv with the messages between processes replaced by
+their contract; and a machine that refuses CUDA IPC makes the mailbox
+raise with the CUDA error's name and code (a stubbed entry point).
 """
 
 import importlib
@@ -24,7 +33,9 @@ from dlwp_torch.kernels.halo_exchange import (
     Group,
     device_groups,
     enable_peer_access,
+    exports,
     halo_rows_plain,
+    source_rows,
 )
 from dlwp_torch.kernels.overlap_conv import _plan, _tile, overlap_conv_plain
 from dlwp_torch.ops.conv import cyclic_conv2d
@@ -193,13 +204,246 @@ def _cross_process_mesh(process_index):
                 process_index)
 
 
+# Which bands of a lat-ordered data row another process holds.
+REMOTE_PATTERNS = {
+    "here, there": [False, True],
+    "there, here": [True, False],
+    "there, here, there": [True, False, True],
+    "here, there, here": [False, True, False],
+    "two there, here, there": [True, True, False, True],
+    "two here, two there": [False, False, True, True],
+}
+
+
+def _fake_processes(monkeypatch, whole_rows, pid):
+    """This process as process ``pid`` of a (data 1, lat 4) mesh over two
+    processes, with the messages between processes replaced by their
+    contract: a band's edge rows come from ``whole_rows`` (the row's
+    bands), and the join's remote blocks come back as NaN (only this
+    process's rows are checked)."""
+    from dlwp_torch.parallel import distributed
+    from dlwp_torch.parallel import halo as halo_mod
+
+    def exchange(row, halo, **kw):
+        assert kw.get("dim", -2) == -2 and not kw.get("cyclic", False)
+        top, bot = halo
+        out = {}
+        for i, b in enumerate(row):
+            if isinstance(b, Remote):
+                continue
+            if top and i > 0 and isinstance(row[i - 1], Remote):
+                out[(i, "north")] = whole_rows[i - 1][..., -top:, :]
+            if bot and i < len(row) - 1 and isinstance(row[i + 1], Remote):
+                out[(i, "south")] = whole_rows[i + 1][..., :bot, :]
+        return out
+
+    monkeypatch.setattr(halo_mod, "exchange_edges", exchange)
+    monkeypatch.setattr(distributed, "process_group", lambda ranks: None)
+    monkeypatch.setattr(distributed, "broadcast_block",
+                        lambda b, like, group=None: like.new_full(
+                            like.shape, np.nan) if isinstance(b, Remote)
+                        else b)
+    monkeypatch.setattr(torch.distributed, "get_rank", lambda: pid)
+
+
 @pytest.mark.parametrize("impl", ["pallas", "overlap"])
-def test_kernel_impls_refuse_a_lat_axis_across_processes(impl):
-    mesh = _cross_process_mesh(0)
-    x = torch.ones(2, 3, 8, 16)
-    with pytest.raises(NotImplementedError, match="item 6f"):
-        SpatialSharding(mesh, data_axis=None, impl=impl).conv(
-            x, torch.ones(4, 3, 3, 3))
+def test_kernel_impls_refuse_a_lat_axis_across_processes(monkeypatch, impl):
+    """The kernel impls on a lat axis across processes no longer refuse:
+    on each process of (data 1, lat 4) over two, with the messages
+    replaced by their contract, the bands it holds equal the JAX conv's
+    rows in float32 (the kernels' plain versions here)."""
+    import jax.numpy as jnp
+    from dlwp_tpu.ops.conv import cyclic_conv2d as jax_cyclic
+
+    rs = np.random.RandomState(4)
+    x = torch.from_numpy(rs.randn(2, 3, 8, 16)).float()
+    k = torch.from_numpy(rs.randn(4, 3, 3, 3)).float()
+    want = np.asarray(jax_cyclic(jnp.asarray(x.numpy()),
+                                 jnp.asarray(k.numpy())))
+    for pid in (0, 1):
+        _fake_processes(monkeypatch, list(x.chunk(4, dim=-2)), pid)
+        got = SpatialSharding(_cross_process_mesh(pid), data_axis=None,
+                              impl=impl).conv(x, k).numpy()
+        rows = slice(4 * pid, 4 * pid + 4)
+        np.testing.assert_allclose(got[..., rows, :], want[..., rows, :],
+                                   rtol=0, atol=1e-5)
+        assert np.isnan(np.delete(got, np.r_[rows], axis=-2)).all()
+
+
+# Layouts of a lat axis across processes as one process sees them: its
+# own bands on its cards, the others' as Remote markers.
+R0, R1, R2 = Remote(0), Remote(1), Remote(2)
+CROSS = {
+    "lat 2, process 0": [[C0, R1]],
+    "lat 2, process 1": [[R0, C0]],
+    "lat 4 over 2, process 0": [[C0, C0, R1, R1]],
+    "lat 4 over 4, process 1": [[R0, C0, R2, Remote(3)]],
+    "lat 4 over 2 with two cards, process 1": [[R0, R0, C0, C1]],
+    "data 2 x lat 2 over 4, process 0": [[C0, R1], [R2, Remote(3)]],
+    "data 3 x lat 2 over 3, process 1": [[R0, R0], [R0, C0], [C0, R2]],
+}
+
+
+def test_mailbox_plan_of_lat_2():
+    (g,) = device_groups([[C0, R1]]).values()
+    assert g == Group([(0, 0)], [(0, 0), (0, 1)], [-1], [1], [],
+                      ((1, 1, 0),))
+    assert source_rows(g, 18, 4) == [18, 4]
+    assert exports([[C0, R1]]) == [(0, 0)]
+    assert exports([[C0, R1]], 1) == [(0, 1)]
+
+
+@pytest.mark.parametrize("layout", list(CROSS))
+def test_mailbox_plan_maps_each_remote_neighbour_to_its_slot(layout):
+    """Every neighbour band of another process is a source-only entry of
+    the launch that reads it, marked as a slab of its owner's mailbox at
+    the band's place in the owner's exports (which the owner computes
+    from its own view alike), with the mailbox's rows per image; no card
+    of this process is a peer for it; Remote bands have no launch."""
+    devices = CROSS[layout]
+    groups = device_groups(devices)
+    outputs = sorted(k for g in groups.values() for k in g.outputs)
+    assert outputs == [(d, l) for d, row in enumerate(devices)
+                       for l, e in enumerate(row) if isinstance(e,
+                                                                torch.device)]
+    seen = set()
+    for dev, g in groups.items():
+        assert isinstance(dev, torch.device)
+        slabs = {i: (rank, slot) for i, rank, slot in g.slabs}
+        for i, (d, l) in enumerate(g.sources):
+            e = devices[d][l]
+            if isinstance(e, Remote):
+                assert slabs[i] == (e.rank,
+                                    exports(devices, e.rank).index((d, l)))
+                seen.add((d, l))
+            else:
+                assert i not in slabs
+        assert all(isinstance(p, torch.device) for p in g.peers)
+        assert source_rows(g, 9, 2) == [2 if i in slabs else 9
+                                        for i in range(len(g.sources))]
+    want = {(d, n) for d, row in enumerate(devices)
+            for l, e in enumerate(row) if isinstance(e, torch.device)
+            for n in (l - 1, l + 1) if 0 <= n < len(row)
+            and isinstance(row[n], Remote)}
+    assert seen == want
+    # The owner's exports are the bands with a neighbour of another
+    # process, whoever computes them.
+    mine = exports(devices)
+    assert mine == [(d, l) for d, row in enumerate(devices)
+                    for l, e in enumerate(row) if isinstance(e, torch.device)
+                    and any(0 <= n < len(row) and isinstance(row[n], Remote)
+                            for n in (l - 1, l + 1))]
+
+
+def _pack(band, top, bot):
+    """``dlwp_pack_edges``: per image the band's first ``bot`` rows, then
+    its last ``top`` rows."""
+    return np.concatenate([band[..., :bot, :],
+                           band[..., band.shape[-2] - top:, :]], axis=-2)
+
+
+def _whole_and_layout(pattern, shape, seed):
+    remote = REMOTE_PATTERNS[pattern]
+    rs = np.random.RandomState(seed)
+    whole = [rs.randn(*shape) for _ in remote]
+    layout = [[Remote(1) if r else C0 for r in remote]]
+    return whole, layout
+
+
+@pytest.mark.parametrize("pattern", list(REMOTE_PATTERNS))
+@pytest.mark.parametrize("halo", [(1, 1), (2, 1), (0, 2), (2, 0)])
+def test_mailbox_halo_emulation_equals_plain(pattern, halo):
+    """csrc/halo_exchange.cu over a table with mapped slabs: the slab of a
+    band of another process is its owner's packed edge rows, read with
+    the source's own rows per image (the north's last ``top``, the
+    south's first ``bot``); the bands here come out as the plain exchange
+    pads them on the whole row, bit for bit."""
+    top, bot = halo
+    whole, layout = _whole_and_layout(pattern, (2, 3, 4, 8), 7)
+    (g,) = device_groups(layout).values()
+    H = whole[0].shape[-2]
+    rows = source_rows(g, H, top + bot)
+    slab = {i for i, _, _ in g.slabs}
+    src = [_pack(whole[l], top, bot) if i in slab else whole[l]
+           for i, (_, l) in enumerate(g.sources)]
+    want = halo_rows_plain([torch.from_numpy(b) for b in whole], halo)
+    for s, (_, l) in enumerate(g.outputs):
+        parts = []
+        for idx, n, first in ((g.north[s], top, False), (g.south[s], bot,
+                                                          True)):
+            if idx < 0:
+                part = np.zeros(src[s].shape[:-2] + (n, src[s].shape[-1]))
+            else:
+                at = 0 if first else rows[idx] - n
+                part = src[idx].reshape((-1, rows[idx], src[idx].shape[-1])
+                                        )[:, at:at + n].reshape(
+                    src[s].shape[:-2] + (n, src[s].shape[-1]))
+            parts.append(part)
+        got = np.concatenate([parts[0], src[s], parts[1]], axis=-2)
+        np.testing.assert_array_equal(got, want[l].numpy())
+
+
+@pytest.mark.parametrize("pattern", list(REMOTE_PATTERNS))
+def test_mailbox_overlap_emulation_equals_plain(pattern):
+    """The overlap kernels' staging over mapped slabs of 2 rows an image
+    (csrc/overlap_conv.cu ``decode``: row -1 is the north source's last
+    row at its own image stride, row H the south's first): the conv of
+    each band here equals the plain version's on the whole row."""
+    whole, layout = _whole_and_layout(pattern, (3, 5, 4, 16), 8)
+    (g,) = device_groups(layout).values()
+    k = torch.from_numpy(np.random.RandomState(9).randn(6, 5, 3, 3))
+    slab = {i for i, _, _ in g.slabs}
+    src = [_pack(whole[l], 1, 1) if i in slab else whole[l]
+           for i, (_, l) in enumerate(g.sources)]
+    want = overlap_conv_plain([[torch.from_numpy(b).float() for b in whole]],
+                              k.float())[0]
+    for s, (_, l) in enumerate(g.outputs):
+        x = torch.from_numpy(src[s])
+        north = (torch.from_numpy(src[g.north[s]][..., -1:, :])
+                 if g.north[s] >= 0 else torch.zeros_like(x[..., :1, :]))
+        south = (torch.from_numpy(src[g.south[s]][..., :1, :])
+                 if g.south[s] >= 0 else torch.zeros_like(x[..., :1, :]))
+        staged = torch.cat([north, x, south], dim=-2)
+        got = F.conv2d(pad_latlon(staged, (0, 0), (1, 1)), k)
+        np.testing.assert_allclose(got.numpy(), want[l].numpy(), rtol=0,
+                                   atol=1e-5)
+
+
+class _RefusingLib:
+    """The CUDA IPC entry points of csrc/halo_exchange.cu on a machine
+    that refuses IPC: the export fails with cudaErrorNotSupported (801)."""
+
+    def dlwp_ipc_handle_size(self):
+        return 64
+
+    def dlwp_ipc_malloc(self, nbytes, ptr, handle):
+        return 801
+
+    def dlwp_cuda_error_name(self, err):
+        return b"cudaErrorNotSupported"
+
+    def __getattr__(self, name):
+        raise AssertionError(f"{name} called after the refusal")
+
+
+def test_a_machine_refusing_ipc_raises_with_the_cuda_error(monkeypatch):
+    """No fallback: where the export of the mailbox fails, the kernel's
+    mailbox raises, naming the CUDA error and its code, before any
+    launch or message."""
+    import contextlib
+
+    from dlwp_torch.parallel import distributed
+
+    monkeypatch.setattr(hx, "_lib", lambda: _RefusingLib())
+    monkeypatch.setattr(distributed, "process_group", lambda ranks: None)
+    monkeypatch.setattr(torch.distributed, "get_rank", lambda: 0)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+    with pytest.raises(RuntimeError,
+                       match=r"halo_exchange: cudaIpcGetMemHandle failed: "
+                             r"CUDA error cudaErrorNotSupported \(801\)"):
+        hx.Mailbox(((C0, R1),), (2, 3, 18, 144), 4, (1, 1), C0,
+                   "halo_exchange")
 
 
 def test_cross_process_split_keeps_remote_places():
@@ -248,17 +492,6 @@ def test_a_data_row_held_elsewhere_comes_back_unchanged():
     assert halo_exchange_lat(elsewhere, (1, 1)) == [Remote(2), Remote(3)]
 
 
-# Which bands of a lat-ordered data row another process holds.
-REMOTE_PATTERNS = {
-    "here, there": [False, True],
-    "there, here": [True, False],
-    "there, here, there": [True, False, True],
-    "here, there, here": [False, True, False],
-    "two there, here, there": [True, True, False, True],
-    "two here, two there": [False, False, True, True],
-}
-
-
 @pytest.mark.parametrize("pattern", list(REMOTE_PATTERNS))
 @pytest.mark.parametrize("halo", [(1, 1), (2, 1), (0, 2), (2, 0)])
 def test_remote_bands_pad_like_the_plain_exchange(monkeypatch, pattern,
@@ -275,8 +508,9 @@ def test_remote_bands_pad_like_the_plain_exchange(monkeypatch, pattern,
     whole = [torch.from_numpy(rs.randn(2, 3, 4, 5)) for _ in remote]
     top, bot = halo
 
-    def exchange(row, got_halo):
+    def exchange(row, got_halo, **kw):
         assert got_halo == halo
+        assert kw == {"dim": -2, "cyclic": False, "tag": 0}
         out = {}
         for i, b in enumerate(row):
             if isinstance(b, Remote):
