@@ -218,7 +218,26 @@ Phases, each raising on failure:
     barotropic steps against the unsharded ones, and a lon=2 conv whose
     ring spans the ranks; where the machine refuses IPC, the CUDA error
     and the items it leaves unverified;
-25. a ``{"kernels": [...]}`` line, then the last line
+25. ``--only examples`` (under a minute): the workflows of
+    ``dlwp_torch.examples`` through ``main(argv)`` on the card: (a)
+    ``train_convlstm`` at its default widths on the synthetic demo data
+    (B=32, 25% held out, latitude-weighted MSE) for 2 epochs with a
+    checkpoint, then ``--resume`` to 3, each fit's launches (the gates in
+    every train step, both kernels in every validation batch) and finite
+    losses; (b) ``validate`` of its saved model (12 forecast steps) on the
+    card and with ``--device cpu``: the forecast row within
+    ``TOL_EX_FORECAST``, persistence and climatology equal, the
+    barotropic row within ``TOL_BARO_RRMS``; (c) ``run_barotropic --n-init
+    1 --step-impl kernel`` against the CPU's plain engine and
+    ``make_barotropic_archive`` through the fused step (one segment)
+    against the CPU, where h5py is missing (the card's host) each main
+    raising naming it and its compute function run, and
+    ``write_predictors`` / ``add_thickness`` the same way; (d) ``train``,
+    ``train_functional``, ``train_spherical`` and ``train_distributed
+    --virtual 4 --data-shards 2 --lat-shards 2`` for an epoch, each model
+    reloaded through ``load_model``; (e) the plot scripts where
+    matplotlib imports; each script's seconds;
+26. a ``{"kernels": [...]}`` line, then the last line
     ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without printing a result when no CUDA device is present.
@@ -1818,41 +1837,15 @@ def validate_rows(torch, dlwp, data=None, fraction=VERIFY_FRACTION,
     return f_hour, rows, len(forecast.times), predict_s, masked
 
 
-def barotropic_baseline(data, val_data, forecast, ver, v, dt_hours,
-                        steps_out, lat_sel=slice(None), form="psi",
-                        truncation=None, device=None):
-    """``examples/validate.py``'s barotropic physics baseline
-    (``_barotropic_baseline``) in the port: from the unscaled variable
-    ``v`` at each init time, a float32 core (T42 or ``truncation``, dt
-    1800 s, damping 5e-6; the archive's regular grid, or the pole-cropped
-    coordinates as given) run to every lead on ``device`` (None ->
-    ``cuda``), scaled back and scored as the RMSE row over ``lat_sel``."""
-    import torch
+def barotropic_baseline(*args, **kwargs):
+    """``validate``'s barotropic physics baseline
+    (:func:`dlwp_torch.examples.validate.barotropic_baseline`): from the
+    unscaled variable at each init time, a float32 core (T42 or
+    ``truncation``) run to every lead on ``device`` (None -> ``cuda``),
+    scaled back and scored as the RMSE row over ``lat_sel``."""
+    from dlwp_torch.examples.validate import barotropic_baseline as baseline
 
-    from dlwp_torch import BarotropicModel, BarotropicModelPsi, LatLonGrid
-    from dlwp_torch.forecast import verify
-
-    out_idx = val_data.varlev_index(forecast.varlev)
-    lat, lon = np.asarray(data.lat), np.asarray(data.lon)
-    if abs(abs(lat[0]) - 90.0) < 1e-6:
-        grid = LatLonGrid.regular(len(lat), len(lon))
-    else:
-        grid = LatLonGrid.from_coords(lat, lon)
-    init_idx = [int(np.where(np.asarray(val_data.sample) == t)[0][0])
-                for t in forecast.times]
-    z0_scaled = np.asarray(val_data.predictors)[init_idx][:, out_idx][:, v]
-    mean = data.mean[out_idx][v] if data.mean is not None else 0.0
-    std = data.std[out_idx][v] if data.std is not None else 1.0
-    z0 = z0_scaled * std + mean
-    dt = 1800.0
-    cls = BarotropicModel if form == "vrt" else BarotropicModelPsi
-    model = cls(grid, truncation or min(42, grid.nlat - 2), dt=dt,
-                damping_coefficient=5e-6, dtype=torch.float32, device=device)
-    every = max(1, int(dt_hours * 3600.0 / dt))
-    _, _, zs = model.run_with_snapshots(model.from_z(z0), steps_out, every)
-    zs = ((zs.cpu().numpy() - mean) / std)[..., lat_sel, :]
-    return verify.forecast_error(zs, ver[:, :, v][..., lat_sel, :],
-                                 method="rmse", axis=tuple(range(1, zs.ndim)))
+    return baseline(*args, **kwargs)
 
 
 def trained_flagship(torch, dev):
@@ -3033,20 +3026,14 @@ TOL_ARCHIVE_RRMS = 1e-3
 
 
 def paper_specs(c_in, c_out, nlat, nlon, lstm_features):
-    """``examples/train_convlstm.py``'s ``convlstm_tower``, its reshapes
-    fixed to the grid as the example fixes them."""
-    return [
-        ("ConvLSTM2D", (lstm_features, 3),
-         {"dilation": 2, "activation": "tanh", "return_sequences": True}),
-        ("Reshape", ((TD * lstm_features, nlat, nlon),), None),
-        ("CyclicConv2D", (32, 3), {"dilation": 2, "activation": "tanh"}),
-        ("MaxPooling2D", (2,), None),
-        ("CyclicConv2D", (64, 3), {"activation": "tanh"}),
-        ("UpSampling2D", (2,), None),
-        ("CyclicConv2D", (32, 3), {"dilation": 2, "activation": "tanh"}),
-        ("CyclicConv2D", (TD * c_out, 5), {"activation": "linear"}),
-        ("Reshape", ((TD, c_out, nlat, nlon),), None),
-    ]
+    """``train_convlstm``'s ``convlstm_tower``, its reshapes fixed to the
+    grid as the script fixes them."""
+    from dlwp_torch.examples.train_convlstm import convlstm_tower
+
+    specs = convlstm_tower(TD, c_in, TD * c_out, lstm_features)
+    specs[1] = ("Reshape", ((TD * lstm_features, nlat, nlon),), None)
+    specs.append(("Reshape", ((TD, c_out, nlat, nlon),), None))
+    return specs
 
 
 def archive_vs_cpu(torch, dev):
@@ -4964,6 +4951,369 @@ def run_multicard(torch, dev):
 
 
 
+# ---------------------------------------------------------------------------
+# The example workflows (dlwp_torch.examples), driven through main(argv) on
+# the card as a user runs them. train_convlstm at the script's default
+# widths (lstm_features 4*C) on its synthetic demo data (600 samples,
+# 37x72 cropped to 36x72) at B=32, the last 25% held out, a
+# latitude-weighted MSE; validate with its defaults (20% held out, 12
+# forecast steps, the psi-form baseline at T34) on the card and on the
+# CPU; run_barotropic and make_barotropic_archive through the fused step.
+EX_N, EX_B, EX_FRACTION, EX_FORECAST = 600, 32, 0.25, 12
+EX_TRAIN = ["--batch-size", str(EX_B), "--validation-fraction",
+            str(EX_FRACTION), "--loss", "lat_mse"]
+EX_ARCHIVE = ["--years", "0.01"]  # 14 rows, one segment: a single member
+# validate's forecast row, card vs CPU (the same saved weights), relative.
+TOL_EX_FORECAST = 1e-4
+
+
+def example_call(torch, label, fn):
+    """``fn()`` with its printed lines captured and logged: (result,
+    printed text, seconds, launch counts set to 0 just before and read
+    just after)."""
+    import contextlib
+    import io
+
+    from dlwp_torch.kernels import launch_counts, reset_launch_counts
+
+    buf = io.StringIO()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        result = fn()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = launch_counts()
+    for line in buf.getvalue().strip().splitlines():
+        log(f"  {label} | {line}")
+    log(f"examples: {label}: {seconds:.2f} s, launches {counts}")
+    return result, buf.getvalue(), seconds, counts
+
+
+def example_module(name):
+    import importlib
+
+    return importlib.import_module(f"dlwp_torch.examples.{name}")
+
+
+def refuses_without_h5py(fn, what):
+    """Where h5py is missing (the card's host has none), ``fn()`` must
+    raise naming it; returns the message."""
+    try:
+        fn()
+    except (ImportError, RuntimeError) as e:
+        if "h5py" not in str(e):
+            raise
+        log(f"examples: {what} raises without h5py: {e}")
+        return str(e)
+    raise AssertionError(f"{what} wrote a file without h5py")
+
+
+def example_batches(n=EX_N, fraction=EX_FRACTION, b=EX_B):
+    """train_convlstm's train and validation batches an epoch: windows of
+    TD in and TD out steps (N - 2 TD + 1 a series), B a batch."""
+    n_val = int(n * fraction)
+    windows = [n - n_val - 2 * TD + 1, n_val - 2 * TD + 1]
+    return [-(-w // b) for w in windows]
+
+
+def examples_train_convlstm(torch, run, tmp):
+    """(a): 2 epochs with a checkpoint each, then --resume to 3. Each run
+    builds its model afresh: one forward at init (a conv-pool stage, TD -
+    1 gate launches), then the gates in every train step and both kernels
+    in every validation batch."""
+    model = os.path.join(tmp, "convlstm")
+    common = EX_TRAIN + ["--checkpoint-dir", os.path.join(tmp, "ck"),
+                         "--model-file", model, "--device", "cuda"]
+    n_train, n_val = example_batches()
+    out = {}
+    for epochs, extra in ((2, []), (3, ["--resume"])):
+        (net, hist), text, _, counts = run(
+            f"train_convlstm --epochs {epochs} {' '.join(extra)}".strip(),
+            "train_convlstm", ["--epochs", str(epochs)] + extra + common)
+        ran = len(hist.epoch)
+        need = fit_launches(ran, n_train, n_val, S=1, pools=1)
+        need["fused_conv_pool"] += 1
+        need["lstm_gates"] += TD - 1
+        losses = hist.history["loss"] + hist.history["val_loss"]
+        out[f"epochs_{epochs}"] = {"epochs_run": hist.epoch,
+                                   "history": hist.history,
+                                   "launches": counts, "expected": need}
+        if counts != need:
+            raise AssertionError(f"train_convlstm launches {counts} != {need}")
+        if not np.isfinite(losses).all():
+            raise AssertionError(f"train_convlstm losses {hist.history}")
+    if "resumed from epoch 2" not in text or hist.epoch != [2]:
+        raise AssertionError(f"train_convlstm did not resume: {text}")
+    if not os.path.exists(model + ".params"):
+        raise AssertionError("train_convlstm wrote no model file")
+    log(f"examples: train_convlstm at B={EX_B}: {n_train} train and {n_val} "
+        f"validation batches an epoch; resumed from epoch 2 to 3; losses "
+        f"finite")
+    return model, out
+
+
+def examples_validate(torch, run, tmp, model):
+    """(b): validate on the card and with --device cpu on the same file:
+    the forecast row within TOL_EX_FORECAST, persistence and climatology
+    equal, the barotropic row within TOL_BARO_RRMS."""
+    argv = ["--model-file", model, "--forecast-steps", str(EX_FORECAST),
+            "--plot-file", os.path.join(tmp, "v.png"),
+            "--output-file", os.path.join(tmp, "v.pkl")]
+    rows, text, _, counts = run("validate", "validate", argv + ["--device",
+                                                                "cuda"])
+    cpu, _, _, _ = run("validate --device cpu", "validate",
+                       argv + ["--device", "cpu"], card=False)
+    iters = EX_FORECAST // TD
+    need = expected_counts(fused_conv_pool=iters, lstm_gates=iters * (TD - 1))
+
+    def rel(key):
+        return float(np.max(np.abs(rows[key] - cpu[key]) / np.abs(cpu[key])))
+
+    out = {"launches": counts, "f_hour": np.asarray(rows["f_hour"]).tolist(),
+           "forecast_rel": rel("forecast_rmse"),
+           "barotropic_rel": rel("barotropic_rmse"),
+           "baselines_equal": all(np.array_equal(rows[k], cpu[k]) for k in
+                                  ("persistence_rmse", "climatology_rmse")),
+           "rows": {k: np.asarray(v).tolist() for k, v in rows.items()}}
+    log(f"examples: validate card vs CPU: forecast row {out['forecast_rel']:.3e}"
+        f" (limit {TOL_EX_FORECAST}), barotropic row "
+        f"{out['barotropic_rel']:.3e} (limit {TOL_BARO_RRMS}), persistence "
+        f"and climatology equal {out['baselines_equal']}")
+    for line in ("auto: cropping the 90N row", "insolation channel",
+                 "RMSE vs forecast hour"):
+        if line not in text:
+            raise AssertionError(f"validate did not print {line!r}")
+    if counts != need:
+        raise AssertionError(f"validate launches {counts} != {need}")
+    if not (all(np.isfinite(v).all() for v in rows.values())
+            and out["forecast_rel"] <= TOL_EX_FORECAST
+            and out["barotropic_rel"] <= TOL_BARO_RRMS
+            and out["baselines_equal"]):
+        raise AssertionError(f"validate card vs CPU: {out}")
+    return out
+
+
+def examples_barotropic(torch, run, tmp, have_h5py):
+    """(c): run_barotropic --n-init 1 --step-impl kernel against --device
+    cpu --step-impl plain, and make_barotropic_archive through the fused
+    step (one segment) against the CPU's plain engine; where h5py is
+    missing, main raises naming it and the compute functions run."""
+    rb = example_module("run_barotropic")
+    card_argv = ["--n-init", "1", "--step-impl", "kernel", "--device", "cuda",
+                 "--output-file", os.path.join(tmp, "b.h5")]
+    cpu_argv = ["--n-init", "1", "--step-impl", "plain", "--device", "cpu"]
+    out = {}
+    if have_h5py:
+        import h5py
+
+        run("run_barotropic", "run_barotropic", card_argv)
+        with h5py.File(os.path.join(tmp, "b.h5")) as f:
+            z = f["z"][:]
+    else:
+        out["run_barotropic_refusal"] = refuses_without_h5py(
+            lambda: rb.main(card_argv), "run_barotropic main")
+    (_, z_card, *_), _, _, counts = run(
+        "run_barotropic integrate (kernel)", "run_barotropic",
+        lambda: rb.integrate(rb.parse_args(card_argv)))
+    if have_h5py:
+        z_card = z
+    (_, z_cpu, *_), *_ = run("run_barotropic integrate --device cpu",
+                             "run_barotropic",
+                             lambda: rb.integrate(rb.parse_args(cpu_argv)),
+                             card=False)
+    snaps = z_card.shape[0]
+    out["run_barotropic"] = {
+        "shape": list(z_card.shape), "launches": counts,
+        "final_rel_rms": rel_rms(torch.from_numpy(z_card[-1]),
+                                 torch.from_numpy(z_cpu[-1]))}
+    log(f"examples: run_barotropic --step-impl kernel, {snaps} snapshots: "
+        f"final heights vs the CPU's plain engine relative RMS "
+        f"{out['run_barotropic']['final_rel_rms']:.3e} (limit "
+        f"{TOL_BARO_RRMS})")
+    if counts != expected_counts(barotropic_step=snaps):
+        raise AssertionError(f"run_barotropic launches {counts}")
+    if not (np.isfinite(z_card).all()
+            and out["run_barotropic"]["final_rel_rms"] <= TOL_BARO_RRMS):
+        raise AssertionError(f"run_barotropic vs CPU: {out}")
+
+    ma = example_module("make_barotropic_archive")
+    card = ma.parse_args(EX_ARCHIVE + ["--step-impl", "kernel", "--device",
+                                       "cuda", "--output-file",
+                                       os.path.join(tmp, "a.h5")])
+    cpu = ma.parse_args(EX_ARCHIVE + ["--device", "cpu"])
+    if not have_h5py:
+        out["archive_refusal"] = refuses_without_h5py(
+            lambda: ma.main(EX_ARCHIVE + ["--device", "cuda",
+                                          "--output-file",
+                                          os.path.join(tmp, "a.h5")]),
+            "make_barotropic_archive main")
+    ds, _, _, counts = run(
+        "make_barotropic_archive (kernel, one segment)",
+        "make_barotropic_archive",
+        lambda: ma.write_archive(card, ma.archive_source(card), None))
+    ref, *_ = run("make_barotropic_archive --device cpu",
+                  "make_barotropic_archive",
+                  lambda: ma.write_archive(cpu, ma.archive_source(cpu), None),
+                  card=False)
+    got, want = np.asarray(ds.predictors), np.asarray(ref.predictors)
+    nan = np.isnan(want)
+    ok = want[~nan]
+    out["archive"] = {
+        "dims": ds.dims, "launches": counts,
+        "same_nan": bool((np.isnan(got) == nan).all()),
+        "rel_rms": float(np.sqrt(np.mean((got[~nan] - ok) ** 2))
+                         / np.sqrt(np.mean((ok - ok.mean()) ** 2)))}
+    log(f"examples: make_barotropic_archive {ds.dims} through the kernel vs "
+        f"the CPU: relative RMS {out['archive']['rel_rms']:.3e} (limit "
+        f"{TOL_ARCHIVE_RRMS})")
+    if not (counts["barotropic_step"] > 0 and out["archive"]["same_nan"]
+            and out["archive"]["rel_rms"] <= TOL_ARCHIVE_RRMS):
+        raise AssertionError(f"make_barotropic_archive: {out['archive']}")
+    return out
+
+
+def examples_files(tmp, have_h5py):
+    """write_predictors and add_thickness: the files where h5py imports,
+    else main raises naming it and the compute functions run on the
+    synthetic series."""
+    wp, at = example_module("write_predictors"), example_module(
+        "add_thickness")
+    path = os.path.join(tmp, "p.h5")
+    if have_h5py:
+        wp.main(["--output-file", path])
+        at.main([path, "--upper", "HGT/500", "--lower", "THICK/300-700"])
+        return {"written": path}
+    out = {"write_predictors_refusal": refuses_without_h5py(
+        lambda: wp.main(["--output-file", path]), "write_predictors main"),
+        "add_thickness_refusal": refuses_without_h5py(
+            lambda: at.main([path]), "add_thickness main")}
+    _, ds = wp.build(wp.parse_args([]))
+    want = example_module("_synthetic").synthetic_predictor_file()
+    name, mean, std = at.add_thickness(ds, "HGT/500", "THICK/300-700")
+    out.update(series_equal=bool(np.array_equal(ds.predictors[:, :2],
+                                                want.predictors)),
+               thickness=[name, mean, std])
+    if not (out["series_equal"] and ds.varlev[-1] == name
+            and np.isfinite(ds.predictors).all()):
+        raise AssertionError(f"write_predictors / add_thickness: {out}")
+    return out
+
+
+def examples_training(torch, run, tmp):
+    """(d): train, train_functional and train_spherical for an epoch,
+    each reloaded through load_model to predict bit-equal to the model in
+    memory; train_distributed on a (data 2, lat 2) mesh of 4 entries of
+    the card, its parameters saved and reloaded bit-equal and the
+    reloaded (unsharded) model's prediction within TOL_STEP1 of the
+    sharded one's."""
+    from dlwp_torch import load_model, save_model
+
+    out = {}
+    for name in ("train", "train_functional", "train_spherical",
+                 "train_distributed"):
+        path = os.path.join(tmp, name)
+        argv = ["--epochs", "1", "--device", "cuda"] + (
+            ["--virtual", "4", "--data-shards", "2", "--lat-shards", "2"]
+            if name == "train_distributed" else ["--model-file", path])
+        (net, hist), text, _, counts = run(name, name, argv)
+        if name == "train_distributed":
+            save_model(net, path)
+        back = load_model(path, device="cuda")
+        x = np.random.RandomState(0).randn(
+            8, *net.input_sample_shape).astype(np.float32)
+        got, want = back.predict(x), net.predict(x)
+        params_equal = state_equal(back.base_model.state_dict(),
+                                   net.base_model.state_dict())
+        row = {"loss": hist.history["loss"], "launches": counts,
+               "params_equal": params_equal,
+               "predict_max_abs": float(np.max(np.abs(got - want)))}
+        out[name] = row
+        log(f"examples: {name}: loss {row['loss']}, reloaded parameters "
+            f"bit-equal {params_equal}, predict max abs vs in memory "
+            f"{row['predict_max_abs']:.3e}")
+        limit = TOL_STEP1["fp32"] if name == "train_distributed" else 0.0
+        if not (np.isfinite(row["loss"]).all() and params_equal
+                and row["predict_max_abs"] <= limit):
+            raise AssertionError(f"{name}: {row}")
+        if name == "train_distributed" and "mesh: {'data': 2, 'lat': 2}" \
+                not in text:
+            raise AssertionError(f"train_distributed: {text}")
+    return out
+
+
+def examples_plots(torch, run, tmp):
+    """(e): the plot scripts where matplotlib imports."""
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError as e:
+        log(f"examples: plot_forecasts, plot_movie and plot_ensemble not run:"
+            f" {e}")
+        return {"skipped": str(e)}
+    out = {}
+    for name, argv, files in (
+            ("plot_forecasts", ["--out-prefix", os.path.join(tmp, "f")],
+             ("f_panels.png", "f_laplacian.png")),
+            ("plot_movie", ["--output-file", os.path.join(tmp, "m.gif")],
+             ("m.gif",)),
+            ("plot_ensemble", ["--plot-file", os.path.join(tmp, "e.png")],
+             ("e.png",))):
+        _, _, _, counts = run(name, name, argv + ["--steps", "2",
+                                                  "--device", "cuda"])
+        out[name] = counts
+        if not all(os.path.getsize(os.path.join(tmp, f)) for f in files):
+            raise AssertionError(f"{name} wrote no figure")
+    return out
+
+
+def run_examples(torch, dev):
+    """``--only examples``: dlwp_torch.examples through main(argv) on the
+    card, (a)-(e); each script's seconds and the phase's launches (card
+    runs only)."""
+    import tempfile
+
+    from dlwp_torch.kernels import WRAPPERS
+
+    torch.set_num_threads(os.cpu_count() or 1)
+    t_phase = time.perf_counter()
+    launches = {name: 0 for name in WRAPPERS}
+    seconds = {}
+
+    def run(label, name, what, card=True):
+        """``what``: argv for the module's main, or a callable."""
+        fn = what if callable(what) else (
+            lambda: example_module(name).main(what))
+        result, text, sec, counts = example_call(torch, label, fn)
+        seconds[label] = sec
+        if card:
+            for k in counts:
+                launches[k] += counts[k]
+        return result, text, sec, counts
+
+    try:
+        import h5py  # noqa: F401
+        have_h5py = True
+    except ImportError:
+        have_h5py = False
+    out = {"h5py": have_h5py}
+    with tempfile.TemporaryDirectory() as tmp:
+        model, out["train_convlstm"] = examples_train_convlstm(torch, run,
+                                                               tmp)
+        out["validate"] = examples_validate(torch, run, tmp, model)
+        out["barotropic"] = examples_barotropic(torch, run, tmp, have_h5py)
+        out["files"] = examples_files(tmp, have_h5py)
+        out["training"] = examples_training(torch, run, tmp)
+        out["plots"] = examples_plots(torch, run, tmp)
+    for name in ("lstm_gates", "fused_conv_pool", "barotropic_step"):
+        if not launches[name]:
+            raise AssertionError(f"examples: {name} never launched")
+    out.update(launches=launches, script_seconds=seconds,
+               seconds=time.perf_counter() - t_phase)
+    log(f"examples: {out['seconds']:.1f} s; launches {launches}")
+    return out
+
+
+
 # Phases that run alone with --only, to iterate on one part on the card:
 # name -> (function of (torch, dev)).
 ONLY = {
@@ -4986,6 +5336,7 @@ ONLY = {
     "host_data": run_host_data,
     "sharded_train": run_sharded_train,
     "multicard": run_multicard,
+    "examples": run_examples,
 }
 
 
@@ -5072,6 +5423,7 @@ def main(argv=None) -> int:
     host_data = run_host_data(torch, dev)
     sharded_train = run_sharded_train(torch, dev)
     multicard = run_multicard(torch, dev)
+    examples = run_examples(torch, dev)
     # Each later path's launches, counted from 0 around its run: fit_device
     # at S=1 (train steps and validation), the SkipTower forecast, the
     # verified forecast, the spherical stack's forward and train steps,
@@ -5091,7 +5443,8 @@ def main(argv=None) -> int:
              "launches_serve": serve["launches"],
              "launches_host_data": host_data["launches"],
              "launches_sharded_train": sharded_train["launches"],
-             "launches_multicard": multicard["launches"]}
+             "launches_multicard": multicard["launches"],
+             "launches_examples": examples["launches"]}
 
     kernels = []
     for name, source, replaces in (
@@ -5228,7 +5581,8 @@ def main(argv=None) -> int:
                     "sharded_spectral": sharded_spectral,
                     "paper_run": paper_run, "serve": serve,
                     "host_data": host_data, "sharded_train": sharded_train,
-                    "multicard": multicard, "card": card}, default=str))
+                    "multicard": multicard, "examples": examples,
+                    "card": card}, default=str))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

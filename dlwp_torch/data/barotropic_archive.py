@@ -9,7 +9,10 @@ of chaotic barotropic dynamics, the data of the repo's "paper run"
   perturbed initial states (solid-body superrotation, a ``sin^2`` jet with
   a jittered amplitude and random planetary waves with an n^-1.5 slope),
   integrated as one batched state on the plain engine, as the JAX package
-  integrates ensembles.
+  integrates ensembles. A single segment with ``step_impl='kernel'`` is
+  integrated as a single-member state, so the fused ``barotropic_step``
+  kernel runs it (the JAX package keeps the member axis there, and its
+  fused step then gives way to the batched engine).
 - **Boundary markers.** One all-NaN row between segments, so the samplers'
   NaN-window removal and the NaN-aware scaler statistics drop exactly the
   windows that span a restart.
@@ -241,7 +244,10 @@ class BarotropicArchiveSource:
     @torch.no_grad()
     def _generate(self) -> dict[str, np.ndarray]:
         model = self._model()
-        state = model.from_z(self._initial_z())
+        z0 = self._initial_z()
+        if z0.shape[0] == 1 and self.step_impl == "kernel":
+            z0 = z0[0]  # the fused step takes single-member states only
+        state = model.from_z(z0)
         spinup = int(round(self.spinup_days * 86400.0 / self.dt))
         if spinup:
             state = model.run(state, spinup)

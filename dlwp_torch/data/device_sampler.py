@@ -21,7 +21,7 @@ import torch
 
 from dlwp_torch.data.sampler import SeriesSampler
 from dlwp_torch.device import resolve_device
-from dlwp_torch.parallel.mesh import Mesh
+from dlwp_torch.parallel.mesh import sharding_device
 
 
 class DeviceSeriesSampler:
@@ -43,12 +43,9 @@ class DeviceSeriesSampler:
         if sampler._impute and sampler.model is not None:
             raise NotImplementedError(
                 "device-resident sampling assumes pre-imputed/scaled data")
-        mesh = sharding[0] if isinstance(sharding, tuple) else sharding
-        if sharding is not None and not isinstance(mesh, Mesh):
-            raise TypeError("sharding must be a Mesh or a (Mesh, axis "
-                            f"names) pair, got {type(sharding).__name__}")
-        if device is None and mesh is not None:
-            device = mesh.local_devices()[0]
+        if sharding is not None:
+            first = sharding_device(sharding)
+            device = first if device is None else device
         self.sharding = sharding
         self.sampler = sampler
         series = np.ascontiguousarray(np.asarray(sampler._series),

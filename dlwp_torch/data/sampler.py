@@ -32,6 +32,7 @@ from dlwp_torch.data import native
 from dlwp_torch.data.dataset import PredictorDataset
 from dlwp_torch.device import resolve_device
 from dlwp_torch.grid.insolation import day_of_year, insolation
+from dlwp_torch.parallel.mesh import sharding_device
 
 # Rows of the series that the NaN scan reads at a time.
 NAN_SCAN_ROWS = 4096
@@ -180,6 +181,12 @@ class SeriesSampler(_EpochBatches):
         return (self._in_ts, len(self._input_names), H, W)
 
     @property
+    def n_features(self) -> int:
+        """Values in one input item, insolation included."""
+        t, c, h, w = self.shape
+        return t * c * h * w + (t * h * w if self._add_insolation else 0)
+
+    @property
     def convolution_shape(self) -> tuple[int, ...]:
         t, c, h, w = self.shape
         c_eff = c + (1 if self._add_insolation else 0)
@@ -198,6 +205,18 @@ class SeriesSampler(_EpochBatches):
         if self._keep_time_axis:
             return (t, c, h, w)
         return (t * c, h, w)
+
+    @property
+    def dense_shape(self) -> tuple[int, ...]:
+        """Flattened item shape for dense models, the time axis kept for
+        recurrent ones."""
+        if self._keep_time_axis:
+            return (self._in_ts, self.n_features // self._in_ts)
+        return (self.n_features,)
+
+    @property
+    def sequence(self):
+        return self._sequence
 
     def _base_indices(self) -> np.ndarray:
         return (self._valid.copy() if self._valid is not None
@@ -356,15 +375,24 @@ class SamplesSampler(_EpochBatches):
         return p, t
 
 
-def device_prefetch(sampler, device=None, depth: int = 2):
+def device_prefetch(sampler, sharding=None, depth: int = 2, device=None):
     """Iterate ``sampler``'s batches as tensors on ``device`` (default
     ``cuda``; raises without a card unless ``device='cpu'``), assembled
     ``depth`` batches ahead by a producer thread.
+
+    ``sharding``: the mesh a sharded model trains on, as a
+    :class:`~dlwp_torch.parallel.mesh.Mesh` or a ``(mesh, axis names)``
+    pair, as :class:`~dlwp_torch.data.device_sampler.DeviceSeriesSampler`
+    takes it. Batches then arrive where the ``Trainer`` on that mesh takes
+    them: whole, on the mesh's first device of this process; a ``device``
+    other than that one raises.
 
     On a card each batch is copied from pinned memory on a side stream;
     the consumer's stream waits for that copy before it uses the batch. An
     error in the producer is raised in the consumer. Stopping early (or
     closing the generator) stops the producer."""
+    if sharding is not None:
+        device = sharding_device(sharding, device)
     dev = resolve_device(device)
     q: queue.Queue = queue.Queue(maxsize=depth)
     done = object()

@@ -404,7 +404,9 @@ class DLWPNeuralNet:
         self._train_config = cfg
         self.trainer = Trainer(self.base_model, cfg)
         if params is not None:
-            leaf = next(iter(next(iter(params["params"].values())).values()))
+            leaf = params
+            while isinstance(leaf, dict):
+                leaf = next(iter(leaf.values()))
             load_flax_params(self.base_model, params,
                              dtype=torch.from_numpy(np.asarray(leaf)).dtype)
 

@@ -191,6 +191,24 @@ def batch_sharding(mesh: Mesh, extra_dims: int = 3) -> tuple[Mesh, tuple]:
     return mesh, ("data",) + (None,) * extra_dims
 
 
+def sharding_device(sharding, device=None) -> torch.device:
+    """Where the batches of a model sharded as ``sharding`` (a
+    :class:`Mesh` or a ``(mesh, axis names)`` pair) go: whole, on the
+    mesh's first device of this process. A ``device`` given beside it must
+    be that one."""
+    mesh = sharding[0] if isinstance(sharding, tuple) else sharding
+    if not isinstance(mesh, Mesh):
+        raise TypeError("sharding must be a Mesh or a (Mesh, axis names) "
+                        f"pair, got {type(sharding).__name__}")
+    first = mesh.local_devices()[0]
+    if device is not None:
+        dev = torch.device(device)
+        if (dev.type, dev.index or 0) != (first.type, first.index or 0):
+            raise ValueError(f"device {dev} is not the mesh's first device "
+                             f"{first}, where its batches go")
+    return first
+
+
 def space_sharding(mesh: Mesh, ndim: int,
                    lat_axis: int) -> tuple[Mesh, tuple]:
     """The latitude axis of a rank-``ndim`` array over 'lat' (the others

@@ -661,6 +661,15 @@ class Trainer:
                 out.setdefault(k, []).append(v)
         return {k: _mean(v) for k, v in out.items()}
 
+    @torch.inference_mode()
+    def predict(self, x, batch_size: int = 64) -> np.ndarray:
+        """The model's output for host array ``x``, ``batch_size`` samples
+        a call on the model's device, as a host numpy array."""
+        return np.concatenate([
+            self.model(self._to_device(np.asarray(x[i:i + batch_size])))
+            .cpu().numpy()
+            for i in range(0, len(x), batch_size)])
+
 
 def _mean(values) -> float:
     """The unweighted mean of per-batch 0-d tensors, taken on the host in

@@ -18,6 +18,13 @@ import pickle
 import torch
 
 
+def _tree_map(fn, tree: dict) -> dict:
+    """``fn`` on every leaf of a nested dict (a layer's module holds its
+    own level, as ``layers_3/dense/kernel``)."""
+    return {k: _tree_map(fn, v) if isinstance(v, dict) else fn(v)
+            for k, v in tree.items()}
+
+
 def save_model(model, file_path: str, history=None) -> None:
     """Save a ``DLWPNeuralNet`` (or ``DLWPFunctional``) and, if given, its
     ``History``."""
@@ -26,11 +33,8 @@ def save_model(model, file_path: str, history=None) -> None:
     with open(file_path + ".pkl", "wb") as f:
         pickle.dump({"class": type(model).__name__, "state": state}, f)
     if params is not None:
-        torch.save({"params": {
-            slot: {k: torch.as_tensor(v).detach().cpu()
-                   for k, v in leaves.items()}
-            for slot, leaves in params["params"].items()
-        }}, file_path + ".params")
+        torch.save(_tree_map(lambda v: torch.as_tensor(v).detach().cpu(),
+                             params), file_path + ".params")
     if history is not None:
         with open(file_path + ".history", "wb") as f:
             pickle.dump({"epoch": history.epoch, "history": history.history}, f)
@@ -54,10 +58,7 @@ def load_model(file_path: str, history: bool = False, device=None):
     except FileNotFoundError:
         pass
     else:
-        state["_params"] = {"params": {
-            slot: {k: v.numpy() for k, v in leaves.items()}
-            for slot, leaves in tree["params"].items()
-        }}
+        state["_params"] = _tree_map(lambda v: v.numpy(), tree)
     model = cls.__new__(cls)
     model.__setstate__(state)
     if history:

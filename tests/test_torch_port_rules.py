@@ -26,7 +26,10 @@ from dlwp_torch.serve import Servable, export_program
 
 torch.set_num_threads(2)
 ROOT = pathlib.Path(__file__).resolve().parent.parent
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "dlwp_tpu", "__graft_entry__"}
+# The JAX package and its scripts: ``examples/``'s modules, its
+# ``_synthetic`` and ``_path`` (the port keeps its own copies).
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "dlwp_tpu", "__graft_entry__",
+             "examples", "_synthetic", "_path"}
 
 
 def _port_files():
