@@ -1,0 +1,3 @@
+"""Device idle share of the traced window, training cells."""
+
+from h100bench.readers import idle_pct as read  # noqa: F401
