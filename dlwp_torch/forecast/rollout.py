@@ -8,7 +8,10 @@ channel reconciliation is resolved once into a static source map; the
 insolation forcing of every step is computed on the device up front when
 it fits :data:`SOL_PRECOMPUTE_BUDGET`; the JAX ``lax.scan`` is a Python
 loop under ``torch.inference_mode()`` that writes each step's prediction
-into a preallocated output. State never leaves the device.
+into a preallocated output. State never leaves the device. Each call is a
+span ``rollout`` (:func:`~dlwp_torch.utils.profiling.span`), each loop
+iteration a ``rollout.step`` around ``rollout.model`` and
+``rollout.build_next``.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ from dlwp_torch.grid.insolation import (
     insolation_from_tables,
     insolation_tables,
 )
+from dlwp_torch.utils.profiling import span
 
 SOL_CHANNEL = "SOL"
 # Precompute the (steps, B, in_ts, H, W) insolation forcing before the loop
@@ -202,26 +206,33 @@ class TimeSeriesEstimator:
             return torch.stack(flat, dim=1).reshape(B, in_ts, C_in, H, W)
 
         @torch.inference_mode()
+        @span("rollout")
         def rollout(x0, init_days, mean_state):
             B = x0.shape[0]
             its = torch.arange(steps, dtype=torch.float64, device=self.device)
             sol_all = None
             if needs_sol and B <= self.precompute_batch_limit(steps):
-                sol_all = step_sol(its, init_days).to(x0.dtype)
+                with span("rollout.sol"):
+                    sol_all = step_sol(its, init_days).to(x0.dtype)
             preds = torch.empty((steps, B, out_ts, n_out, H, W),
                                 dtype=x0.dtype, device=x0.device)
             x = x0
             for it in range(steps):
-                inp = x if is_recurrent else x.reshape(B, in_ts * C_in, H, W)
-                pred = net(inp).reshape(B, out_ts, n_out, H, W)
-                preds[it] = pred
-                if it + 1 == steps:
-                    break
-                sol = None
-                if needs_sol:
-                    sol = (sol_all[it] if sol_all is not None
-                           else step_sol(its[it:it + 1], init_days)[0])
-                x = build_next(x, pred, sol, mean_state)
+                with span("rollout.step"):
+                    inp = (x if is_recurrent
+                           else x.reshape(B, in_ts * C_in, H, W))
+                    with span("rollout.model"):
+                        pred = net(inp).reshape(B, out_ts, n_out, H, W)
+                    preds[it] = pred
+                    if it + 1 == steps:
+                        break
+                    with span("rollout.build_next"):
+                        sol = None
+                        if needs_sol:
+                            sol = (sol_all[it] if sol_all is not None
+                                   else step_sol(its[it:it + 1],
+                                                 init_days)[0])
+                        x = build_next(x, pred, sol, mean_state)
             return preds
 
         return rollout

@@ -2,7 +2,9 @@
 
 Each wrapper launches its CUDA kernel for CUDA tensors (building it at first
 use, see :mod:`dlwp_torch.kernels._build`) and takes the plain version for
-CPU tensors. Each keeps a ``launches`` count of kernel launches. The two
+CPU tensors. Each keeps a ``launches`` count of kernel launches, and each
+call is a span ``kernel.<name>`` (:func:`dlwp_torch.utils.profiling.span`)
+around its host work: checks, the launch plan and the launch. The two
 kernels of the forecast path, ``fused_conv_pool`` and ``lstm_gates``, are
 torch custom ops (``torch.ops.dlwp_torch.*``), registered when this package
 is imported, so that ``torch.export`` programs hold them.

@@ -60,6 +60,7 @@ import torch
 from dlwp_torch.kernels import _build
 from dlwp_torch.kernels._tiling import MAX_SMEM
 from dlwp_torch.spectral.transforms import dft_weights
+from dlwp_torch.utils.profiling import span
 
 FORMS = {"psi": 0, "vrt": 1}
 # Shared-memory layout and partial sums of csrc/barotropic_step.cu: each
@@ -319,6 +320,7 @@ def sync_probe(form, M: int, J: int, L: int, n_steps: int, blocks: int = 0,
     return blocks_out.value
 
 
+@span("kernel.barotropic_step")
 def barotropic_step(form, tables, vr, vi, pr, pi, step0: int, n_steps: int,
                     dt: float, r: float):
     """``n_steps`` fused steps from global step ``step0``; returns the new

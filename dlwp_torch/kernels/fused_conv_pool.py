@@ -30,6 +30,7 @@ from dlwp_torch.kernels._tiling import (
 )
 from dlwp_torch.ops.conv import cyclic_conv2d
 from dlwp_torch.ops.pooling import max_pool2d
+from dlwp_torch.utils.profiling import span
 
 
 def fused_conv_pool_plain(x, kernel, bias=None, dilation: int = 2):
@@ -278,6 +279,7 @@ def _op_fake(x, kernel, bias, dilation):
     return x.new_empty((B, kernel.shape[0], H // 2, W // 2))
 
 
+@span("kernel.fused_conv_pool")
 def fused_conv_pool(x, kernel, bias=None, dilation: int = 2):
     """x (B, C, H, W) with H, W even; kernel (O, C, 3, 3); bias (O,) or None.
     Returns (B, O, H/2, W/2) through the op ``dlwp_torch::fused_conv_pool``

@@ -30,6 +30,7 @@ from typing import NamedTuple
 import torch
 
 from dlwp_torch.kernels import _build
+from dlwp_torch.utils.profiling import span
 
 
 def is_remote(entry) -> bool:
@@ -475,6 +476,7 @@ def release_mailboxes() -> None:
         _MAILBOXES.pop(next(iter(_MAILBOXES))).close()
 
 
+@span("kernel.halo_exchange")
 def halo_exchange(shards, halo):
     """``shards[d][l]`` (..., H, W) -> padded blocks (..., top + H + bot, W)
     (a ``Remote`` marker stays)."""

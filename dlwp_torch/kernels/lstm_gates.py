@@ -22,6 +22,7 @@ from typing import Optional
 import torch
 
 from dlwp_torch.kernels import _build
+from dlwp_torch.utils.profiling import span
 
 # Runtime activation codes of the kernel (enum Act in csrc/lstm_gates.cu).
 ACT_CODES = {"linear": 0, "tanh": 1, "sigmoid": 2, "hard_sigmoid": 3}
@@ -186,6 +187,7 @@ def _backward(ctx, grad_h, grad_c):
 _op.register_autograd(_backward, setup_context=_setup_context)
 
 
+@span("kernel.lstm_gates")
 def lstm_gates(zx, zh, c, activation="tanh",
                recurrent_activation="hard_sigmoid", gate_dtype=None):
     """zx, zh (B, 4F, H, W) and carry c (B, F, H, W) -> (h', c') through

@@ -49,6 +49,7 @@ from dlwp_torch.kernels.halo_exchange import (
     wait_for_peers,
 )
 from dlwp_torch.ops.padding import pad_latlon
+from dlwp_torch.utils.profiling import span
 
 
 def overlap_conv_plain(shards, kernel):
@@ -270,6 +271,7 @@ def _launch(shards, kernel, chunk, name):
     return out
 
 
+@span("kernel.overlap_conv")
 def overlap_conv(shards, kernel):
     """``shards[d][l]`` (B, C, H, W), kernel (O, C, 3, 3) -> (B, O, H, W)
     float32 per shard."""
@@ -278,6 +280,7 @@ def overlap_conv(shards, kernel):
     return _launch(shards, kernel, None, "overlap_conv")
 
 
+@span("kernel.overlap_conv_db")
 def overlap_conv_db(shards, kernel, chunk: int):
     """As :func:`overlap_conv`, each block walking the batch in ``chunk``
     samples at a time (the batch need not divide into chunks)."""

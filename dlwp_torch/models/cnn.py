@@ -25,6 +25,7 @@ import torch.nn.functional as F
 from dlwp_torch.device import resolve_device
 from dlwp_torch.ops.padding import pad_trailing
 from dlwp_torch.parallel.spatial import attach_spatial
+from dlwp_torch.utils.profiling import span
 from dlwp_torch.models.layers import (
     MONOTONE_ACTIVATIONS,
     Activation,
@@ -387,7 +388,8 @@ def _peephole_fuse(layers: list) -> list:
 class SequentialModel(nn.Module):
     """Apply a fixed sequence of layers; ``layers[i]`` is flax
     ``layers_{i}``. Lives on ``device`` (default ``cuda``; raises without
-    a card unless ``device='cpu'``)."""
+    a card unless ``device='cpu'``). Each layer's call is a span
+    ``layer.<class name>`` (:func:`~dlwp_torch.utils.profiling.span`)."""
 
     def __init__(self, layers: Sequence[nn.Module], device=None):
         super().__init__()
@@ -396,7 +398,8 @@ class SequentialModel(nn.Module):
 
     def forward(self, x):
         for layer in self.layers:
-            x = layer(x)
+            with span(f"layer.{type(layer).__name__}"):
+                x = layer(x)
         return x
 
     @property

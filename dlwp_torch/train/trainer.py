@@ -42,6 +42,15 @@ the JAX layer trains them. The sharded convs of impl 'pallas' / 'overlap'
 run their kernels in the forward and recompute through the plain halo
 exchange in the backward. Evaluation runs under ``torch.no_grad()``, so
 the kernels run there.
+
+Spans (:func:`~dlwp_torch.utils.profiling.span`, recorded while a
+profiler window is open): ``train.step`` around ``train.forward``,
+``train.backward`` (checkpoint's recompute included), ``train.metrics``
+and ``train.optimizer`` (weight decay, the clip transforms and the rule);
+``fit.gather`` (each batch of :meth:`Trainer.fit_device`), ``fit.readback``
+(the epoch's losses read back), ``fit.epoch_end`` around
+``fit.validation``; ``eval.step`` (each batch of :meth:`Trainer.evaluate`).
+``Trainer._spans`` is another thing: a mesh over several processes.
 """
 
 from __future__ import annotations
@@ -64,6 +73,7 @@ from dlwp_torch.parallel.distributed import (
     process_group,
 )
 from dlwp_torch.train.optim import OPTIMIZERS, add_decayed_weights
+from dlwp_torch.utils.profiling import span
 
 LOSSES = {
     "mse": loss_lib.mse,
@@ -333,6 +343,7 @@ class Trainer:
         b = len(batch) // n
         return batch[start * b:stop * b]
 
+    @span("train.step")
     def train_step(self, x, y) -> dict[str, torch.Tensor]:
         """One optimizer step on a batch (host arrays or tensors); returns
         the batch's loss and metrics as 0-d tensors on the device. After it,
@@ -348,17 +359,20 @@ class Trainer:
                   for p in group["params"]]
         for p in params:
             p.grad = None
-        loss, pred = self._forward_loss(x, y)
-        loss.backward()
+        with span("train.forward"):
+            loss, pred = self._forward_loss(x, y)
+        with span("train.backward"):
+            loss.backward()
         out = {"loss": loss.detach()}
-        with torch.no_grad():
+        with span("train.metrics"), torch.no_grad():
             for name, fn in self.metrics.items():
                 out[name] = fn(y, pred.detach())
         if self._across or self._space is not None:
             self._share(params, out)
-        if self.config.weight_decay:
-            add_decayed_weights(params, self.config.weight_decay)
-        self.optimizer.step()
+        with span("train.optimizer"):
+            if self.config.weight_decay:
+                add_decayed_weights(params, self.config.weight_decay)
+            self.optimizer.step()
         return out
 
     @torch.no_grad()
@@ -435,6 +449,7 @@ class Trainer:
             print(f"resumed from epoch {start_epoch}")
         return start_epoch
 
+    @span("fit.epoch_end")
     def _end_epoch(self, run: dict, epoch: int, metrics: dict,
                    t0: float) -> bool:
         """What follows an epoch's steps in both drivers: the non-finite
@@ -453,11 +468,12 @@ class Trainer:
             run["history"].append(epoch, metrics)
             return True
         if run["validation_data"] is not None:
-            metrics.update({
-                f"val_{k}": v for k, v in self.evaluate(
-                    run["validation_data"],
-                    batch_size=run["eval_batch_size"]).items()
-            })
+            with span("fit.validation"):
+                metrics.update({
+                    f"val_{k}": v for k, v in self.evaluate(
+                        run["validation_data"],
+                        batch_size=run["eval_batch_size"]).items()
+                })
         metrics["time"] = time.time() - t0
         run["history"].append(epoch, metrics)
         for cb in run["callbacks"]:
@@ -634,7 +650,8 @@ class Trainer:
             idx = torch.from_numpy(idx[:nb * bsz].reshape(nb, bsz)).to(
                 self.device)
             steps = self._device_epoch(sampler, idx)
-            metrics = {k: _mean([m[k] for m in steps]) for k in steps[0]}
+            with span("fit.readback"):
+                metrics = {k: _mean([m[k] for m in steps]) for k in steps[0]}
             if self._end_epoch(run, epoch, metrics, t0):
                 break
         return run["history"]
@@ -643,7 +660,12 @@ class Trainer:
         """The train steps of one epoch, a batch gathered on the device for
         each row of ``idx`` (window starts on the device): each step's
         metrics as 0-d tensors on the device. Nothing is read back."""
-        return [self.train_step(*sampler.gather(samples)) for samples in idx]
+        out = []
+        for samples in idx:
+            with span("fit.gather"):
+                batch = sampler.gather(samples)
+            out.append(self.train_step(*batch))
+        return out
 
     def evaluate(self, data, batch_size: int = 64) -> dict[str, float]:
         """Mean over batches of the loss and metrics, without gradients
@@ -656,7 +678,8 @@ class Trainer:
             batches = iter(data)
         out: dict[str, list] = {}
         for xb, yb in batches:
-            m = self._eval_step(self._to_device(xb), self._to_device(yb))
+            with span("eval.step"):
+                m = self._eval_step(self._to_device(xb), self._to_device(yb))
             for k, v in m.items():
                 out.setdefault(k, []).append(v)
         return {k: _mean(v) for k, v in out.items()}
