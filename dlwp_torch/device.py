@@ -10,9 +10,13 @@ run fp32 convolutions in TF32 (about three decimal digits).
 
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import torch
+
+# The list :func:`keep_cached` fills, while one is open.
+_kept: list | None = None
 
 
 def resolve_device(device=None) -> torch.device:
@@ -36,7 +40,8 @@ def tensor_cache(maxsize: int):
     tables, spectral engines), which a trace bypasses: while
     ``torch.export`` or ``torch.compile`` traces, the function builds a new
     one, so a traced (fake) tensor never reaches the cache and no later
-    eager call gets it back."""
+    eager call gets it back. Inside :func:`keep_cached` every value it
+    returns is also kept in that block's list."""
 
     def wrap(fn):
         cached = functools.lru_cache(maxsize=maxsize)(fn)
@@ -45,9 +50,26 @@ def tensor_cache(maxsize: int):
         def call(*args):
             if torch.compiler.is_compiling():
                 return fn(*args)
-            return cached(*args)
+            out = cached(*args)
+            if _kept is not None:
+                _kept.append(out)
+            return out
 
         call.cache_clear = cached.cache_clear
         return call
 
     return wrap
+
+
+@contextlib.contextmanager
+def keep_cached(into: list):
+    """Append to ``into`` every value that a :func:`tensor_cache` function
+    returns inside the block. A CUDA graph captured inside reads those
+    tensors by address, so its owner keeps them past their eviction from
+    the cache."""
+    global _kept
+    outer, _kept = _kept, into
+    try:
+        yield into
+    finally:
+        _kept = outer

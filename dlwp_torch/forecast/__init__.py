@@ -2,6 +2,12 @@
 ``dlwp_tpu.forecast``)."""
 
 from dlwp_torch.forecast import verify
-from dlwp_torch.forecast.rollout import Forecast, TimeSeriesEstimator
+from dlwp_torch.forecast.rollout import (
+    Forecast,
+    TimeSeriesEstimator,
+    graph_counts,
+    reset_graph_counts,
+)
 
-__all__ = ["Forecast", "TimeSeriesEstimator", "verify"]
+__all__ = ["Forecast", "TimeSeriesEstimator", "graph_counts",
+           "reset_graph_counts", "verify"]

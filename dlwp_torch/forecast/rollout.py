@@ -12,17 +12,28 @@ into a preallocated output. State never leaves the device. Each call is a
 span ``rollout`` (:func:`~dlwp_torch.utils.profiling.span`), each loop
 iteration a ``rollout.step`` around ``rollout.model`` and
 ``rollout.build_next``.
+
+On the card the loop replays CUDA graphs of one step (:class:`_StepGraphs`)
+wherever the operands are CUDA tensors, nothing traces the rollout and the
+model is not spatially sharded (:func:`_replays_graphs`): a step is then
+three host calls instead of one per kernel. The CPU, ``torch.export`` and
+the lat-band sharded paths run the loop eagerly. :func:`graph_counts`
+says how often each path ran.
 """
 
 from __future__ import annotations
 
+import collections
 import copy
 import dataclasses
+import itertools
 
 import numpy as np
 import torch
 
+from dlwp_torch import kernels
 from dlwp_torch.data.sampler import SeriesSampler
+from dlwp_torch.device import keep_cached
 from dlwp_torch.grid.insolation import (
     day_of_year,
     insolation_from_tables,
@@ -34,6 +45,131 @@ SOL_CHANNEL = "SOL"
 # Precompute the (steps, B, in_ts, H, W) insolation forcing before the loop
 # when it fits this many bytes (at 4 bytes a value); else per step.
 SOL_PRECOMPUTE_BUDGET = 1 << 30  # 1 GiB
+# Captured step graphs an estimator keeps, one per key (batch, shapes,
+# dtypes, device, weights), least recently used first out.
+GRAPH_CACHE_SIZE = 4
+
+_graph_counts = {"captures": 0, "replays": 0, "eager_steps": 0}
+
+
+def graph_counts() -> dict[str, int]:
+    """Since the last :func:`reset_graph_counts`: keys captured as CUDA
+    graphs (``captures``), rollout steps replayed from them
+    (``replays``) and steps run eagerly (``eager_steps``, the first step
+    of a call that captures among them)."""
+    return dict(_graph_counts)
+
+
+def reset_graph_counts() -> None:
+    for name in _graph_counts:
+        _graph_counts[name] = 0
+
+
+def _replays_graphs(model, device: torch.device) -> bool:
+    """Whether a rollout on ``device`` replays captured step graphs: on a
+    CUDA device, outside a trace (``torch.export`` traces the eager loop),
+    for a model that is not spatially sharded (its lat-band halo and
+    overlap paths synchronise across cards and processes on the host)."""
+    return (device.type == "cuda" and not torch.compiler.is_compiling()
+            and getattr(model, "_spatial", None) is None)
+
+
+class _StepGraphs:
+    """One rollout step as CUDA graphs, for one key, over static buffers:
+    two windows that take turns, one step's insolation and the mean state.
+    ``step0`` / ``step1`` run the model on window 0 / 1 into a static
+    prediction and assemble the next window into the other; ``last`` runs
+    the model alone on window 0. A call puts its first window where the
+    turns leave its last step on window 0. The three graphs share one
+    memory pool; each static prediction is copied out right after its
+    replay, before another graph of the pool runs."""
+
+    def __init__(self, x0, mean_state, needs_sol: bool):
+        B, in_ts, _, H, W = x0.shape
+        self.windows = (torch.empty_like(x0), torch.empty_like(x0))
+        self.mean_state = torch.empty_like(mean_state)
+        self.sol = (torch.empty((B, in_ts, H, W), dtype=x0.dtype,
+                                device=x0.device) if needs_sol else None)
+        self.graphs = {}  # name -> (graph, static prediction, launches)
+        self.kept = []  # the tensor caches' values that the graphs read
+
+    def run(self, preds, x0, mean_state, sol_at, model_step, build_next):
+        """Fill ``preds`` (steps, ...) from ``x0``: each step copies its
+        insolation in (``sol_at(it)``), replays and copies the prediction
+        out. Before the first run, step 0 runs eagerly on a side stream,
+        on the static buffers, and the graphs are captured there."""
+        steps = preds.shape[0]
+        with torch.cuda.device(preds.device):
+            self.windows[(steps - 1) % 2].copy_(x0)
+            self.mean_state.copy_(mean_state)
+            it0 = 0
+            if not self.graphs:
+                self._first_step_and_capture(preds, sol_at, model_step,
+                                             build_next)
+                it0 = 1
+            for it in range(it0, steps):
+                with span("rollout.step"):
+                    last = it + 1 == steps
+                    if not last and self.sol is not None:
+                        self.sol.copy_(sol_at(it))
+                    with span("rollout.model"):
+                        pred = self._replay(
+                            "last" if last else f"step{(steps - 1 - it) % 2}")
+                    preds[it] = pred
+
+    def _first_step_and_capture(self, preds, sol_at, model_step,
+                                build_next):
+        """Step 0, eagerly, on a side stream (it fills the tensor caches,
+        the ops' plans and cuDNN's choices), then the capture on that
+        stream. A capture launches nothing: the launches it adds to the
+        kernel wrappers' counts are taken back, and each replay adds
+        them."""
+        steps = preds.shape[0]
+        src = (steps - 1) % 2
+        current = torch.cuda.current_stream()
+        side = torch.cuda.Stream(preds.device)
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            with span("rollout.step"):
+                if steps > 1 and self.sol is not None:
+                    self.sol.copy_(sol_at(0))
+                with span("rollout.model"):
+                    pred = model_step(self.windows[src])
+                preds[0] = pred
+                if steps > 1:
+                    with span("rollout.build_next"):
+                        build_next(self.windows[src], pred, self.sol,
+                                   self.mean_state,
+                                   out=self.windows[1 - src])
+            _graph_counts["eager_steps"] += 1
+        with span("rollout.capture"), keep_cached(self.kept):
+            pool = torch.cuda.graph_pool_handle()
+            for name, w in (("step0", 0), ("step1", 1), ("last", 0)):
+                graph = torch.cuda.CUDAGraph()
+                before = kernels.launch_counts()
+                with torch.cuda.graph(graph, pool=pool, stream=side):
+                    pred = model_step(self.windows[w])
+                    if name != "last":
+                        build_next(self.windows[w], pred, self.sol,
+                                   self.mean_state, out=self.windows[1 - w])
+                launches = []
+                for k, n in kernels.launch_counts().items():
+                    if n != before[k]:
+                        kernels.WRAPPERS[k].launches = before[k]
+                        launches.append((kernels.WRAPPERS[k], n - before[k]))
+                self.graphs[name] = (graph, pred, launches)
+        current.wait_stream(side)
+        _graph_counts["captures"] += 1
+
+    def _replay(self, name: str) -> torch.Tensor:
+        """Replay graph ``name`` on the current stream; its static
+        prediction."""
+        graph, pred, launches = self.graphs[name]
+        graph.replay()
+        for wrapper, n in launches:
+            wrapper.launches += n
+        _graph_counts["replays"] += 1
+        return pred
 
 
 @dataclasses.dataclass
@@ -109,6 +245,7 @@ class TimeSeriesEstimator:
                           if len(dts) else 6.0)
         self._lat = np.asarray(data.lat)
         self._lon = np.asarray(data.lon)
+        self._graphs = collections.OrderedDict()  # key -> _StepGraphs
 
     def _advance(self, prefer_first_times: bool = True) -> int:
         """Data steps the input window advances per model iteration."""
@@ -190,7 +327,14 @@ class TimeSeriesEstimator:
             days = init_days[None, :, None] + offs[:, None, :]
             return insolation_from_tables(days, tables)
 
-        def build_next(x, pred, sol, mean_state):
+        def model_step(x):
+            B = x.shape[0]
+            inp = x if is_recurrent else x.reshape(B, in_ts * C_in, H, W)
+            return net(inp).reshape(B, out_ts, n_out, H, W)
+
+        def build_next(x, pred, sol, mean_state, out=None):
+            """The next window, into ``out`` where given (the graph path's
+            static window; never ``x``, which it reads)."""
             B = x.shape[0]
             flat = []
             for m, (j, prev) in enumerate(slot_plan):
@@ -203,6 +347,9 @@ class TimeSeriesEstimator:
                         flat.append(x[:, prev, c])
                     else:
                         flat.append(mean_state[c].expand(B, H, W))
+            if out is not None:
+                torch.stack(flat, dim=1, out=out.view(B, in_ts * C_in, H, W))
+                return out
             return torch.stack(flat, dim=1).reshape(B, in_ts, C_in, H, W)
 
         @torch.inference_mode()
@@ -216,26 +363,52 @@ class TimeSeriesEstimator:
                     sol_all = step_sol(its, init_days).to(x0.dtype)
             preds = torch.empty((steps, B, out_ts, n_out, H, W),
                                 dtype=x0.dtype, device=x0.device)
+
+            def sol_at(it):
+                if not needs_sol:
+                    return None
+                return (sol_all[it] if sol_all is not None
+                        else step_sol(its[it:it + 1], init_days)[0])
+
+            if _replays_graphs(self.model, x0.device):
+                self._step_graphs(x0, mean_state, needs_sol, slot_plan).run(
+                    preds, x0, mean_state, sol_at, model_step, build_next)
+                return preds
             x = x0
             for it in range(steps):
                 with span("rollout.step"):
-                    inp = (x if is_recurrent
-                           else x.reshape(B, in_ts * C_in, H, W))
                     with span("rollout.model"):
-                        pred = net(inp).reshape(B, out_ts, n_out, H, W)
+                        pred = model_step(x)
                     preds[it] = pred
+                    _graph_counts["eager_steps"] += 1
                     if it + 1 == steps:
                         break
                     with span("rollout.build_next"):
-                        sol = None
-                        if needs_sol:
-                            sol = (sol_all[it] if sol_all is not None
-                                   else step_sol(its[it:it + 1],
-                                                 init_days)[0])
-                        x = build_next(x, pred, sol, mean_state)
+                        x = build_next(x, pred, sol_at(it), mean_state)
             return preds
 
         return rollout
+
+    def _step_graphs(self, x0, mean_state, needs_sol, slot_plan):
+        """The captured step of this key, now the most recently used, or
+        a new one that captures at its first run. The key holds the batch,
+        shapes, dtypes and device, the window plan, and the address of
+        every parameter and buffer of the model, which the graphs read:
+        weights swapped for others are captured anew, and a graph replays
+        only while the model's tensors lie where it reads."""
+        net = self.model.base_model
+        key = (tuple(x0.shape), x0.dtype, x0.device, tuple(mean_state.shape),
+               mean_state.dtype, tuple(slot_plan),
+               tuple(t.data_ptr() for t in itertools.chain(
+                   net.parameters(), net.buffers())))
+        graphs = self._graphs.get(key)
+        if graphs is None:
+            graphs = self._graphs[key] = _StepGraphs(x0, mean_state,
+                                                     needs_sol)
+            while len(self._graphs) > GRAPH_CACHE_SIZE:
+                self._graphs.popitem(last=False)
+        self._graphs.move_to_end(key)
+        return graphs
 
     def predict(
         self,

@@ -29,7 +29,12 @@ spectral side: ``fold=True`` against the unfolded engine, an S2Convolution
 at the reference stack's width against the CPU, a two-truth archive
 against the CPU's, and the sharded barotropic model on two virtual shards
 against the unsharded one. The host data path: the native batch gather
-(bit-equal to its numpy version) feeding a full-width train step.
+(bit-equal to its numpy version) feeding a full-width train step. The
+forecast's CUDA graphs: the graph path bit-equal to the eager loop (the
+flagship at B=1 and 64, the tower at B=8, after weight swaps), with the
+eager path's launch counts, one capture and a replay a step, an earlier
+forecast left as it was, and one ``rollout.step`` and ``rollout.model``
+span a replayed step.
 """
 
 import numpy as np
@@ -862,3 +867,126 @@ def test_native_gather_feeds_a_train_step_on_card(dev):
     loss = tr.train_step(x, y)["loss"].item()
     assert launch_counts()["lstm_gates"] == 1
     assert np.isfinite(loss)
+
+
+def _forecast_estimator(dev, recurrent: bool, B: int, seed=0):
+    """The flagship (ConvLSTM front end) or the tower at full width (36 x
+    144, 2 fields, insolation) with seeded weights, its estimator and
+    seeded forecast inputs of ``B`` init times."""
+    from dlwp_torch import PredictorDataset, SeriesSampler, TimeSeriesEstimator
+    from dlwp_torch.flagship import tower_specs
+
+    n = B + 6
+    rng = np.random.RandomState(seed)
+    data = PredictorDataset(
+        predictors=rng.randn(n, 2, 36, 144).astype(np.float32),
+        sample=(np.datetime64("2007-01-01")
+                + np.arange(n) * np.timedelta64(6, "h")),
+        varlev=["HGT/500", "THICK/300-700"],
+        lat=np.linspace(87.5, 0.0, 36), lon=np.arange(144) * 2.5)
+    net = DLWPNeuralNet(time_dim=2, is_recurrent=recurrent, scaler_type=None,
+                        device=dev)
+    net.build_model(convlstm_specs() if recurrent else tower_specs(4))
+    sampler = SeriesSampler(data, model=net, input_time_steps=2,
+                            output_time_steps=2, add_insolation=True,
+                            batch_size=B)
+    net.init(sampler.generate(np.arange(1))[0], seed=seed + 1)
+    est = TimeSeriesEstimator(net, sampler)
+    x0, days, mean_state, _ = est.prepare_inputs(np.arange(B))
+    return net, sampler, est, (x0, days, mean_state)
+
+
+def _eager(monkeypatch, fn, *args):
+    """``fn(*args)`` with the rollout's graph rule forced off."""
+    from dlwp_torch.forecast import rollout as port_rollout
+
+    with monkeypatch.context() as m:
+        m.setattr(port_rollout, "_replays_graphs", lambda *a: False)
+        return fn(*args)
+
+
+@pytest.mark.parametrize("recurrent, B", [(True, 1), (True, 64), (False, 8)],
+                         ids=["flagship-b1", "flagship-b64", "tower-b8"])
+def test_graph_rollout_equals_eager_on_card(dev, monkeypatch, recurrent, B):
+    """The graph path's forecast is bit-equal to the eager loop's, on the
+    call that captures (its first step eager) and on later calls of other
+    lengths (both turns of the windows); it counts the eager path's kernel
+    launches, one capture, and a replay a step; a later call leaves an
+    earlier call's forecast as it was."""
+    from dlwp_torch.forecast import graph_counts, reset_graph_counts
+
+    _, _, est, (x0, days, ms) = _forecast_estimator(dev, recurrent, B)
+    reset_graph_counts()
+    counts = {}
+    for steps in (5, 4, 5):
+        roll = est.rollout_fn(steps)
+        reset_launch_counts()
+        got = roll(x0, days, ms)
+        torch.cuda.synchronize()
+        counts["graph"] = launch_counts()
+        reset_launch_counts()
+        want = _eager(monkeypatch, roll, x0, days, ms)
+        torch.cuda.synchronize()
+        counts["eager"] = launch_counts()
+        assert torch.equal(got, want), steps
+        assert counts["graph"] == counts["eager"], steps
+    assert counts["eager"]["fused_conv_pool"] == 5 * 2
+    assert counts["eager"]["lstm_gates"] == (5 if recurrent else 0)
+    assert graph_counts() == {"captures": 1, "replays": 5 - 1 + 4 + 5,
+                              "eager_steps": 1 + 5 + 4 + 5}
+    kept = got.clone()
+    reset_graph_counts()
+    again = roll(x0.flip(0) + 0.5, days, ms)
+    torch.cuda.synchronize()
+    assert graph_counts() == {"captures": 0, "replays": 5, "eager_steps": 0}
+    assert torch.equal(got, kept) and not torch.equal(again, kept)
+
+
+def test_graph_rollout_follows_swapped_weights_on_card(dev, monkeypatch):
+    """Weights swapped after a capture, by ``share_params_from`` and by
+    ``load_flax_params``, are captured anew and forecast as the eager loop
+    does with them."""
+    from dlwp_torch.forecast import graph_counts, reset_graph_counts
+    from dlwp_torch.weights import flax_tree
+
+    net, _, est, (x0, days, ms) = _forecast_estimator(dev, True, 2)
+    other, *_ = _forecast_estimator(dev, True, 2, seed=7)
+    third, *_ = _forecast_estimator(dev, True, 2, seed=11)
+    roll = est.rollout_fn(3)
+    before = roll(x0, days, ms).clone()
+    reset_graph_counts()
+    net.base_model.share_params_from(other.base_model)
+    shared = roll(x0, days, ms)
+    assert torch.equal(shared, _eager(monkeypatch, roll, x0, days, ms))
+    assert not torch.equal(shared, before)
+    net.load_flax_params(flax_tree(third.base_model))
+    loaded = roll(x0, days, ms)
+    assert torch.equal(loaded, _eager(monkeypatch, roll, x0, days, ms))
+    assert not torch.equal(loaded, shared)
+    assert graph_counts()["captures"] == 2
+
+
+def test_graph_rollout_spans_a_step_each_on_card(dev):
+    """Inside a profiler window the graph path records one ``rollout.step``
+    and one ``rollout.model`` a step, and no eager step's spans."""
+    from collections import Counter
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from dlwp_torch.utils import profiling
+
+    _, _, est, (x0, days, ms) = _forecast_estimator(dev, True, 1)
+    steps = 6
+    roll = est.rollout_fn(steps)
+    roll(x0, days, ms)  # captures outside the window
+    torch.cuda.synchronize()
+    profiling.clear_spans()
+    with profile(activities=[ProfilerActivity.CUDA]):
+        roll(x0, days, ms)
+        torch.cuda.synchronize()
+    got = Counter(r.name for r in profiling.spans())
+    profiling.clear_spans()
+    assert got["rollout"] == 1
+    assert got["rollout.step"] == got["rollout.model"] == steps
+    assert not {"rollout.build_next", "rollout.capture"} & set(got)
+    assert not any(name.startswith("layer.") for name in got)

@@ -159,3 +159,37 @@ def test_prepare_inputs_matches_jax(pair):
     np.testing.assert_allclose(mean_state.numpy(), np.asarray(jmean),
                                atol=TOL)
     np.testing.assert_array_equal(times, jtimes)
+
+
+def test_graph_rule_takes_the_eager_loop_off_the_card(pair, monkeypatch):
+    """The graph path engages for CUDA operands of an unsharded model
+    outside a trace; the CPU, a trace (``torch.export``) and a lat-sharded
+    model take the eager loop."""
+    _, est, _, _ = pair
+    rule = port_rollout._replays_graphs
+    assert rule(est.model, torch.device("cuda"))
+    assert not rule(est.model, torch.device("cpu"))
+    monkeypatch.setattr(torch.compiler, "is_compiling", lambda: True)
+    assert not rule(est.model, torch.device("cuda"))
+
+
+def test_graph_rule_takes_the_eager_loop_for_a_lat_sharded_model():
+    from dlwp_torch.parallel import MeshConfig, build_mesh
+
+    net = DLWPNeuralNet(time_dim=TD, is_recurrent=True, scaler_type=None,
+                        device="cpu")
+    mesh = build_mesh(MeshConfig(data=1, lat=2), devices=["cpu"] * 2)
+    net.build_model(convlstm_specs(NLAT, NLON, C, TD), mesh=mesh,
+                    batch_spec=("data", None, None, "lat", None))
+    assert net._spatial is not None
+    assert not port_rollout._replays_graphs(net, torch.device("cuda"))
+
+
+def test_cpu_predict_replays_no_graph(pair):
+    """A CPU forecast runs every step eagerly: no capture, no replay."""
+    case, est, _, _ = pair
+    port_rollout.reset_graph_counts()
+    est.predict(3, samples=case["samples"])
+    assert port_rollout.graph_counts() == {"captures": 0, "replays": 0,
+                                           "eager_steps": 3}
+    assert not est._graphs
