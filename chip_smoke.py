@@ -237,7 +237,13 @@ Phases, each raising on failure:
     --virtual 4 --data-shards 2 --lat-shards 2`` for an epoch, each model
     reloaded through ``load_model``; (e) the plot scripts where
     matplotlib imports; each script's seconds;
-26. a ``{"kernels": [...]}`` line, then the last line
+26. ``--only cube_pad``: the cube pad kernel at the cube U-Net's 10 pad
+    shapes (B=64; C 10-128 on faces of 48, 24, 12) bit-equal to the plain
+    gather forward and to its VJP backward, timed against the plain
+    gather and a lone ``index_select`` of the same table with the bound
+    from the bytes, and a 4-step B=64 cube forecast's launches (10 a
+    step) and kernel device time per launch;
+27. a ``{"kernels": [...]}`` line, then the last line
     ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without printing a result when no CUDA device is present.
@@ -488,6 +494,130 @@ def check_kernels(torch, dev):
                         flops=30 * n,  # adds, products, 5 activations
                     ))
     return errs, timing
+
+
+# The cube U-Net's pads (DLWP-CS, 6 x 48 x 48 faces, B=64): (channels, face
+# size) of the input of each of a model step's 10 ``cube_pad`` launches,
+# one before every 3x3 conv.
+CUBE_PADS = ((10, 48), (32, 48), (32, 24), (64, 24), (64, 12), (128, 12),
+             (128, 24), (64, 24), (64, 48), (32, 48))
+CUBE_STEPS = 4  # model steps of the cube forecast the launches are read on
+
+
+def check_cube_pad(torch, dev):
+    """``cube_pad`` on the card at the cube U-Net's pads (``CUBE_PADS``,
+    B=64): bit-equal to ``cube_pad_plain`` forward and to its VJP backward;
+    timed (events and profiler device time) against the plain gather and
+    a lone ``index_select`` of the same table on the flattened faces, with
+    the bound from the bytes (faces read, padded faces written); then a
+    cube forecast of ``CUBE_STEPS`` steps at B=64, built through
+    ``DLWPNeuralNet.build_model``: its launches and the kernel's device
+    time per launch there."""
+    from dlwp_torch import PredictorDataset, SeriesSampler, TimeSeriesEstimator
+    from dlwp_torch.grid.cubed_sphere import folded_lat_lon
+    from dlwp_torch.kernels import cube_pad, launch_counts, reset_launch_counts
+    from dlwp_torch.models import DLWPNeuralNet
+    from dlwp_torch.ops.padding import (_cube_index, cube_pad_plain,
+                                        cube_pad_vjp)
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    rows = []
+    for c, n in dict.fromkeys(CUBE_PADS):
+        eq = torch.randn(4 * B, c, n, n, device=dev, generator=g)
+        pol = torch.randn(2 * B, c, n, n, device=dev, generator=g)
+        got = cube_pad(eq, pol, 1)
+        if not torch.equal(got, cube_pad_plain(eq, pol, 1)):
+            raise AssertionError(f"cube_pad (B={B}, C={c}, n={n}): kernel "
+                                 "differs from the plain gather")
+        leaves = [eq.clone().requires_grad_(True),
+                  pol.clone().requires_grad_(True)]
+        grad = torch.randn(got.shape, device=dev, generator=g)
+        cube_pad(*leaves, 1).backward(grad)
+        want = cube_pad_vjp(grad, 1)
+        if not (torch.equal(leaves[0].grad, want[0])
+                and torch.equal(leaves[1].grad, want[1])):
+            raise AssertionError(f"cube_pad (B={B}, C={c}, n={n}): backward "
+                                 "differs from the plain VJP")
+        # The yardstick: the plain version's one gather alone, on faces
+        # already flattened to (B C, 6 n n) outside the timer.
+        flat = torch.cat([eq.reshape(4, B * c, n * n),
+                          pol.reshape(2, B * c, n * n)]).transpose(0, 1)
+        flat = flat.reshape(B * c, 6 * n * n).contiguous()
+        idx = _cube_index(n, 1, dev)
+
+        def library():
+            return flat.index_select(1, idx)
+
+        def kernel():
+            return cube_pad(eq, pol, 1)
+
+        m = n + 2
+        row = dict(
+            shape=[B, c, n], launches_a_step=CUBE_PADS.count((c, n)),
+            ms=timed_ms(kernel), device_ms=device_ms_per_call(torch, kernel),
+            plain_ms=timed_ms(lambda: cube_pad_plain(eq, pol, 1)),
+            library_ms=timed_ms(library),
+            library_device_ms=device_ms_per_call(torch, library),
+            bytes=4 * 6 * B * c * (n * n + m * m), flops=0)
+        row["bound_ms"], row["bound_by"] = bound_ms(row["bytes"], 0)
+        log(f"check cube_pad (B={B}, C={c}, n={n}): bit-equal forward and "
+            f"backward; kernel {row['ms']:.4f} ms (device "
+            f"{row['device_ms']:.4f}, {100 * row['bound_ms'] / row['device_ms']:.1f}"
+            f"% of the bound {row['bound_ms']:.4f} ms), plain "
+            f"{row['plain_ms']:.4f} ms, index_select alone "
+            f"{row['library_ms']:.4f} ms (device {row['library_device_ms']:.4f})")
+        rows.append(row)
+        del eq, pol, got, leaves, grad, want, flat
+    step = {k: sum(r[k] * r["launches_a_step"] for r in rows)
+            for k in ("ms", "device_ms", "plain_ms", "library_ms",
+                      "library_device_ms", "bound_ms", "bytes")}
+    log(f"cube_pad, a U-Net step's 10 launches at B={B}: kernel "
+        f"{step['ms']:.4f} ms (device {step['device_ms']:.4f}, "
+        f"{100 * step['bound_ms'] / step['device_ms']:.2f}% of the bound "
+        f"{step['bound_ms']:.4f} ms), plain {step['plain_ms']:.4f} ms "
+        f"({step['plain_ms'] / step['ms']:.2f}x the kernel), index_select "
+        f"alone {step['library_ms']:.4f} ms (device "
+        f"{step['library_device_ms']:.4f})")
+
+    # The main path: a B=64 cube forecast on seeded fields and weights.
+    n_face, T = 48, B + 6
+    lat, lon = folded_lat_lon(n_face)
+    rng = np.random.RandomState(0)
+    data = PredictorDataset(
+        predictors=rng.randn(T, 4, 6 * n_face, n_face).astype(np.float32),
+        sample=(np.datetime64("2007-01-01")
+                + np.arange(T) * np.timedelta64(6, "h")),
+        varlev=["Z500", "TAU300-700", "Z1000", "T2m"], lat=lat, lon=lon)
+    net = DLWPNeuralNet(time_dim=2, scaler_type=None, device=dev)
+    net.build_model([("CubeUNet", [8], {"filters": [32, 64, 128]})])
+    sampler = SeriesSampler(data, model=net, input_time_steps=2,
+                            output_time_steps=2, add_insolation=True,
+                            batch_size=B)
+    net.init(sampler.generate(np.arange(1))[0], seed=1)
+    est = TimeSeriesEstimator(net, sampler)
+    x0, days, ms, _ = est.prepare_inputs(np.arange(B))
+    roll = est.rollout_fn(CUBE_STEPS)
+    roll(x0, days, ms)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    out = roll(x0, days, ms)
+    torch.cuda.synchronize()
+    launches = launch_counts()["cube_pad"]
+    if launches != 10 * CUBE_STEPS or not torch.isfinite(out).all():
+        raise AssertionError(f"cube forecast: {launches} cube_pad launches "
+                             f"over {CUBE_STEPS} steps, finite "
+                             f"{bool(torch.isfinite(out).all())}")
+    names = {}
+    profile_steps(torch, est, x0, days, ms, f"cube B={B}", steps=CUBE_STEPS,
+                  names=names)
+    pad = [(t, k) for key, (t, k) in names.items() if "cube_pad" in key]
+    on_path = (sum(t for t, _ in pad) / sum(k for _, k in pad)
+               if pad else None)
+    log(f"cube forecast B={B}, {CUBE_STEPS} steps: {launches} cube_pad "
+        f"launches; device ms a launch there {on_path}")
+    return {"rows": rows, "step": step, "launches_forecast": launches,
+            "forecast_steps": CUBE_STEPS,
+            "device_ms_per_launch_on_path": on_path}
 
 
 def check_golden(torch, dev, root):
@@ -5318,6 +5448,7 @@ def run_examples(torch, dev):
 # name -> (function of (torch, dev)).
 ONLY = {
     "kernels": check_kernels,
+    "cube_pad": check_cube_pad,
     "parallel_kernels": check_parallel_kernels,
     "sharded": run_sharded_path,
     "routing": check_routing,
@@ -5400,6 +5531,7 @@ def main(argv=None) -> int:
         return 0
 
     errs, timing = check_kernels(torch, dev)
+    cube = check_cube_pad(torch, dev)
     errs.update(check_parallel_kernels(torch, dev))
     check_golden(torch, dev, root)
     main_launches, rollout = run_main_path(torch, dev)
@@ -5569,6 +5701,25 @@ def main(argv=None) -> int:
                         "library_device_ms"):
                 entry[key] = float(np.mean([r[key] for r in rows]))
         kernels.append(entry)
+    # Per U-Net step at B=64 (10 launches), bit-equal to the plain gather.
+    kernels.append({
+        "name": "cube_pad", "route": "cuda",
+        "source": "dlwp_torch/csrc/cube_pad.cu", "replaces": None,
+        "launches": cube["launches_forecast"],
+        "launches_run": f"cube forecast of {cube['forecast_steps']} steps "
+                        f"at B={B}",
+        "launches_train": train["fit_launches"]["cube_pad"],
+        "max_abs_err": 0.0,
+        **{k: cube["step"][k] for k in ("ms", "device_ms", "plain_ms",
+                                        "bound_ms", "library_ms",
+                                        "library_device_ms")},
+        "bound_by": "bytes", "unit": "per U-Net step",
+        "library_note": "index_select of the pad table alone, on faces "
+                        "flattened outside the timer",
+        "device_ms_per_launch_on_path": cube["device_ms_per_launch_on_path"],
+        "per_shape": cube["rows"],
+        **{k: v["cube_pad"] for k, v in later.items()},
+    })
     log(json.dumps({"rollout": rollout, "routing": routing, "train": train,
                     "sharded_path": sharded,
                     "sharded_launches": sharded_launches,

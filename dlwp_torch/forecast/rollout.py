@@ -8,7 +8,9 @@ channel reconciliation is resolved once into a static source map; the
 insolation forcing of every step is computed on the device up front when
 it fits :data:`SOL_PRECOMPUTE_BUDGET`; the JAX ``lax.scan`` is a Python
 loop under ``torch.inference_mode()`` that writes each step's prediction
-into a preallocated output. State never leaves the device. Each call is a
+into a preallocated output. The grid's latitudes and longitudes are 1-D
+(a lat-lon grid) or 2-D (the cubed sphere's faces stacked along the
+rows). State never leaves the device. Each call is a
 span ``rollout`` (:func:`~dlwp_torch.utils.profiling.span`), each loop
 iteration a ``rollout.step`` around ``rollout.model`` and
 ``rollout.build_next``.
@@ -69,7 +71,9 @@ def _replays_graphs(model, device: torch.device) -> bool:
     """Whether a rollout on ``device`` replays captured step graphs: on a
     CUDA device, outside a trace (``torch.export`` traces the eager loop),
     for a model that is not spatially sharded (its lat-band halo and
-    overlap paths synchronise across cards and processes on the host)."""
+    overlap paths synchronise across cards and processes on the host).
+    Any other model replays: the lat-lon towers and the cubed-sphere
+    U-Net alike."""
     return (device.type == "cuda" and not torch.compiler.is_compiling()
             and getattr(model, "_spatial", None) is None)
 
@@ -245,6 +249,10 @@ class TimeSeriesEstimator:
                           if len(dts) else 6.0)
         self._lat = np.asarray(data.lat)
         self._lon = np.asarray(data.lon)
+        # The grid's (rows, columns): from 1-D latitudes and longitudes, or
+        # from 2-D ones (a cubed sphere's faces stacked along the rows).
+        self._hw = (self._lat.shape if self._lat.ndim == 2
+                    else (self._lat.shape[0], self._lon.shape[0]))
         self._graphs = collections.OrderedDict()  # key -> _StepGraphs
 
     def _advance(self, prefer_first_times: bool = True) -> int:
@@ -265,7 +273,7 @@ class TimeSeriesEstimator:
         p, _, kept = s.generate(samples, scale_and_impute=True,
                                 return_indices=True)
         B = p.shape[0]
-        H, W = self._lat.shape[0], self._lon.shape[0]
+        H, W = self._hw
         p = np.asarray(p).reshape(B, self._in_ts, len(self._input_names), H, W)
         dtype = next(self.model.base_model.parameters()).dtype
         x0 = torch.as_tensor(p, dtype=dtype, device=self.device)
@@ -281,7 +289,7 @@ class TimeSeriesEstimator:
         :data:`SOL_PRECOMPUTE_BUDGET`); above it, step by step. A program
         exported from the rollout takes batches up to this size (the
         branch is decided when it is traced)."""
-        H, W = self._lat.shape[0], self._lon.shape[0]
+        H, W = self._hw
         return SOL_PRECOMPUTE_BUDGET // (int(steps) * self._in_ts * H * W * 4)
 
     def rollout_fn(self, steps: int, prefer_first_times: bool = True):
@@ -293,7 +301,7 @@ class TimeSeriesEstimator:
             raise ValueError("steps must be >= 1")
         in_ts, out_ts = self._in_ts, self._out_ts
         dt_hours = self._dt_hours
-        H, W = self._lat.shape[0], self._lon.shape[0]
+        H, W = self._hw
         C_in = len(self._input_names)
         sources = self._sources
         is_recurrent = getattr(self.model, "is_recurrent", False)
@@ -444,7 +452,7 @@ class TimeSeriesEstimator:
             preds = rollout(x0, init_days, mean_state).cpu().numpy()
         out_ts, k = self._out_ts, self._k
         B = x0.shape[0]
-        H, W = self._lat.shape[0], self._lon.shape[0]
+        H, W = self._hw
         n_out = len(self._output_names)
         adv = self._advance(prefer_first_times)
         s = self.sampler

@@ -1,5 +1,6 @@
 """Grid helpers (port of ``dlwp_tpu.grid``): lat/lon grids and quadrature,
-solar insolation."""
+solar insolation; beyond the JAX package, the cubed sphere of DLWP-CS
+(:mod:`dlwp_torch.grid.cubed_sphere`)."""
 
 from dlwp_torch.grid.insolation import (
     day_of_year,

@@ -5,15 +5,17 @@ use, see :mod:`dlwp_torch.kernels._build`) and takes the plain version for
 CPU tensors. Each keeps a ``launches`` count of kernel launches, and each
 call is a span ``kernel.<name>`` (:func:`dlwp_torch.utils.profiling.span`)
 around its host work: checks, the launch plan and the launch. The two
-kernels of the forecast path, ``fused_conv_pool`` and ``lstm_gates``, are
-torch custom ops (``torch.ops.dlwp_torch.*``), registered when this package
-is imported, so that ``torch.export`` programs hold them.
+kernels of the forecast path, ``fused_conv_pool`` and ``lstm_gates``, and
+the cube models' ``cube_pad`` are torch custom ops
+(``torch.ops.dlwp_torch.*``), registered when this package is imported,
+so that ``torch.export`` programs hold them.
 """
 
 from dlwp_torch.kernels.barotropic_step import (
     barotropic_step,
     barotropic_step_plain,
 )
+from dlwp_torch.kernels.cube_pad import cube_pad
 from dlwp_torch.kernels.fused_conv_pool import (
     fused_conv_pool,
     fused_conv_pool_plain,
@@ -33,6 +35,7 @@ WRAPPERS = {
     "halo_exchange": halo_exchange,
     "overlap_conv": overlap_conv,
     "overlap_conv_db": overlap_conv_db,
+    "cube_pad": cube_pad,
 }
 
 
@@ -49,6 +52,7 @@ __all__ = [
     "WRAPPERS",
     "barotropic_step",
     "barotropic_step_plain",
+    "cube_pad",
     "fused_conv_pool",
     "fused_conv_pool_plain",
     "halo_exchange",

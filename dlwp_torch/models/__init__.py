@@ -1,6 +1,13 @@
 """Model layers, ``build_sequential`` and API (port of ``dlwp_tpu.models``)."""
 
 from dlwp_torch.models.api import DLWPFunctional, DLWPNeuralNet, shape_series
+from dlwp_torch.models.cube import (
+    CubeAveragePooling2D,
+    CubeSphereConv2D,
+    CubeSpherePadding2D,
+    CubeUNet,
+    CubeUpSampling2D,
+)
 from dlwp_torch.models.cnn import LAYER_REGISTRY, SequentialModel, build_sequential
 from dlwp_torch.models.layers import (
     Activation,
@@ -28,6 +35,11 @@ __all__ = [
     "Activation",
     "AvgPool2D",
     "ConvLSTM2D",
+    "CubeAveragePooling2D",
+    "CubeSphereConv2D",
+    "CubeSpherePadding2D",
+    "CubeUNet",
+    "CubeUpSampling2D",
     "CyclicConv2D",
     "DLWPFunctional",
     "DLWPNeuralNet",

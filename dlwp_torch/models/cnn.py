@@ -7,7 +7,8 @@ every name of the JAX package's registry: the fused spherical layers, the
 reference's Keras and ``DLWP.custom`` names (padding layers, ``Conv2D``,
 ``Dense``, pooling, ``slice_layer``) and its torch names (``Linear``,
 ``TorchReshape``); ``S2Convolution`` and ``SO3Convolution`` are the
-spectral layers of :mod:`dlwp_torch.models.spherical`.
+spectral layers of :mod:`dlwp_torch.models.spherical`, and the ``Cube*``
+names DLWP-CS's cubed-sphere layers and U-Net (:mod:`dlwp_torch.models.cube`).
 :func:`build_sequential` applies the same parameter-preserving peephole
 fusions as the JAX ``build_sequential``,
 with :class:`Identity` fillers, so layer ``i`` of the port holds the
@@ -26,6 +27,13 @@ from dlwp_torch.device import resolve_device
 from dlwp_torch.ops.padding import pad_trailing
 from dlwp_torch.parallel.spatial import attach_spatial
 from dlwp_torch.utils.profiling import span
+from dlwp_torch.models.cube import (
+    CubeAveragePooling2D,
+    CubeSphereConv2D,
+    CubeSpherePadding2D,
+    CubeUNet,
+    CubeUpSampling2D,
+)
 from dlwp_torch.models.layers import (
     MONOTONE_ACTIVATIONS,
     Activation,
@@ -314,6 +322,11 @@ LAYER_REGISTRY = {
     "TorchReshape": _torch_reshape,
     "FusedConvPool2D": _conv_layer(FusedConvPool2D),
     "UpConv2D": _conv_layer(UpConv2D),
+    "CubeUNet": CubeUNet,
+    "CubeSpherePadding2D": CubeSpherePadding2D,
+    "CubeSphereConv2D": CubeSphereConv2D,
+    "CubeAveragePooling2D": CubeAveragePooling2D,
+    "CubeUpSampling2D": CubeUpSampling2D,
 }
 
 

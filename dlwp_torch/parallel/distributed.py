@@ -31,6 +31,7 @@ ranks on one GPU.
 
 from __future__ import annotations
 
+import datetime
 import os
 
 import numpy as np
@@ -48,6 +49,7 @@ def initialize_distributed(
     *,
     backend: str | None = None,
     device=None,
+    timeout: float | None = None,
 ) -> None:
     """Join the process group (idempotent).
 
@@ -61,7 +63,10 @@ def initialize_distributed(
     (``LOCAL_WORLD_SIZE``) than it has cards, since NCCL refuses two ranks
     on one GPU; a caller may name either. Under ``torchrun`` the process's
     card becomes ``cuda:LOCAL_RANK`` (modulo the card count); else it stays
-    the caller's current card.
+    the caller's current card. ``timeout`` (seconds; the backend's default
+    where None) bounds the wait for the other processes at start and in
+    every collective, so a process that is lost ends the others' run
+    rather than hanging it.
     """
     if dist.is_initialized():
         return
@@ -87,8 +92,10 @@ def initialize_distributed(
             torch.cuda.set_device(int(env["LOCAL_RANK"]) % cards)
         gloo = int(env.get("LOCAL_WORLD_SIZE", 1)) > cards
     backend = backend or ("gloo" if gloo else "nccl")
+    kw = {} if timeout is None else {"timeout": datetime.timedelta(
+        seconds=timeout)}
     dist.init_process_group(backend, init_method=f"tcp://{coordinator_address}",
-                            world_size=world, rank=rank)
+                            world_size=world, rank=rank, **kw)
 
 
 def process_index() -> int:

@@ -45,8 +45,10 @@ the kernels run there.
 
 Spans (:func:`~dlwp_torch.utils.profiling.span`, recorded while a
 profiler window is open): ``train.step`` around ``train.forward``,
-``train.backward`` (checkpoint's recompute included), ``train.metrics``
-and ``train.optimizer`` (weight decay, the clip transforms and the rule);
+``train.backward`` (checkpoint's recompute included), ``train.metrics``,
+``train.allreduce`` (the gradient mean across processes, where the data
+axis spans them) and ``train.optimizer`` (weight decay, the clip
+transforms and the rule);
 ``fit.gather`` (each batch of :meth:`Trainer.fit_device`), ``fit.readback``
 (the epoch's losses read back), ``fit.epoch_end`` around
 ``fit.validation``; ``eval.step`` (each batch of :meth:`Trainer.evaluate`).
@@ -386,7 +388,8 @@ class Trainer:
         stats = torch.stack([v.to(dtype) for v in out.values()])
         tensors = [p.grad for p in have] + [stats]
         if self._across:
-            tensors = all_reduce_mean(tensors, self._data_group)
+            with span("train.allreduce"):
+                tensors = all_reduce_mean(tensors, self._data_group)
         if self._space is not None:
             tensors = broadcast_flat(tensors, *self._space)
         *grads, stats = tensors

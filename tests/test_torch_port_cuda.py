@@ -113,7 +113,8 @@ def test_kernels_match_plain_on_card(dev):
                 torch.testing.assert_close(got, want, rtol=0, atol=tol)
     assert launch_counts() == {"fused_conv_pool": 3, "lstm_gates": 4,
                                "barotropic_step": 0, "halo_exchange": 0,
-                               "overlap_conv": 0, "overlap_conv_db": 0}
+                               "overlap_conv": 0, "overlap_conv_db": 0,
+                               "cube_pad": 0}
 
 
 # (B, C, H, W, O, dilation): the flagship's encoder stages at B=64, then
@@ -218,7 +219,8 @@ def test_flagship_on_card_matches_cpu(dev):
                 xs[name] = torch.cat([model(v), v[:, :, 2:3]], dim=2)
     assert launch_counts() == {"fused_conv_pool": 6, "lstm_gates": 3,
                                "barotropic_step": 0, "halo_exchange": 0,
-                               "overlap_conv": 0, "overlap_conv_db": 0}
+                               "overlap_conv": 0, "overlap_conv_db": 0,
+                               "cube_pad": 0}
     torch.testing.assert_close(xs["cuda"].cpu(), xs["cpu"], rtol=0, atol=1e-4)
 
 
@@ -326,7 +328,8 @@ def test_parallel_kernels_match_plain_on_card(dev):
     n = len(CONV_CASES)
     assert launch_counts() == {"fused_conv_pool": 0, "lstm_gates": 0,
                                "barotropic_step": 0, "halo_exchange": 2,
-                               "overlap_conv": 2 * n, "overlap_conv_db": 2 * n}
+                               "overlap_conv": 2 * n, "overlap_conv_db": 2 * n,
+                               "cube_pad": 0}
 
 
 def test_sharded_flagship_on_card_matches_unsharded(dev):

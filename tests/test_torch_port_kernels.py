@@ -17,6 +17,7 @@ from dlwp_tpu.ops.fused_stages import fused_conv_pool as jax_conv_pool
 from dlwp_tpu.ops.lstm_gates import fused_lstm_gates as jax_gates
 
 from dlwp_torch.kernels import (
+    cube_pad,
     fused_conv_pool,
     fused_conv_pool_plain,
     halo_exchange,
@@ -29,6 +30,7 @@ from dlwp_torch.kernels import (
     overlap_conv_plain,
     reset_launch_counts,
 )
+from dlwp_torch.ops.padding import cube_pad_plain
 
 torch.set_num_threads(2)
 
@@ -88,9 +90,13 @@ def test_cpu_tensors_take_plain_version_without_counting():
     for got in (overlap_conv(shards, k)[0], overlap_conv_db(shards, k, 1)[0]):
         for a, b_ in zip(got, overlap_conv_plain(shards, k)[0]):
             torch.testing.assert_close(a, b_, rtol=0, atol=0)
+    eq, pol = torch.randn(8, 3, 4, 4), torch.randn(4, 3, 4, 4)
+    torch.testing.assert_close(cube_pad(eq, pol), cube_pad_plain(eq, pol),
+                               rtol=0, atol=0)
     assert launch_counts() == {"fused_conv_pool": 0, "lstm_gates": 0,
                                "barotropic_step": 0, "halo_exchange": 0,
-                               "overlap_conv": 0, "overlap_conv_db": 0}
+                               "overlap_conv": 0, "overlap_conv_db": 0,
+                               "cube_pad": 0}
 
 
 @pytest.mark.parametrize("case", ["odd_grid", "bad_kernel", "meta_device",
