@@ -243,7 +243,15 @@ Phases, each raising on failure:
     gather and a lone ``index_select`` of the same table with the bound
     from the bytes, and a 4-step B=64 cube forecast's launches (10 a
     step) and kernel device time per launch;
-27. a ``{"kernels": [...]}`` line, then the last line
+27. ``--only cyclic_conv``: the cyclic conv kernel at the tower's four
+    small-grid convs (``CYCLIC_CONVS``) at B = 1, 8, 32, 64, 128 and 256:
+    within TOL_F32 of the plain version, samples bit-equal to a B=3 call
+    and at B=64 under every other warp layout, timed (events, profiler
+    device time, the kernel alone) against the plain version (cuDNN and
+    its pad, bias, activation and permute passes) and ``F.conv2d`` alone,
+    with the 3xTF32 bound; with ``CYCLIC_SWEEP=<file>`` every candidate
+    plan's device time at B = 1, 8, 64 and 256, into that JSON file;
+28. a ``{"kernels": [...]}`` line, then the last line
     ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without printing a result when no CUDA device is present.
@@ -502,6 +510,19 @@ def check_kernels(torch, dev):
 CUBE_PADS = ((10, 48), (32, 48), (32, 24), (64, 24), (64, 12), (128, 12),
              (128, 24), (64, 24), (64, 48), (32, 48))
 CUBE_STEPS = 4  # model steps of the cube forecast the launches are read on
+# cyclic_conv: the tower's four small-grid convs after the peephole
+# fusions, (name, C, H, W, O, kernel size, upsample, activation), checked
+# against the plain version (cuDNN's conv and its pad, bias, activation and
+# permute passes) and timed at each batch of CYCLIC_BATCHES.
+CYCLIC_CONVS = (
+    ("conv128", 64, NLAT // 4, NLON // 4, 128, 3, False, "tanh"),
+    ("up64", 128, NLAT // 4, NLON // 4, 64, 3, True, "tanh"),
+    ("emit_small32", 64, NLAT // 2, NLON // 2, 32, 3, False, "tanh"),
+    ("up4_5x5", 32, NLAT // 2, NLON // 2, TD * C, 5, True, "linear"),
+)
+CYCLIC_BATCHES = (1, 8, 32, 64, 128, 256)
+# The kernel's own bound: 3 TF32 tensor-core products a multiply-add.
+PEAK_3XTF32_FLOPS = PEAK_TF32_FLOPS / 3
 
 
 def check_cube_pad(torch, dev):
@@ -620,6 +641,173 @@ def check_cube_pad(torch, dev):
             "device_ms_per_launch_on_path": on_path}
 
 
+def kernel_device_ms(torch, fns, name, reps=5):
+    """Device ms of the kernels named with ``name`` that each of ``fns``
+    launches (median of ``reps`` calls), in one profiler session: the
+    kernels in launch order, ``reps`` a call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    # A profiler session in a process that has run others before it has
+    # come back without device records; it is repeated before failing.
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for fn in fns:
+                for _ in range(reps):
+                    fn()
+            torch.cuda.synchronize()
+        ks = sorted((e for e in prof.profiler.kineto_results.events()
+                     if e.device_type().name == "CUDA" and name in e.name()),
+                    key=lambda e: e.start_ns())
+        if len(ks) == reps * len(fns):
+            break
+    else:
+        raise AssertionError(f"{len(ks)} {name} launches traced for "
+                             f"{reps * len(fns)} calls")
+    ms = [(e.end_ns() - e.start_ns()) / 1e6 for e in ks]
+    return [float(np.median(ms[i * reps:(i + 1) * reps]))
+            for i in range(len(fns))]
+
+
+def cyclic_conv_plan_text(plan, grid):
+    return (f"warp {plan.mf}x{plan.nf} fragments, {plan.wm}x{plan.wn} warps "
+            f"(tile {plan.bm}x{plan.bn}), {plan.stages} stages "
+            f"({plan.smem} B), {plan.tiles} tiles, grid {grid}")
+
+
+def check_cyclic_conv(torch, dev):
+    """``cyclic_conv`` on the card at the tower's four small-grid convs
+    (``CYCLIC_CONVS``) at each batch of ``CYCLIC_BATCHES``: within TOL_F32
+    of the plain version (cuDNN with TF32 off and its pad, bias,
+    activation and permute passes); samples 0..2 bit-equal to a B=3 call;
+    at B=64 every other build and tile shape of ``_candidates`` bit-equal
+    to the plan's; timed (events and profiler device time) against the
+    plain version (the composition the layers ran) and cuDNN's
+    ``F.conv2d`` alone on an input padded outside the timer, with the
+    bound from the operations (3xTF32). With CYCLIC_SWEEP=<file> in the
+    environment every candidate plan's device time at B = 1, 8, 64 and
+    256 is also written to that JSON file."""
+    import torch.nn.functional as F
+
+    from dlwp_torch.kernels import cyclic_conv, cyclic_conv_plain
+    from dlwp_torch.kernels._tiling import sm_count
+    from dlwp_torch.kernels.cyclic_conv import (ACT_CODES, _candidates,
+                                                _fold, _launch, _plan)
+    from dlwp_torch.ops.conv import _parity_kernels
+    from dlwp_torch.ops.padding import pad_latlon
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    sms = sm_count(dev)
+    sweep = os.environ.get("CYCLIC_SWEEP")
+    rows, sweeps = [], []
+    for name, c, h, w, o, ks, up, act in CYCLIC_CONVS:
+        for b in CYCLIC_BATCHES:
+            x = torch.randn(b, c, h, w, device=dev, generator=g)
+            k = torch.randn(o, c, ks, ks, device=dev, generator=g) / (
+                ks * ks * c) ** 0.5
+            bias = 0.1 * torch.randn(o, device=dev, generator=g)
+            y = cyclic_conv(x, k, bias, act, up)
+            plan, grid = cyclic_conv.last_launch
+            want = cyclic_conv_plain(x, k, bias, act, up)
+            torch.cuda.synchronize()
+            err = (y - want).abs().max().item()
+            if not err <= TOL_F32:
+                raise AssertionError(f"cyclic_conv {name} B={b}: max|kernel-"
+                                     f"plain| {err} > {TOL_F32}")
+            if b >= 3 and not torch.equal(
+                    cyclic_conv(x[:3].contiguous(), k, bias, act, up), y[:3]):
+                raise AssertionError(f"cyclic_conv {name} B={b}: samples "
+                                     "0..2 differ from a B=3 call")
+            kt = _fold(k) if up else k
+            n = kt.shape[0]
+            cands = list(_candidates(b, c, h, w, n))
+            if b == B:
+                seen = {}
+                for p in cands:
+                    seen.setdefault((p.mf, p.nf, p.wm, p.wn), p)
+                for p in seen.values():
+                    if not torch.equal(_launch(x, kt, bias, ACT_CODES[act],
+                                               up, p), y):
+                        raise AssertionError(f"cyclic_conv {name} B={b}: "
+                                             f"plan {p} differs")
+            # The yardstick: cuDNN's conv alone, on the input padded (and
+            # the kernel folded) outside the timer.
+            xp = pad_latlon(x, (1, 1), (1, 1))
+            kl = _parity_kernels(k) if up else k
+
+            def library():
+                return F.conv2d(xp, kl)
+
+            def kernel():
+                return cyclic_conv(x, k, bias, act, up)
+
+            def plain():
+                return cyclic_conv_plain(x, k, bias, act, up)
+
+            flops = 2 * b * h * w * n * c * 9
+            nbytes = 4 * (x.numel() + k.numel() + o + y.numel())
+            row = dict(conv=name, shape=[b, c, h, w, n], plan=list(plan),
+                       grid=grid, max_abs_err=err, ms=timed_ms(kernel),
+                       device_ms=device_ms_per_call(torch, kernel),
+                       kernel_only_ms=kernel_device_ms(
+                           torch, [kernel], "cyclic_conv_kernel")[0],
+                       plain_ms=timed_ms(plain),
+                       plain_device_ms=device_ms_per_call(torch, plain),
+                       library_ms=timed_ms(library),
+                       library_device_ms=device_ms_per_call(torch, library),
+                       flops=flops, bytes=nbytes)
+            row["bound_ms"], row["bound_by"] = bound_ms(nbytes, flops,
+                                                        PEAK_3XTF32_FLOPS)
+            row["roofline_pct"] = 100 * row["bound_ms"] / row["device_ms"]
+            row["tflops"] = flops / row["device_ms"] / 1e9
+            log(f"check cyclic_conv {name} B={b} ({c}->{n} on {h}x{w}): "
+                f"max|kernel-plain| {err:.2e}; kernel {row['ms']:.4f} ms "
+                f"(device {row['device_ms']:.4f}, the kernel alone "
+                f"{row['kernel_only_ms']:.4f}, {row['tflops']:.1f} "
+                f"TFLOP/s, {row['roofline_pct']:.1f}% of {row['bound_ms']:.4f})"
+                f"; plain {row['plain_ms']:.4f} (device "
+                f"{row['plain_device_ms']:.4f}); F.conv2d alone "
+                f"{row['library_ms']:.4f} (device "
+                f"{row['library_device_ms']:.4f}); "
+                f"{cyclic_conv_plan_text(plan, grid)}")
+            rows.append(row)
+            if sweep and b in (1, 8, B, 256):
+                times = kernel_device_ms(torch, [
+                    lambda p=p: _launch(x, kt, bias, ACT_CODES[act], up, p)
+                    for p in cands], "cyclic_conv_kernel")
+                timed = sorted(zip(times, cands), key=lambda tp: tp[0])
+                best = timed[0]
+                mine = next(t for t, p in timed if p == plan)
+                log(f"  sweep {name} B={b}: {len(timed)} plans; best "
+                    f"{best[0]:.4f} ms {list(best[1])}; plan's {mine:.4f} ms;"
+                    f" top 5 {[(round(t, 4), list(p)) for t, p in timed[:5]]}")
+                sweeps.append(dict(conv=name, batch=b, best=[best[0],
+                                                             list(best[1])],
+                                   plan=[mine, list(plan)],
+                                   all=[(t, list(p)) for t, p in timed]))
+            del x, k, y, want, xp
+    steps = {}
+    for b in CYCLIC_BATCHES:
+        at = [r for r in rows if r["shape"][0] == b]
+        step = steps[b] = {k: sum(r[k] for r in at) for k in (
+            "ms", "device_ms", "kernel_only_ms", "plain_ms",
+            "plain_device_ms", "library_ms", "library_device_ms", "bound_ms",
+            "flops")}
+        log(f"cyclic_conv, a tower step's 4 launches at B={b}: kernel device "
+            f"{step['device_ms']:.4f} ms ({100 * step['bound_ms'] / step['device_ms']:.1f}"
+            f"% of {step['bound_ms']:.4f}), plain device "
+            f"{step['plain_device_ms']:.4f} ({step['plain_device_ms'] / step['device_ms']:.2f}x), "
+            f"F.conv2d alone device {step['library_device_ms']:.4f}")
+    if sweep:
+        os.makedirs(os.path.dirname(sweep) or ".", exist_ok=True)
+        with open(sweep, "w") as f:
+            json.dump(sweeps, f)
+    return {"rows": rows, "steps": steps, "sweeps": [
+        {k: v for k, v in s.items() if k != "all"} for s in sweeps]}
+
+
 def check_golden(torch, dev, root):
     from dlwp_torch import build_sequential, load_flax_params, tree_from_leaves
     from dlwp_torch.flagship import convlstm_specs
@@ -639,7 +827,8 @@ def check_golden(torch, dev, root):
     err = np.abs(x.cpu().numpy() - data["convlstm_roll3"]).max()
     log(f"golden convlstm_roll3 (fp32 through kernels, {counts}): "
         f"max abs err {err:.3e}")
-    if counts != expected_counts(fused_conv_pool=6, lstm_gates=3):
+    if counts != expected_counts(fused_conv_pool=6, lstm_gates=3,
+                                 cyclic_conv=12):
         raise AssertionError(f"golden run did not use the kernels: {counts}")
     if not err <= TOL_GOLDEN:
         raise AssertionError(f"golden: {err} > {TOL_GOLDEN}")
@@ -725,7 +914,8 @@ def run_main_path(torch, dev):
         counts[tag] = launch_counts()
         log(f"main path {tag}: predict({STEPS}) at B={B}: "
             f"values {fc.values.shape}, launches {counts[tag]}")
-        need = expected_counts(fused_conv_pool=2 * STEPS, lstm_gates=STEPS)
+        need = expected_counts(fused_conv_pool=2 * STEPS, lstm_gates=STEPS,
+                               cyclic_conv=4 * STEPS)
         if counts[tag] != need:
             raise AssertionError(f"{tag} launches {counts[tag]} != {need}")
         if fc.values.shape != (STEPS * TD, B, C, NLAT, NLON) or not (
@@ -976,14 +1166,16 @@ def state_rel_rms(got, want):
     return (num / den) ** 0.5
 
 
-def fit_launches(epochs, n_train, n_val, S=1, pools=2):
+def fit_launches(epochs, n_train, n_val, S=1, pools=2, convs=4):
     """Launches of a fit over ``epochs`` epochs: each train step's gates,
     and each validation batch's S model steps (``pools`` conv-pool stages,
-    TD - 1 gate launches each)."""
+    ``convs`` cyclic convs, TD - 1 gate launches each; the flagship's 2
+    and 4, ``train_convlstm``'s tower 1 and 3)."""
     return expected_counts(
         lstm_gates=epochs * (n_train * gates_per_train_step(S)
                              + n_val * (TD - 1) * S),
-        fused_conv_pool=epochs * n_val * pools * S)
+        fused_conv_pool=epochs * n_val * pools * S,
+        cyclic_conv=epochs * n_val * convs * S)
 
 
 def fit_three_ways(torch, dev, tmp, tag):
@@ -1089,7 +1281,8 @@ def fit_resume_forecast(torch, dev, tmp):
     log(f"train: TimeSeriesEstimator.predict({STEPS}) at B={B} on the "
         f"trained model: {fc.values.shape}, launches "
         f"{out['forecast_launches']}")
-    need = expected_counts(fused_conv_pool=2 * STEPS, lstm_gates=STEPS)
+    need = expected_counts(fused_conv_pool=2 * STEPS, lstm_gates=STEPS,
+                           cyclic_conv=4 * STEPS)
     if out["forecast_launches"] != need:
         raise AssertionError(f"forecast after fit: {out} != {need}")
     if fc.values.shape != (STEPS * TD, B, C, NLAT, NLON) or not (
@@ -1164,14 +1357,15 @@ def pool_decisions(a, b):
 
 
 def train_vs_cpu(torch, dev, S, make_specs=None, pools=2, label="train",
-                 force=False, pooled=None):
+                 force=False, pooled=None, convs=4):
     """The first TRAIN_CHECK_STEPS train steps on the card and, from the
     same weights and batches, in fp32 on the CPU (plain versions): each
     step's loss, the first step's gradient and the parameters after the
     steps. Before them, ``evaluate`` of the first batch on those weights
     (on the card through both kernels) against the CPU's. One train
-    step's launches, and one evaluated batch's (``pools`` conv-pool
-    launches a model step: 2 for the flagship). ``make_specs``: a
+    step's launches, and one evaluated batch's (``pools`` conv-pool and
+    ``convs`` cyclic conv launches a model step: 2 and 4 for the
+    flagship). ``make_specs``: a
     function returning another model's specs, called for each model.
     ``force``: hold the first gradient to :func:`forced_gradient` (the
     CPU's backward at the card's forward values), and report its
@@ -1263,7 +1457,8 @@ def train_vs_cpu(torch, dev, S, make_specs=None, pools=2, label="train",
         f"{eval_counts}")
     need_step = expected_counts(lstm_gates=gates_per_train_step(S))
     need_eval = expected_counts(lstm_gates=(TD - 1) * S,
-                                fused_conv_pool=pools * S)
+                                fused_conv_pool=pools * S,
+                                cyclic_conv=convs * S)
     if step_counts != need_step or eval_counts != need_eval:
         raise AssertionError(f"S={S} launches: {out}")
     for key, lim in (("loss_rel", "loss"), ("eval_loss_rel", "loss"),
@@ -1858,7 +2053,9 @@ def run_skip_tower(torch, dev):
     fc = est.predict(STEPS, samples=np.arange(B))
     torch.cuda.synchronize()
     counts = launch_counts()
-    need = expected_counts(lstm_gates=STEPS)
+    # SkipTower's 3x3 convs 1 and 2 and its dilation-1 UpConv2D take the
+    # cyclic conv; the dilation-2 UpConv2D and the 5x5 conv do not.
+    need = expected_counts(lstm_gates=STEPS, cyclic_conv=3 * STEPS)
     log(f"skip_tower: predict({STEPS}) at B={B}: {fc.values.shape}, "
         f"launches {counts}")
     if counts != need:
@@ -1887,7 +2084,7 @@ def run_skip_tower(torch, dev):
     # 8.5e-5 (relative RMS) from the CPU's own, and 4.2e-7 from the
     # forced one (both printed, with the pool's differing windows).
     out["train"] = train_vs_cpu(
-        torch, dev, 1, make_specs=skip_specs, pools=0,
+        torch, dev, 1, make_specs=skip_specs, pools=0, convs=3,
         label="skip_tower train", force=True,
         pooled={"layers.0.CyclicConv2D_1": 32})
     return out
@@ -2021,7 +2218,8 @@ def run_verify(torch, dev):
     if not rel <= TOL_VERIFY:
         raise AssertionError(f"verify rows card vs CPU: {rel}")
     need = expected_counts(fused_conv_pool=2 * VERIFY_ITERS,
-                           lstm_gates=VERIFY_ITERS)
+                           lstm_gates=VERIFY_ITERS,
+                           cyclic_conv=4 * VERIFY_ITERS)
     if counts != need:
         raise AssertionError(f"verify launches {counts} != {need}")
     return {"f_hour": f_hour.tolist(),
@@ -2586,6 +2784,7 @@ def dispatch_launches(torch, cpu_model, batch):
 
     x = torch.zeros(batch, TD, C + 1, NLAT, NLON)
     with recorded(layers, "lstm_gates"), recorded(layers, "fused_conv_pool"), \
+            recorded(layers, "cyclic_conv"), \
             recorded(ph, "halo_exchange"), recorded(po, "overlap_conv"), \
             recorded(po, "overlap_conv_db"), torch.inference_mode():
         cpu_model.base_model(x)
@@ -3296,7 +3495,8 @@ def run_paper_run(torch, dev):
     fit_s = time.perf_counter() - t0
     fit_counts = launch_counts()
     epochs = len(hist.epoch)
-    need = fit_launches(epochs, len(dtrain), len(dval), S=2, pools=1)
+    need = fit_launches(epochs, len(dtrain), len(dval), S=2, pools=1,
+                        convs=3)
     loop_s = sum(t for t, _ in record)
     samples_s = epochs * len(dtrain) * PAPER_B / loop_s
     log(f"paper_run fit_device: {epochs} epochs x {len(dtrain)} steps (B="
@@ -3317,7 +3517,8 @@ def run_paper_run(torch, dev):
     chunks = -(-n_init // VERIFY_INIT_BATCH)
     val_need = expected_counts(
         fused_conv_pool=chunks * PAPER_LEADS // TD,
-        lstm_gates=chunks * (TD - 1) * PAPER_LEADS // TD)
+        lstm_gates=chunks * (TD - 1) * PAPER_LEADS // TD,
+        cyclic_conv=3 * chunks * PAPER_LEADS // TD)
     log(f"paper_run validation: {n_init} inits x {len(f_hour)} leads "
         f"(forecast {predict_s:.2f} s, launches {val_counts}; the rows "
         f"with the barotropic baseline {val_s:.2f} s), {masked} (init, "
@@ -3463,7 +3664,8 @@ def serve_forecast(torch, dev):
         raise AssertionError(f"serve: weights or constants on {where}")
     x0, days, ms, _ = est.prepare_inputs(np.arange(B))
     eager = est.rollout_fn(STEPS)
-    need = expected_counts(fused_conv_pool=2 * STEPS, lstm_gates=STEPS)
+    need = expected_counts(fused_conv_pool=2 * STEPS, lstm_gates=STEPS,
+                           cyclic_conv=4 * STEPS)
     errs = {}
     for b in SERVE_BATCHES:
         args = (x0[:b], days[:b], ms)
@@ -3572,7 +3774,8 @@ def serve_rollout(torch, dev):
         f"{len(blob) / 1e6:.2f} MB, load {load_s:.2f} s; predict_timeseries "
         f"{got.shape} vs eager relative RMS {rrms:.3e}, bit-equal "
         f"{np.array_equal(got, want)}, launches {counts}")
-    need = expected_counts(fused_conv_pool=2 * STEPS, lstm_gates=STEPS)
+    need = expected_counts(fused_conv_pool=2 * STEPS, lstm_gates=STEPS,
+                           cyclic_conv=4 * STEPS)
     if counts != need:
         raise AssertionError(f"serve export_rollout launches {counts}")
     if got.shape != want.shape or not rrms <= TOL_SERVE_RRMS:
@@ -5162,8 +5365,9 @@ def examples_train_convlstm(torch, run, tmp):
             f"train_convlstm --epochs {epochs} {' '.join(extra)}".strip(),
             "train_convlstm", ["--epochs", str(epochs)] + extra + common)
         ran = len(hist.epoch)
-        need = fit_launches(ran, n_train, n_val, S=1, pools=1)
+        need = fit_launches(ran, n_train, n_val, S=1, pools=1, convs=3)
         need["fused_conv_pool"] += 1
+        need["cyclic_conv"] += 3
         need["lstm_gates"] += TD - 1
         losses = hist.history["loss"] + hist.history["val_loss"]
         out[f"epochs_{epochs}"] = {"epochs_run": hist.epoch,
@@ -5195,7 +5399,8 @@ def examples_validate(torch, run, tmp, model):
     cpu, _, _, _ = run("validate --device cpu", "validate",
                        argv + ["--device", "cpu"], card=False)
     iters = EX_FORECAST // TD
-    need = expected_counts(fused_conv_pool=iters, lstm_gates=iters * (TD - 1))
+    need = expected_counts(fused_conv_pool=iters, lstm_gates=iters * (TD - 1),
+                           cyclic_conv=3 * iters)
 
     def rel(key):
         return float(np.max(np.abs(rows[key] - cpu[key]) / np.abs(cpu[key])))
@@ -5449,6 +5654,7 @@ def run_examples(torch, dev):
 ONLY = {
     "kernels": check_kernels,
     "cube_pad": check_cube_pad,
+    "cyclic_conv": check_cyclic_conv,
     "parallel_kernels": check_parallel_kernels,
     "sharded": run_sharded_path,
     "routing": check_routing,
@@ -5532,6 +5738,7 @@ def main(argv=None) -> int:
 
     errs, timing = check_kernels(torch, dev)
     cube = check_cube_pad(torch, dev)
+    cyclic = check_cyclic_conv(torch, dev)
     errs.update(check_parallel_kernels(torch, dev))
     check_golden(torch, dev, root)
     main_launches, rollout = run_main_path(torch, dev)
@@ -5719,6 +5926,23 @@ def main(argv=None) -> int:
         "device_ms_per_launch_on_path": cube["device_ms_per_launch_on_path"],
         "per_shape": cube["rows"],
         **{k: v["cube_pad"] for k, v in later.items()},
+    })
+    # Per tower step at B=64 (4 launches), against cuDNN and its passes.
+    kernels.append({
+        "name": "cyclic_conv", "route": "cuda",
+        "source": "dlwp_torch/csrc/cyclic_conv.cu", "replaces": None,
+        "launches": main_launches["cyclic_conv"],
+        "launches_run": f"predict({STEPS}) at B={B}",
+        "launches_train": train["fit_launches"]["cyclic_conv"],
+        "max_abs_err": max(r["max_abs_err"] for r in cyclic["rows"]),
+        **{k: cyclic["steps"][B][k] for k in (
+            "ms", "device_ms", "plain_ms", "bound_ms", "library_ms",
+            "library_device_ms")},
+        "bound_by": "operations", "unit": "per tower step (4 launches)",
+        "library_note": "cuDNN's F.conv2d alone on inputs padded (and "
+                        "kernels folded) outside the timer",
+        "per_shape": cyclic["rows"],
+        **{k: v["cyclic_conv"] for k, v in later.items()},
     })
     log(json.dumps({"rollout": rollout, "routing": routing, "train": train,
                     "sharded_path": sharded,

@@ -4,9 +4,9 @@ Each wrapper launches its CUDA kernel for CUDA tensors (building it at first
 use, see :mod:`dlwp_torch.kernels._build`) and takes the plain version for
 CPU tensors. Each keeps a ``launches`` count of kernel launches, and each
 call is a span ``kernel.<name>`` (:func:`dlwp_torch.utils.profiling.span`)
-around its host work: checks, the launch plan and the launch. The two
-kernels of the forecast path, ``fused_conv_pool`` and ``lstm_gates``, and
-the cube models' ``cube_pad`` are torch custom ops
+around its host work: checks, the launch plan and the launch. The
+kernels of the forecast path, ``fused_conv_pool``, ``cyclic_conv`` and
+``lstm_gates``, and the cube models' ``cube_pad`` are torch custom ops
 (``torch.ops.dlwp_torch.*``), registered when this package is imported,
 so that ``torch.export`` programs hold them.
 """
@@ -16,6 +16,7 @@ from dlwp_torch.kernels.barotropic_step import (
     barotropic_step_plain,
 )
 from dlwp_torch.kernels.cube_pad import cube_pad
+from dlwp_torch.kernels.cyclic_conv import cyclic_conv, cyclic_conv_plain
 from dlwp_torch.kernels.fused_conv_pool import (
     fused_conv_pool,
     fused_conv_pool_plain,
@@ -36,6 +37,7 @@ WRAPPERS = {
     "overlap_conv": overlap_conv,
     "overlap_conv_db": overlap_conv_db,
     "cube_pad": cube_pad,
+    "cyclic_conv": cyclic_conv,
 }
 
 
@@ -53,6 +55,8 @@ __all__ = [
     "barotropic_step",
     "barotropic_step_plain",
     "cube_pad",
+    "cyclic_conv",
+    "cyclic_conv_plain",
     "fused_conv_pool",
     "fused_conv_pool_plain",
     "halo_exchange",

@@ -24,7 +24,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from dlwp_torch.kernels import fused_conv_pool, lstm_gates
+from dlwp_torch.kernels import cyclic_conv, fused_conv_pool, lstm_gates
+from dlwp_torch.kernels.cyclic_conv import ACT_CODES as CONV_ACTIVATIONS
 from dlwp_torch.kernels.lstm_gates import ACT_CODES, gate_chain, hard_sigmoid
 from dlwp_torch.ops.conv import (
     conv_after_upsample2,
@@ -197,6 +198,27 @@ class _ConvBase(ParamLayer):
             y = y + self.bias[:, None, None]
         return get_activation(self.activation)(y)
 
+    def _forward_float32(self, x) -> bool:
+        """float32 x, kernel and bias, and no gradient to record for them
+        (the conv kernels are forward only)."""
+        operands = (x, self.kernel, self.bias)
+        return (
+            not (torch.is_grad_enabled()
+                 and any(t is not None and t.requires_grad for t in operands))
+            and all(t.dtype == torch.float32 for t in operands
+                    if t is not None)
+        )
+
+    def _kernel_takes(self, x) -> bool:
+        """What every route to ``cyclic_conv`` needs: a 4-D input, an
+        activation of the kernel's epilogue, :meth:`_forward_float32`."""
+        return ((self.activation or "linear") in CONV_ACTIVATIONS
+                and x.dim() == 4 and self._forward_float32(x))
+
+    def _kernel_conv(self, x, upsample: bool):
+        return cyclic_conv(x, self.kernel, self.bias,
+                           self.activation or "linear", upsample)
+
 
 class CyclicConv2D(_ConvBase):
     """Conv2D with periodic-longitude boundary (``layers.py:76``).
@@ -206,7 +228,11 @@ class CyclicConv2D(_ConvBase):
     takes its lat-band sharded path whenever the shapes admit it.
     ``impl='edgefix'`` runs :func:`~dlwp_torch.ops.conv.cyclic_conv2d_edgefix`
     at stride 1 with a zero latitude boundary (elsewhere the 'pad' form),
-    as the JAX layer does."""
+    as the JAX layer does. What :meth:`uses_kernel` admits goes through
+    ``cyclic_conv`` (its kernel on the card, its plain version on the
+    CPU): pad, conv, bias and activation in one pass; any other case runs
+    the composition, which is also the layer's path while a gradient is
+    recorded."""
 
     def __init__(self, features, kernel_size=3, strides=(1, 1), dilation=1,
                  activation="linear", lat_mode="zero", use_bias=True,
@@ -219,8 +245,23 @@ class CyclicConv2D(_ConvBase):
         self.impl = impl
         self.spatial = spatial
 
+    def uses_kernel(self, x) -> bool:
+        """An unsharded 3x3 conv at stride 1 and dilation 1 with a zero
+        latitude boundary (either ``impl``), and what every kernel route
+        needs (:meth:`_kernel_takes`)."""
+        return (
+            self.spatial is None
+            and self.kernel_size == (3, 3)
+            and self.strides == (1, 1)
+            and self.dilation == (1, 1)
+            and self.lat_mode == "zero"
+            and self._kernel_takes(x)
+        )
+
     def forward(self, x):
         self._require_built(x)
+        if self.uses_kernel(x):
+            return self._kernel_conv(x, upsample=False)
         if self.spatial is not None:
             y = self.spatial.conv(x, self.kernel, strides=self.strides,
                                   lat_mode=self.lat_mode,
@@ -300,19 +341,15 @@ class FusedConvPool2D(_ConvBase):
         the width, as the JAX layer's Pallas branch takes it, and no
         gradient to record for x, the kernel or the bias."""
         d = self.dilation
-        operands = (x, self.kernel, self.bias)
         return (
-            not (torch.is_grad_enabled()
-                 and any(t is not None and t.requires_grad for t in operands))
-            and self.kernel_size == (3, 3)
+            self.kernel_size == (3, 3)
             and d[0] == d[1]
             and 1 <= d[0] < x.shape[-1]
             and self.activation == "tanh"
             and x.dim() == 4
             and x.shape[-1] % 2 == 0
             and x.shape[-2] % 2 == 0
-            and all(t.dtype == torch.float32 for t in operands
-                    if t is not None)
+            and self._forward_float32(x)
         )
 
     def forward(self, x):
@@ -366,7 +403,11 @@ class SplitConvPool2D(_ConvBase):
 class UpConv2D(_ConvBase):
     """UpSampling2D(2) + CyclicConv2D collapsed onto the small grid
     (``layers.py:601``). ``emit_small``: a dilation-2 conv whose output
-    stays on the small grid for an ``input_small`` consumer."""
+    stays on the small grid for an ``input_small`` consumer. What
+    :meth:`uses_kernel` admits goes through ``cyclic_conv``: the
+    ``emit_small`` conv, and the parity form of ``conv_after_upsample2``
+    with each parity channel stored in its place on the large grid; any
+    other case runs the composition."""
 
     def __init__(self, features, kernel_size=3, dilation=1,
                  activation="linear", use_bias=True, emit_small=False,
@@ -377,8 +418,20 @@ class UpConv2D(_ConvBase):
         self.emit_small = emit_small
         self.input_small = input_small
 
+    def uses_kernel(self, x) -> bool:
+        """The ``emit_small`` 3x3 conv, or the parity form (dilation 1, an
+        odd square kernel of at most 5), and what every kernel route
+        needs (:meth:`_kernel_takes`)."""
+        kh, kw = self.kernel_size
+        shape_ok = (kh == kw == 3 if self.emit_small else
+                    self.dilation == (1, 1) and kh == kw and kh % 2 == 1
+                    and kh <= 5)
+        return shape_ok and self._kernel_takes(x)
+
     def forward(self, x):
         self._require_built(x)
+        if self.uses_kernel(x):
+            return self._kernel_conv(x, upsample=not self.emit_small)
         if self.emit_small:
             y = cyclic_conv2d(x, self.kernel)
         else:

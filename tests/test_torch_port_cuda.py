@@ -10,7 +10,9 @@ Each kernel is held against its plain PyTorch version on the same inputs
 rounding steps near 1; the barotropic step 1e-5 relative in height after
 20 steps, the JAX package's bar for its Pallas step; the halo exchange bit
 for bit; the two overlap convs bit for bit with each other; a conv-pool
-sample bit for bit whatever the batch), the fused
+sample bit for bit whatever the batch; the cyclic conv at the tower's four
+small-grid convs at B = 1, 32, 64 and 256 within 1e-5, a sample bit for
+bit whatever the batch and the plan), the fused
 flagship on the card against the same model on the
 CPU, and the lat-band sharded flagship on two virtual shards of the card
 against the unsharded one. The layers' routing on the card: a float64
@@ -114,7 +116,7 @@ def test_kernels_match_plain_on_card(dev):
     assert launch_counts() == {"fused_conv_pool": 3, "lstm_gates": 4,
                                "barotropic_step": 0, "halo_exchange": 0,
                                "overlap_conv": 0, "overlap_conv_db": 0,
-                               "cube_pad": 0}
+                               "cube_pad": 0, "cyclic_conv": 0}
 
 
 # (B, C, H, W, O, dilation): the flagship's encoder stages at B=64, then
@@ -200,6 +202,93 @@ def test_conv_pool_large_dilation_does_not_depend_on_plan(dev, case):
         assert torch.equal(_launch(x, k, b, d, other), want), other
 
 
+# cyclic_conv: the tower's four small-grid convs after the peephole
+# fusions, (C, H, W, O, kernel size, upsample, activation).
+CYCLIC_CONVS = [(64, 9, 36, 128, 3, False, "tanh"),
+                (128, 9, 36, 64, 3, True, "tanh"),
+                (64, 18, 72, 32, 3, False, "tanh"),
+                (32, 18, 72, 4, 5, True, "linear")]
+CYCLIC_IDS = ["conv128", "up64", "emit_small32", "up4_5x5"]
+
+
+def _cyclic_operands(seed, B, C, H, W, O, k, dev):
+    rng = np.random.RandomState(seed)
+    return (torch.from_numpy(rng.randn(B, C, H, W).astype(np.float32)).to(dev),
+            torch.from_numpy((rng.randn(O, C, k, k) / np.sqrt(k * k * C))
+                             .astype(np.float32)).to(dev),
+            torch.from_numpy((0.1 * rng.randn(O)).astype(np.float32)).to(dev))
+
+
+@pytest.mark.parametrize("B", [1, 32, 64, 256])
+@pytest.mark.parametrize("case", CYCLIC_CONVS, ids=CYCLIC_IDS)
+def test_cyclic_conv_matches_plain_on_card(dev, case, B):
+    """The tensor-core cyclic conv against its plain version (cuDNN, TF32
+    off, and its passes) within 1e-5 (3xTF32 products and the summation
+    order; outputs of unit scale), with the plan it launched."""
+    from dlwp_torch.kernels import cyclic_conv, cyclic_conv_plain
+    from dlwp_torch.kernels.cyclic_conv import _plan
+
+    C, H, W, O, k, up, act = case
+    x, kern, b = _cyclic_operands(B + C, B, C, H, W, O, k, dev)
+    reset_launch_counts()
+    got = cyclic_conv(x, kern, b, act, up)
+    assert launch_counts()["cyclic_conv"] == 1
+    torch.testing.assert_close(got, cyclic_conv_plain(x, kern, b, act, up),
+                               rtol=0, atol=1e-5)
+    plan, grid = cyclic_conv.last_launch
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert plan == _plan(B, C, H, W, 4 * O if up else O, sms)
+    assert 1 <= grid <= plan.tiles
+
+
+@pytest.mark.parametrize("case", CYCLIC_CONVS, ids=CYCLIC_IDS)
+def test_cyclic_conv_does_not_depend_on_batch_or_plan(dev, case):
+    """Samples 0..2 of a B=64 call equal a B=3 call bit for bit, and every
+    other build and warp layout gives the plan's result bit for bit (each
+    output sums in one order)."""
+    from dlwp_torch.kernels import cyclic_conv
+    from dlwp_torch.kernels.cyclic_conv import (ACT_CODES, _candidates,
+                                                _fold, _launch)
+
+    C, H, W, O, k, up, act = case
+    x, kern, b = _cyclic_operands(3, 64, C, H, W, O, k, dev)
+    full = cyclic_conv(x, kern, b, act, up)
+    plan, _ = cyclic_conv.last_launch
+    assert torch.equal(cyclic_conv(x[:3].contiguous(), kern, b, act, up),
+                       full[:3])
+    kt = _fold(kern) if up else kern
+    seen = {}
+    for p in _candidates(64, C, H, W, kt.shape[0]):
+        seen.setdefault((p.mf, p.nf, p.wm > 1, p.wn > 1, p.stages), p)
+    assert len(seen) > 1
+    for other in seen.values():
+        assert torch.equal(_launch(x, kt, b, ACT_CODES[act], up, other),
+                           full), other
+
+
+@pytest.mark.parametrize("k", [1, 3, 5])
+def test_cyclic_conv_fold_matches_einsum_on_card(dev, k):
+    """The parity fold kernel against the wrapper's einsum: sums of at
+    most 9 weights in another order (1e-6)."""
+    from dlwp_torch.kernels.cyclic_conv import _fold, _fold_plain
+
+    _, kern, _ = _cyclic_operands(6, 1, 24, 4, 8, 16, k, dev)
+    torch.testing.assert_close(_fold(kern), _fold_plain(kern), rtol=0,
+                               atol=1e-6)
+
+
+def test_cyclic_conv_refuses_operands_that_require_grad(dev):
+    from dlwp_torch.kernels import cyclic_conv, cyclic_conv_plain
+
+    x, k, b = _cyclic_operands(4, 2, 8, 4, 12, 6, 3, dev)
+    with pytest.raises(NotImplementedError, match="forward only"):
+        cyclic_conv(x, k.requires_grad_(True), b, "tanh")
+    with torch.no_grad():
+        torch.testing.assert_close(cyclic_conv(x, k, b, "tanh"),
+                                   cyclic_conv_plain(x, k, b, "tanh"),
+                                   rtol=0, atol=1e-5)
+
+
 def test_flagship_on_card_matches_cpu(dev):
     """Three autoregressive steps of the fused flagship at 8x16 through the
     kernels, against the CPU model (plain versions) with the same weights;
@@ -220,7 +309,7 @@ def test_flagship_on_card_matches_cpu(dev):
     assert launch_counts() == {"fused_conv_pool": 6, "lstm_gates": 3,
                                "barotropic_step": 0, "halo_exchange": 0,
                                "overlap_conv": 0, "overlap_conv_db": 0,
-                               "cube_pad": 0}
+                               "cube_pad": 0, "cyclic_conv": 12}
     torch.testing.assert_close(xs["cuda"].cpu(), xs["cpu"], rtol=0, atol=1e-4)
 
 
@@ -329,7 +418,7 @@ def test_parallel_kernels_match_plain_on_card(dev):
     assert launch_counts() == {"fused_conv_pool": 0, "lstm_gates": 0,
                                "barotropic_step": 0, "halo_exchange": 2,
                                "overlap_conv": 2 * n, "overlap_conv_db": 2 * n,
-                               "cube_pad": 0}
+                               "cube_pad": 0, "cyclic_conv": 0}
 
 
 def test_sharded_flagship_on_card_matches_unsharded(dev):
@@ -355,6 +444,7 @@ def test_sharded_flagship_on_card_matches_unsharded(dev):
     counts = launch_counts()
     assert counts["overlap_conv"] == 3 * 4 and counts["halo_exchange"] == 3 * 4
     assert counts["lstm_gates"] == 6 and counts["fused_conv_pool"] == 6
+    assert counts["cyclic_conv"] == 3 * 4  # the unsharded model's alone
     torch.testing.assert_close(xs["sharded"], xs["plain"], rtol=0, atol=1e-4)
 
 
@@ -475,6 +565,7 @@ def test_flagship_train_step_on_card_matches_cpu(dev):
     (l_cpu, g_cpu, p_cpu, _), (l_card, g_card, p_card, counts) = (
         runs["cpu"], runs[dev])
     assert counts["lstm_gates"] == 1 and counts["fused_conv_pool"] == 0
+    assert counts["cyclic_conv"] == 0  # a train step runs the composition
     assert abs(l_card - l_cpu) <= 1e-5 * abs(l_cpu)
     assert _rel_rms(g_card, g_cpu) <= 2e-5
     assert _rel_rms(p_card, p_cpu) <= 2e-4
@@ -808,13 +899,14 @@ def test_servable_exported_on_cpu_runs_the_kernels_on_card(dev, batch):
     got = servable.predict_timeseries(xb)
     assert launch_counts()["fused_conv_pool"] == 6
     assert launch_counts()["lstm_gates"] == 3
+    assert launch_counts()["cyclic_conv"] == 3 * 4
     want = card.predict_timeseries(xb, 6)
     assert (np.sqrt(np.mean((got - want) ** 2))
             <= 1e-6 * np.sqrt(np.mean(want ** 2)))
 
 
 def test_custom_ops_opcheck_on_card(dev):
-    """Both ops' schema, fake implementation, autograd registration and
+    """The ops' schema, fake implementation, autograd registration and
     AOT dispatch with CUDA tensors (the gates with operands that require
     grad, through the registered backward)."""
     x, k, b = (torch.from_numpy(a).to(dev)
@@ -828,6 +920,11 @@ def test_custom_ops_opcheck_on_card(dev):
         res = torch.library.opcheck(
             torch.ops.dlwp_torch.lstm_gates.default,
             (*ops, "tanh", "hard_sigmoid", gd))
+        assert set(res.values()) == {"SUCCESS"}
+    x, k, b = _cyclic_operands(5, 3, 12, 6, 16, 8, 3, dev)
+    for up in (False, True):
+        res = torch.library.opcheck(torch.ops.dlwp_torch.cyclic_conv.default,
+                                    (x, k, b, "tanh", up))
         assert set(res.values()) == {"SUCCESS"}
 
 
@@ -934,6 +1031,7 @@ def test_graph_rollout_equals_eager_on_card(dev, monkeypatch, recurrent, B):
         assert torch.equal(got, want), steps
         assert counts["graph"] == counts["eager"], steps
     assert counts["eager"]["fused_conv_pool"] == 5 * 2
+    assert counts["eager"]["cyclic_conv"] == 5 * 4
     assert counts["eager"]["lstm_gates"] == (5 if recurrent else 0)
     assert graph_counts() == {"captures": 1, "replays": 5 - 1 + 4 + 5,
                               "eager_steps": 1 + 5 + 4 + 5}

@@ -18,6 +18,8 @@ from dlwp_tpu.ops.lstm_gates import fused_lstm_gates as jax_gates
 
 from dlwp_torch.kernels import (
     cube_pad,
+    cyclic_conv,
+    cyclic_conv_plain,
     fused_conv_pool,
     fused_conv_pool_plain,
     halo_exchange,
@@ -93,10 +95,14 @@ def test_cpu_tensors_take_plain_version_without_counting():
     eq, pol = torch.randn(8, 3, 4, 4), torch.randn(4, 3, 4, 4)
     torch.testing.assert_close(cube_pad(eq, pol), cube_pad_plain(eq, pol),
                                rtol=0, atol=0)
+    for upsample in (False, True):
+        torch.testing.assert_close(
+            cyclic_conv(x, k, b, "tanh", upsample),
+            cyclic_conv_plain(x, k, b, "tanh", upsample), rtol=0, atol=0)
     assert launch_counts() == {"fused_conv_pool": 0, "lstm_gates": 0,
                                "barotropic_step": 0, "halo_exchange": 0,
                                "overlap_conv": 0, "overlap_conv_db": 0,
-                               "cube_pad": 0}
+                               "cube_pad": 0, "cyclic_conv": 0}
 
 
 @pytest.mark.parametrize("case", ["odd_grid", "bad_kernel", "meta_device",

@@ -232,6 +232,12 @@ def test_rollout_records_its_steps_layers_and_kernel_wrappers():
     pool_ids = {r.id for r in got["layer.FusedConvPool2D"]}
     assert len(got["kernel.fused_conv_pool"]) == len(pool_ids)
     assert all(r.parent in pool_ids for r in got["kernel.fused_conv_pool"])
+    # The tower's four small-grid convs, one cyclic conv each, inside
+    # their CyclicConv2D and UpConv2D layers.
+    conv_ids = {r.id for name in ("layer.CyclicConv2D", "layer.UpConv2D")
+                for r in got[name]}
+    assert len(got["kernel.cyclic_conv"]) == 4 * steps
+    assert all(r.parent in conv_ids for r in got["kernel.cyclic_conv"])
 
 
 def _trainer(n_train=24, n_val=10, batch=4):
