@@ -33,6 +33,8 @@ from dlwp_torch.data.cfs import (
 from dlwp_torch.data.era5 import PRESSURE_LEVELS, ERA5Reanalysis
 from dlwp_torch.data.grib_params import GRIB2_PARAMS, lookup
 
+from tests.torch_port_threads import one_blas_thread  # noqa: F401
+
 TOL_REGRID = 1e-12
 
 

@@ -48,6 +48,8 @@ from dlwp_torch.data.preprocessing import _varlev_names
 from dlwp_torch.forecast import verify as tverify
 from dlwp_torch.ops.losses import latitude_weighted_loss, mse
 
+from tests.torch_port_threads import one_blas_thread  # noqa: F401
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 import chip_smoke  # noqa: E402  the port's barotropic baseline

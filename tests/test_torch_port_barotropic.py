@@ -47,6 +47,8 @@ from dlwp_torch.kernels.barotropic_step import (
     pair_entries,
 )
 
+from tests.torch_port_threads import one_blas_thread  # noqa: F401
+
 torch.set_num_threads(2)
 GOLDEN = os.path.join(os.path.dirname(__file__), "fixtures", "golden.npz")
 TOL_F64 = 1e-10  # x scale: float64, sum order only

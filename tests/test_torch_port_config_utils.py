@@ -32,6 +32,8 @@ from dlwp_torch.parallel.mesh import MeshConfig
 from dlwp_torch.train import TrainConfig
 from dlwp_torch.utils import profiling
 
+from tests.torch_port_threads import one_blas_thread  # noqa: F401
+
 torch.set_num_threads(2)
 
 

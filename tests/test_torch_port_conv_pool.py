@@ -43,6 +43,8 @@ from dlwp_torch.kernels.fused_conv_pool import (
 )
 from test_torch_port_overlap import _emulate
 
+from tests.torch_port_threads import one_blas_thread  # noqa: F401
+
 torch.set_num_threads(2)
 
 # (B, C, H, W, O, dilation). The flagship's encoder stages at B=64.

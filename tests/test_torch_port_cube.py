@@ -43,6 +43,8 @@ from dlwp_torch.weights import flax_tree, load_flax_params
 from h100bench import inputs, specs
 from h100bench.reference import cube_unet as ref
 
+from tests.torch_port_threads import one_blas_thread  # noqa: F401
+
 torch.set_num_threads(2)
 
 N = 8

@@ -28,6 +28,8 @@ from dlwp_torch.kernels import (
     reset_launch_counts,
 )
 
+from tests.torch_port_threads import one_blas_thread  # noqa: F401
+
 # The modules (the package's names are the wrappers).
 conv_pool_module = importlib.import_module("dlwp_torch.kernels.fused_conv_pool")
 gates_module = importlib.import_module("dlwp_torch.kernels.lstm_gates")

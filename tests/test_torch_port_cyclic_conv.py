@@ -52,6 +52,8 @@ from dlwp_torch.models.cnn import build_sequential
 from dlwp_torch.ops.conv import conv_after_upsample2, cyclic_conv2d
 from test_torch_port_overlap import _emulate
 
+from tests.torch_port_threads import one_blas_thread  # noqa: F401
+
 torch.set_num_threads(2)
 OP = torch.ops.dlwp_torch.cyclic_conv.default
 

@@ -57,6 +57,8 @@ from dlwp_torch.train import (
 )
 from dlwp_torch.train import optim
 
+from tests.torch_port_threads import one_blas_thread  # noqa: F401
+
 torch.set_num_threads(1)
 TOL = 1e-10
 TOL_OPT = 1e-12

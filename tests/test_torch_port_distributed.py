@@ -423,6 +423,8 @@ from dlwp_torch.parallel.distributed import (  # noqa: E402
     process_index,
 )
 
+from tests.torch_port_threads import one_blas_thread  # noqa: E402,F401
+
 
 def _free_port() -> int:
     with socket.socket() as s:
@@ -615,10 +617,16 @@ def test_spectral_core_across_processes_matches_jax(ranks, part):
         jsh = JSH.build(JGrid.gaussian(SPEC_NLAT, SPEC_NLON), SPEC_T,
                         dtype=jnp.float64)
         field, spec = spectral_fields()
-        u, v = jsh.uv_from_vrtdiv(jnp.asarray(spec), jnp.asarray(0.5 * spec))
-        want = {"sph_analyze": jsh.analyze(jnp.asarray(field)),
-                "sph_synthesize": jsh.synthesize(jnp.asarray(spec)),
-                "sph_u": u, "sph_v": v}
+
+        def transforms(field, spec, half):
+            u, v = jsh.uv_from_vrtdiv(spec, half)
+            return {"sph_analyze": jsh.analyze(field),
+                    "sph_synthesize": jsh.synthesize(spec),
+                    "sph_u": u, "sph_v": v}
+
+        # One compiled program.
+        want = jax.jit(transforms)(jnp.asarray(field), jnp.asarray(spec),
+                                   jnp.asarray(0.5 * spec))
         for _, arrays in ranks:
             for key, w in want.items():
                 w = np.asarray(w)
@@ -638,9 +646,17 @@ def test_spectral_core_across_processes_matches_jax(ranks, part):
             assert rel <= 1e-12, (key, rel)
 
 
-def _jax_fit():
+@pytest.fixture(scope="module")
+def jax_fit():
     """The JAX Trainer's 3 steps on the whole batches from rank 0's
-    initial weights: (step losses, history, parameter leaves)."""
+    initial weights: (step losses, history, parameter leaves); one run
+    for every layout's check."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.delenv("DLWP_CONVLSTM_JOINT", raising=False)
+        return _jax_fit()
+
+
+def _jax_fit():
     xs, ys = train_data()
     init = build_sequential(small_specs(), device="cpu")
     init.init(torch.from_numpy(xs[:1]), seed=0)
@@ -663,9 +679,9 @@ def _jax_fit():
     return steps, hist.history["loss"], leaves
 
 
-def _check_training(got, prefix, steps_key, history_key):
+def _check_training(got, prefix, steps_key, history_key, jax_fit):
     """Every rank's steps, history and parameters (``prefix`` keys):
-    bit-equal across ranks, and the JAX Trainer's to 1e-9."""
+    bit-equal across ranks, and the JAX Trainer's (``jax_fit``) to 1e-9."""
     i0, a0 = got[0]
     keys = sorted(k for k in a0 if k.startswith(prefix))
     for info, arrays in got[1:]:
@@ -676,7 +692,7 @@ def _check_training(got, prefix, steps_key, history_key):
     assert len(i0[steps_key]) == 3
     np.testing.assert_allclose(i0[history_key][0], np.mean(i0[steps_key]),
                                rtol=1e-15)
-    steps, history, want = _jax_fit()
+    steps, history, want = jax_fit
     np.testing.assert_allclose(i0[steps_key], steps, rtol=TOL_RUN, atol=0)
     np.testing.assert_allclose(i0[history_key], history, rtol=TOL_RUN,
                                atol=0)
@@ -692,18 +708,18 @@ def _check_training(got, prefix, steps_key, history_key):
                                    atol=TOL_RUN * max(1.0, np.abs(w_).max()))
 
 
-def test_data_parallel_training_matches_jax(ranks, monkeypatch):
+def test_data_parallel_training_matches_jax(ranks, jax_fit, monkeypatch):
     """3 train steps (one epoch of 12 samples at B=4) with each rank on
     half of every batch, against the JAX Trainer on the whole batches
     from rank 0's initial weights."""
     monkeypatch.delenv("DLWP_CONVLSTM_JOINT", raising=False)
-    _check_training(ranks, "param/", "steps", "history")
+    _check_training(ranks, "param/", "steps", "history", jax_fit)
 
 
 @pytest.mark.parametrize("layout", ["lat 4 over 2 ranks",
                                     "data 2 x lat 2 over 4 ranks"])
-def test_lat_across_processes_training_matches_jax(request, monkeypatch,
-                                                   layout):
+def test_lat_across_processes_training_matches_jax(request, jax_fit,
+                                                   monkeypatch, layout):
     """The same 3 train steps, float64, with the lat axis across the
     ranks: lat 4 over 2 ranks (every rank on the whole batch), and data 2
     across ranks x lat 2 across ranks (gradients averaged over the data
@@ -711,10 +727,10 @@ def test_lat_across_processes_training_matches_jax(request, monkeypatch,
     monkeypatch.delenv("DLWP_CONVLSTM_JOINT", raising=False)
     if layout.startswith("lat"):
         _check_training(request.getfixturevalue("ranks"), "lat_param/",
-                        "lat_steps", "lat_history")
+                        "lat_steps", "lat_history", jax_fit)
     else:
         _check_training(request.getfixturevalue("grid_ranks"),
-                        "grid_param/", "grid_steps", "grid_history")
+                        "grid_param/", "grid_steps", "grid_history", jax_fit)
 
 
 def test_checkpoint_written_by_rank_0_and_resumed_by_both(ranks):

@@ -50,6 +50,8 @@ from dlwp_torch.examples import _synthetic, write_predictors
 from dlwp_torch.parallel import MeshConfig, build_mesh
 from dlwp_torch.train import Trainer
 
+from tests.torch_port_threads import one_blas_thread  # noqa: F401
+
 torch.set_num_threads(2)
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 EXAMPLES = ROOT / "examples"
@@ -362,20 +364,30 @@ def test_one_segment_archive_runs_the_fused_step(monkeypatch):
                                atol=TOL_ARCHIVE * np.abs(want).max())
 
 
+RUN_BAROTROPIC = ["--hours", "12", "--n-init", "1"]
+
+
+@pytest.fixture(scope="module")
+def jax_barotropic_run(tmp_path_factory):
+    """The JAX ``run_barotropic``'s file for :data:`RUN_BAROTROPIC`, run
+    once for both of the port's step implementations."""
+    path = tmp_path_factory.mktemp("run_barotropic") / "j.h5"
+    run_jax("run_barotropic", RUN_BAROTROPIC + ["--output-file", str(path)])
+    return path
+
+
 @pytest.mark.parametrize("impl", ["plain", "kernel"])
-def test_run_barotropic_matches_jax(impl, tmp_path):
+def test_run_barotropic_matches_jax(impl, jax_barotropic_run, tmp_path):
     """One init time, 12 hours at T42 on 73x144; 'kernel' is the fused
     step's plain version here, one member."""
     import h5py
 
-    common = ["--hours", "12", "--n-init", "1"]
-    _, out = run_port("run_barotropic", common + [
+    _, out = run_port("run_barotropic", RUN_BAROTROPIC + [
         "--device", "cpu", "--step-impl", impl,
         "--output-file", str(tmp_path / "p.h5")])
-    run_jax("run_barotropic", common + ["--output-file",
-                                        str(tmp_path / "j.h5")])
     assert "integrated 1 x 24 steps" in out and "saved" in out
-    with h5py.File(tmp_path / "p.h5") as fp, h5py.File(tmp_path / "j.h5") as fj:
+    with h5py.File(tmp_path / "p.h5") as fp, h5py.File(
+            jax_barotropic_run) as fj:
         assert sorted(fp) == sorted(fj)
         for k in ("f_hour", "lat", "lon", "init_time"):
             np.testing.assert_array_equal(fp[k][:], fj[k][:])

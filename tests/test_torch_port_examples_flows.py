@@ -22,10 +22,14 @@ import torch
 
 import jax
 
+from dlwp_tpu.train import History as JHistory
+from dlwp_tpu.train import Trainer as JTrainer
 from dlwp_tpu.utils import load_model as jax_load_model
 
 from dlwp_torch import flax_tree, load_model
 from dlwp_torch.examples import write_predictors
+
+from tests.torch_port_threads import one_blas_thread  # noqa: F401
 
 torch.set_num_threads(2)
 ROOT = pathlib.Path(__file__).resolve().parent.parent
@@ -141,6 +145,17 @@ def test_train_distributed_virtual(pfile, data, lat):
     assert net.trainer.mesh.shape == {"data": data, "lat": lat}
 
 
+def _init_without_training(self, generator=None, **kwargs):
+    """``dlwp_tpu.train.Trainer.fit``'s parameter init from the first
+    batch, without its epochs. It mirrors the init of ``Trainer.fit`` in
+    ``dlwp_tpu/train/trainer.py`` (its ``if self.params is None`` branch;
+    ``fit_device``'s init is the same, ``self.init(generator[0][0][:1])``),
+    so the tree is the one that fit would train."""
+    x0, _ = generator[0]
+    self.init(jax.numpy.asarray(np.asarray(x0))[:1])
+    return JHistory()
+
+
 def _shapes(tree):
     return {"/".join(str(getattr(k, "key", k)) for k in path): tuple(v.shape)
             for path, v in jax.tree_util.tree_flatten_with_path(tree)[0]}
@@ -187,9 +202,13 @@ def test_training_scripts_build_the_jax_models(name, pfile, tmp_path):
     assert "saved" in out and np.isfinite(hist.history["loss"]).all()
     x = np.random.RandomState(0).randn(3, *item).astype(np.float32)
     if jax_tree is None:
-        # The script's specs are inline: the JAX script's own saved model.
+        # The script's specs are inline: the JAX script's own saved model,
+        # its parameters initialised as its fit would and not trained (only
+        # their names and shapes are compared).
         mod = jax_script(name)
-        with examples_on_path(), contextlib.redirect_stdout(io.StringIO()):
+        with examples_on_path(), contextlib.redirect_stdout(io.StringIO()), \
+                pytest.MonkeyPatch.context() as mp:
+            mp.setattr(JTrainer, "fit", _init_without_training)
             mod.main(argv[:-2] + ["--model-file", str(tmp_path / "j")])
         want = jax_load_model(str(tmp_path / "j")).trainer.params
     else:

@@ -34,6 +34,8 @@ from dlwp_torch.models import layers as TL
 from dlwp_torch.models.cnn import SequentialModel
 from dlwp_torch.weights import load_flax_params
 
+from tests.torch_port_threads import one_blas_thread  # noqa: F401
+
 torch.set_num_threads(2)
 TOL = 1e-10
 

@@ -39,6 +39,8 @@ from dlwp_torch.data import (
 )
 from dlwp_torch.data import sampler as tsampler
 
+from tests.torch_port_threads import one_blas_thread  # noqa: F401
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOL_STATS = 1e-12
 

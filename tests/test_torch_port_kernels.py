@@ -34,6 +34,8 @@ from dlwp_torch.kernels import (
 )
 from dlwp_torch.ops.padding import cube_pad_plain
 
+from tests.torch_port_threads import one_blas_thread  # noqa: F401
+
 torch.set_num_threads(2)
 
 

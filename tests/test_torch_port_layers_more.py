@@ -41,6 +41,8 @@ from dlwp_torch.ops import padding as tpad
 from dlwp_torch.ops.pooling import max_pool2d
 from dlwp_torch.parallel import MeshConfig, SpatialSharding, build_mesh
 
+from tests.torch_port_threads import one_blas_thread  # noqa: F401
+
 torch.set_num_threads(1)
 TOL = 1e-10
 CPU = torch.device("cpu")
@@ -53,6 +55,17 @@ def _plain_convlstm_joint(monkeypatch):
 
 def rand(*shape, seed=0):
     return np.random.RandomState(seed).randn(*shape)
+
+
+def jax_out_and_grad(apply, params, x, ct):
+    """``apply(params, x)`` and the parameter gradient of
+    ``sum(apply(params, x) * ct)`` (the cotangent that ``jax.grad`` of the
+    sum hands the output is ``ct``), from one compiled program."""
+    def both(p):
+        out, vjp = jax.vjp(lambda q: apply(q, x), p)
+        return out, vjp(ct)[0]
+
+    return jax.jit(both)(params)
 
 
 def close(got, want, tol=TOL):
@@ -219,16 +232,15 @@ def test_spec_models_match_jax(case):
     jm = jax_build(specs)
     layout = jax.eval_shape(jm.init, jax.random.PRNGKey(0), jnp.asarray(x))
     assert _tree_paths(tree) == _tree_paths(layout)
-    want = np.asarray(jax.jit(jm.apply)(tree, jnp.asarray(x)))
+    jtree = jax.tree.map(jnp.asarray, tree)
+    g = rand(*jax.eval_shape(jm.apply, jtree, jnp.asarray(x)).shape, seed=4)
+    want, jgrad = jax_out_and_grad(jm.apply, jtree, jnp.asarray(x), g)
+    want = np.asarray(want)
     got = tm(torch.from_numpy(x))
     assert tuple(got.shape) == want.shape
     close(got.detach(), want)
     if not tree["params"]:
         return
-    g = rand(*want.shape, seed=4)
-    jgrad = jax.jit(jax.grad(
-        lambda p: jnp.sum(jm.apply(p, jnp.asarray(x)) * g)))(
-        jax.tree.map(jnp.asarray, tree))
     params = list(tm.parameters())
     for p in params:
         p.requires_grad_(True)
@@ -253,17 +265,14 @@ def test_split_conv_pool_matches_jax(d, act):
     leaves = flax_tree(tm)["params"]["layers_0"]
     jl = JL.SplitConvPool2D(features=6, keep=4, dilation=d, activation=act)
     jp = {"params": jax.tree.map(jnp.asarray, leaves)}
-    want = jl.apply(jp, jnp.asarray(x))
+    g1, g2 = (rand(*w.shape, seed=6 + i) for i, w in enumerate(
+        jax.eval_shape(jl.apply, jp, jnp.asarray(x))))
+    # The gradient of sum(a * g1) + sum(b * g2).
+    want, jgrad = jax_out_and_grad(jl.apply, jp, jnp.asarray(x), (g1, g2))
+    jgrad = jgrad["params"]
     got = tm(torch.from_numpy(x))
     for a, b in zip(got, want):
         close(a.detach(), b)
-    g1, g2 = (rand(*np.shape(w), seed=6 + i) for i, w in enumerate(want))
-
-    def loss(p):
-        a, b = jl.apply(p, jnp.asarray(x))
-        return jnp.sum(a * g1) + jnp.sum(b * g2)
-
-    jgrad = jax.grad(loss)(jp)["params"]
     layer = tm.layers[0]
     for p in layer.parameters():
         p.requires_grad_(True)
@@ -290,13 +299,12 @@ def test_skip_tower_matches_jax(time_steps):
     assert (_tree_paths(tree["params"]["layers_0"])
             == _tree_paths(layout["params"]))
     jp = {"params": jax.tree.map(jnp.asarray, tree["params"]["layers_0"])}
-    want = np.asarray(jax.jit(jm.apply)(jp, jnp.asarray(x)))
+    g = rand(*jax.eval_shape(jm.apply, jp, jnp.asarray(x)).shape, seed=8)
+    want, jgrad = jax_out_and_grad(jm.apply, jp, jnp.asarray(x), g)
+    want = np.asarray(want)
     got = tm(torch.from_numpy(x))
     assert tuple(got.shape) == want.shape == (2, 2, H, W)
     close(got.detach(), want)
-    g = rand(*want.shape, seed=8)
-    jgrad = jax.jit(jax.grad(
-        lambda p: jnp.sum(jm.apply(p, jnp.asarray(x)) * g)))(jp)
     for p in tm.parameters():
         p.requires_grad_(True)
     (tm(torch.from_numpy(x)) * torch.from_numpy(g)).sum().backward()

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from dlwp_tpu.models import build_sequential as jax_build
@@ -20,6 +21,8 @@ from dlwp_torch import build_sequential, load_flax_params, tree_from_leaves
 from dlwp_torch.flagship import convlstm_specs
 from dlwp_torch.models import layers as TL
 from dlwp_torch.models.cnn import SequentialModel
+
+from tests.torch_port_threads import one_blas_thread  # noqa: F401
 
 torch.set_num_threads(2)
 TOL = 1e-10
@@ -41,7 +44,7 @@ def _run_layer(jax_layer, make_port_layer, x):
     """Same random weights through the JAX layer and a fresh port layer
     filled by ``load_flax_params``."""
     tree = _random_tree(SequentialModel([make_port_layer()], device="cpu"), x)
-    want = np.asarray(jax_layer.apply(
+    want = np.asarray(jax.jit(jax_layer.apply)(
         {"params": tree["params"]["layers_0"]}, jnp.asarray(x)))
     model = SequentialModel([make_port_layer()], device="cpu")
     load_flax_params(model, tree, dtype=torch.float64)
@@ -126,7 +129,7 @@ def flagship():
     x = np.random.RandomState(13).randn(2, 2, 3, 8, 16)
     jm = jax_build(specs)
     params = _random_tree(build_sequential(specs, device="cpu"), x, seed=1)
-    want = np.asarray(jm.apply(params, jnp.asarray(x)))
+    want = np.asarray(jax.jit(jm.apply)(params, jnp.asarray(x)))
     return specs, x, jm, params, want
 
 

@@ -17,6 +17,8 @@ from dlwp_torch.data import native
 from dlwp_torch.data import sampler as tsampler
 from dlwp_torch.kernels import _build
 
+from tests.torch_port_threads import one_blas_thread  # noqa: F401
+
 # (series shape, samples, offsets, channels): the flagship's batch shape
 # at a small grid, duplicated and unsorted samples and channels, one
 # sample, one channel, more threads than samples.

@@ -21,6 +21,8 @@ from dlwp_torch.ops import conv as tconv
 from dlwp_torch.ops import padding as tpad
 from dlwp_torch.ops import pooling as tpool
 
+from tests.torch_port_threads import one_blas_thread  # noqa: F401
+
 torch.set_num_threads(2)
 # The grid packages re-export the function ``insolation`` over the module.
 jins = importlib.import_module("dlwp_tpu.grid.insolation")

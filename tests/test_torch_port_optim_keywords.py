@@ -19,6 +19,8 @@ from dlwp_tpu.train.trainer import resolve_optimizer as jax_optimizer
 
 from dlwp_torch.train.trainer import resolve_optimizer
 
+from tests.torch_port_threads import one_blas_thread  # noqa: F401
+
 TOL = 1e-12
 LR = 3e-2
 

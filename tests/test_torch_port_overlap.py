@@ -25,6 +25,8 @@ import torch
 from dlwp_torch.kernels._tiling import MAX_SMEM as _MAX_SMEM
 from dlwp_torch.kernels.overlap_conv import _plan, _tile
 
+from tests.torch_port_threads import one_blas_thread  # noqa: F401
+
 # (B, C, H of a shard, W, O, chunk, shards on the card); chunk None is
 # the single-shot form. The flagship's launches on the lat=2 mesh of one
 # card: five a step at B=64, three at B=8.

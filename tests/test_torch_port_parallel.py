@@ -58,6 +58,8 @@ from dlwp_torch.parallel import (
 from dlwp_torch.parallel.mesh import join_shards, split_shards
 from dlwp_torch.parallel.pallas_halo import pallas_halo_exchange_lat
 
+from tests.torch_port_threads import one_blas_thread  # noqa: F401
+
 torch.set_num_threads(1)
 CPU = torch.device("cpu")
 LAT_SPEC = P(None, None, "lat", None)

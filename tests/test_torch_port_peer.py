@@ -43,6 +43,8 @@ from dlwp_torch.ops.padding import pad_latlon
 from dlwp_torch.parallel import SpatialSharding
 from dlwp_torch.parallel.mesh import Mesh, Remote, split_shards
 
+from tests.torch_port_threads import one_blas_thread  # noqa: F401
+
 # The module (the package exports a function of the same name).
 hx = importlib.import_module("dlwp_torch.kernels.halo_exchange")
 C0, C1, C2, C3 = (torch.device("cuda", i) for i in range(4))

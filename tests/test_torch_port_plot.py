@@ -29,6 +29,8 @@ from dlwp_torch.plot import (
     zonal_mean_plot,
 )
 
+from tests.torch_port_threads import one_blas_thread  # noqa: F401
+
 
 def test_backend_is_agg():
     assert matplotlib.get_backend().lower() == "agg"

@@ -23,6 +23,8 @@ from dlwp_torch import DLWPNeuralNet, PredictorDataset, SeriesSampler
 from dlwp_torch import TimeSeriesEstimator
 from dlwp_torch.flagship import convlstm_specs
 
+from tests.torch_port_threads import one_blas_thread  # noqa: F401
+
 torch.set_num_threads(2)
 TOL = 1e-10
 NLAT, NLON, C, TD = 8, 16, 2, 2
@@ -42,6 +44,18 @@ CASES = {
         ],
         output_sel=["HGT/500"], scaler_type="standard", samples=[0, 2, 3],
         predict=dict(unscale=True),
+    ),
+    # 2 input and 3 output steps, the next window seeded from the last
+    # outputs (prefer_first_times=False): it advances 3 steps, not 2
+    "later_times": dict(
+        specs=[
+            ("ConvLSTM2D", (4, 3), {"dilation": 2, "activation": "tanh"}),
+            ("Reshape", ((TD * 4, NLAT, NLON),), None),
+            ("CyclicConv2D", (3 * C, 3), {}),
+            ("Reshape", ((3, C, NLAT, NLON),), None),
+        ],
+        output_sel=None, scaler_type=None, samples=[0, 1, 4],
+        steps=(TD, 3), predict=dict(prefer_first_times=False),
     ),
 }
 
@@ -64,9 +78,10 @@ def _stack(net_cls, sampler_cls, dataset_cls, case, **net_kw):
     net = net_cls(time_dim=TD, is_recurrent=True,
                   scaler_type=case["scaler_type"], **net_kw)
     net.build_model(case["specs"])
+    in_ts, out_ts = case.get("steps", (TD, TD))
     sampler = sampler_cls(
-        dataset_cls(**_dataset_kwargs()), model=net, input_time_steps=TD,
-        output_time_steps=TD, output_sel=case["output_sel"],
+        dataset_cls(**_dataset_kwargs()), model=net, input_time_steps=in_ts,
+        output_time_steps=out_ts, output_sel=case["output_sel"],
         add_insolation=True, dtype=np.float64,
     )
     if case["scaler_type"]:

@@ -24,6 +24,8 @@ from dlwp_torch.flagship import convlstm_specs
 from dlwp_torch.parallel import MeshConfig, SpatialSharding, build_mesh
 from dlwp_torch.serve import Servable, export_program
 
+from tests.torch_port_threads import one_blas_thread  # noqa: F401
+
 torch.set_num_threads(2)
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 # The JAX package and its scripts: ``examples/``'s modules, its
@@ -54,6 +56,23 @@ def test_port_imports_no_jax(path):
 def test_package_found_its_files():
     assert len(_port_files()) > 15
     assert pathlib.Path(dlwp_torch.__file__).parent == ROOT / "dlwp_torch"
+
+
+def _cpu_test_files():
+    return [p for p in sorted((ROOT / "tests").glob("test_torch_port_*.py"))
+            if not p.stem.endswith("_cuda")]
+
+
+@pytest.mark.parametrize("path", _cpu_test_files(), ids=lambda p: p.stem)
+def test_port_test_file_holds_blas_to_one_thread(path):
+    """Every port test file but the card-only ones imports the fixture of
+    ``tests/torch_port_threads.py``: one that leaves it out runs its BLAS
+    on every core of every worker, and the suite slows down unseen."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    assert any(isinstance(node, ast.ImportFrom)
+               and node.module == "tests.torch_port_threads"
+               and [a.name for a in node.names] == ["one_blas_thread"]
+               for node in tree.body), path
 
 
 @pytest.mark.parametrize("entry", ["resolve_device", "build_sequential",

@@ -70,6 +70,8 @@ from dlwp_torch.serve import (
     export_rollout,
 )
 
+from tests.torch_port_threads import one_blas_thread  # noqa: F401
+
 torch.set_num_threads(2)
 TOL_EAGER = 1e-6
 TOL_JAX = 1e-5
@@ -94,19 +96,39 @@ def _specs(kind, time_dim, c, nlat, nlon):
     return convlstm_specs(nlat, nlon, c, time_dim)
 
 
+def _jax_net(kind, time_dim, c, nlat, nlon, scaler_type=None):
+    """The JAX model of ``_models``, its parameters not yet made, and the
+    input it is made for."""
+    recurrent = kind != "plain"
+    shape = ((4, time_dim, c, nlat, nlon) if recurrent
+             else (4, time_dim * c, nlat, nlon))
+    x = np.random.RandomState(0).randn(*shape).astype(np.float32)
+    jnet = JaxNet(is_recurrent=recurrent, time_dim=time_dim,
+                  scaler_type=scaler_type)
+    jnet.build_model(_specs(kind, time_dim, c, nlat, nlon))
+    return jnet, x
+
+
+@functools.cache
+def _jax_params(kind, time_dim, c, nlat, nlon):
+    """The parameters of ``Trainer.init`` for ``_jax_net``'s model, from one
+    compiled init (bit for bit those of the trainer's op-by-op init:
+    ``test_compiled_jax_init_is_the_trainers``), made once a model for
+    every test of it."""
+    jnet, x = _jax_net(kind, time_dim, c, nlat, nlon)
+    return jax.jit(jnet.trainer.model.init)(
+        jax.random.PRNGKey(jnet.trainer.config.seed), x)
+
+
 def _models(kind="plain", time_dim=2, c=2, nlat=8, nlon=16, scaler_type=None):
     """The JAX and port models of ``tests/test_serve.py``'s ``_small_model``
     (and the 16x32 flagship), JAX weights loaded into the port, with the
     port's parameters requiring grad as after its trainer's init."""
     recurrent = kind != "plain"
     specs = _specs(kind, time_dim, c, nlat, nlon)
-    shape = ((4, time_dim, c, nlat, nlon) if recurrent
-             else (4, time_dim * c, nlat, nlon))
-    x = np.random.RandomState(0).randn(*shape).astype(np.float32)
-    jnet = JaxNet(is_recurrent=recurrent, time_dim=time_dim,
-                  scaler_type=scaler_type)
-    jnet.build_model(specs)
-    jnet.trainer.init(x)
+    jnet, x = _jax_net(kind, time_dim, c, nlat, nlon, scaler_type)
+    jnet.trainer.params = _jax_params(kind, time_dim, c, nlat, nlon)
+    jnet.trainer.opt_state = jnet.trainer.tx.init(jnet.trainer.params)
     net = DLWPNeuralNet(is_recurrent=recurrent, time_dim=time_dim,
                         scaler_type=scaler_type, device="cpu")
     net.build_model(specs)
@@ -118,6 +140,22 @@ def _models(kind="plain", time_dim=2, c=2, nlat=8, nlon=16, scaler_type=None):
 
 def _rel(got, want):
     return np.abs(got - want).max() / np.abs(want).max()
+
+
+def test_compiled_jax_init_is_the_trainers():
+    """``_models``' JAX parameters and Adam state, from one compiled init,
+    are ``Trainer.init``'s bit for bit."""
+    _, jnet, _ = _models()
+    want, x = _jax_net("plain", 2, 2, 8, 16)
+    want.trainer.init(x)
+    for name in ("params", "opt_state"):
+        got_leaves, got_tree = jax.tree_util.tree_flatten(
+            getattr(jnet.trainer, name))
+        want_leaves, want_tree = jax.tree_util.tree_flatten(
+            getattr(want.trainer, name))
+        assert got_tree == want_tree, name
+        for got, ref in zip(got_leaves, want_leaves):
+            np.testing.assert_array_equal(np.asarray(got), np.asarray(ref))
 
 
 # (model, time steps, step_sequence): test_serve's parity, step_sequence

@@ -9,6 +9,8 @@ summed, only where, so the transforms agree to 1e-12 x the output's scale
 limit for its sharded model (``tests/test_parallel.py``).
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -31,6 +33,8 @@ from dlwp_torch.parallel import (
     ShardedSphericalHarmonics,
     build_mesh,
 )
+
+from tests.torch_port_threads import one_blas_thread  # noqa: F401
 
 torch.set_num_threads(2)
 TOL = 1e-12
@@ -73,22 +77,24 @@ def test_sharded_transforms_match_unsharded_and_jax(lat, fold):
     spec = _spec(rng, (3,), T)
     u, v = rng.randn(3, nlat, nlon), rng.randn(3, nlat, nlon)
     t = torch.from_numpy
-    _close(ssh.analyze(t(field)), sh.analyze(t(field)))
-    _close(ssh.analyze(t(field)), jssh.analyze(jnp.asarray(field)))
-    _close(ssh.synthesize(t(spec)), sh.synthesize(t(spec)))
-    _close(ssh.synthesize(t(spec)), jssh.synthesize(jnp.asarray(spec)))
-    for got, flat, ref in zip(
-            ssh.uv_from_vrtdiv(t(spec), t(0.5 * spec)),
-            sh.uv_from_vrtdiv(t(spec), t(0.5 * spec)),
-            jssh.uv_from_vrtdiv(jnp.asarray(spec), jnp.asarray(0.5 * spec))):
-        _close(got, flat)
-        _close(got, ref)
-    for got, flat, ref in zip(ssh.vrtdiv_from_uv(t(u), t(v)),
-                              sh.vrtdiv_from_uv(t(u), t(v)),
-                              jssh.vrtdiv_from_uv(jnp.asarray(u),
-                                                  jnp.asarray(v))):
-        _close(got, flat)
-        _close(got, ref)
+
+    def transforms(e, field, spec, half, u, v):
+        return (e.analyze(field), e.synthesize(spec),
+                e.uv_from_vrtdiv(spec, half), e.vrtdiv_from_uv(u, v))
+
+    inputs = (field, spec, 0.5 * spec, u, v)
+    got = transforms(ssh, *map(t, inputs))
+    flat = transforms(sh, *map(t, inputs))
+    # JAX's side, one compiled program.
+    ref = jax.jit(functools.partial(transforms, jssh))(
+        *map(jnp.asarray, inputs))
+    for i in range(2):
+        _close(got[i], flat[i])
+        _close(got[i], ref[i])
+    for i in range(2, 4):
+        for g, f, r in zip(got[i], flat[i], ref[i]):
+            _close(g, f)
+            _close(g, r)
 
 
 def test_shard_layout_and_transposes():

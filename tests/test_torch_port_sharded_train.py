@@ -66,6 +66,8 @@ from dlwp_torch.parallel.mesh import join_tiles, split_tiles
 from dlwp_torch.parallel.spatial import _FastConv
 from dlwp_torch.train import TrainConfig, Trainer
 
+from tests.torch_port_threads import one_blas_thread  # noqa: F401
+
 torch.set_num_threads(1)
 CPU = torch.device("cpu")
 TOL_EXACT = 1e-12
@@ -195,7 +197,8 @@ def test_tile_grads_match_jax():
             xx, NamedSharding(jm, js.activation_spec(4)))
         return jnp.sum(js.conv(xx, kk) ** 2)
 
-    want = jax.grad(jloss, argnums=(0, 1))(jnp.asarray(x), jnp.asarray(k))
+    want = jax.jit(jax.grad(jloss, argnums=(0, 1)))(jnp.asarray(x),
+                                                    jnp.asarray(k))
     _, got = grads(ps.conv, torch.from_numpy(x), torch.from_numpy(k))
     _, single = grads(cyclic_conv2d, torch.from_numpy(x), torch.from_numpy(k))
     for g, w, s in zip(got, want, single):
@@ -235,10 +238,16 @@ def test_fast_conv_grads_match_ppermute_and_jax(impl):
     jcfg = JaxSpatial(mesh=JaxMesh(np.asarray(jax.devices()[:2]), ("lat",)),
                       data_axis=None, impl=impl, interpret=True)
     x32, k32 = x.astype(np.float32), k.astype(np.float32)
-    jout = jax_fast_conv(jnp.asarray(x32), jnp.asarray(k32), jcfg, (1, 1))
-    jgrads = jax.grad(lambda a, b: jnp.sum(jax_fast_conv(a, b, jcfg, (1, 1))
-                                           ** 2), argnums=(0, 1))(
-        jnp.asarray(x32), jnp.asarray(k32))
+
+    def jax_out_and_grads(a, b):
+        # The output, and the gradient of sum(out ** 2): the cotangent
+        # 2 * out, as jax.grad of the sum passes it.
+        out, vjp = jax.vjp(lambda a, b: jax_fast_conv(a, b, jcfg, (1, 1)),
+                           a, b)
+        return out, vjp(2.0 * out)
+
+    jout, jgrads = jax.jit(jax_out_and_grads)(jnp.asarray(x32),
+                                              jnp.asarray(k32))
     calls = []
     real = _FastConv.apply
     try:

@@ -41,6 +41,8 @@ from dlwp_torch.train.optim import adam
 from dlwp_torch.utils import profiling
 from dlwp_torch.utils.profiling import span
 
+from tests.torch_port_threads import one_blas_thread  # noqa: F401
+
 torch.set_num_threads(1)
 H, W, C, TD = 8, 16, 2, 2
 LAT = np.linspace(70.0, -70.0, H)

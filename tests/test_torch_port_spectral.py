@@ -7,10 +7,13 @@ order of their sums (torch einsum/FFT vs XLA), so they agree to
 1e-12 x the scale of the output.
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from dlwp_tpu.grid import LatLonGrid as JaxGrid
@@ -20,6 +23,8 @@ from dlwp_tpu.spectral.transforms import dft_tables as jax_dft_tables
 
 from dlwp_torch.grid import LatLonGrid, clenshaw_curtis_weights, gaussian_latitudes
 from dlwp_torch.spectral import SphericalHarmonics, dft_tables, legendre_tables
+
+from tests.torch_port_threads import one_blas_thread  # noqa: F401
 
 torch.set_num_threads(2)
 RTOL_TABLES = 1e-12  # same float64 numpy code
@@ -133,17 +138,21 @@ def test_transforms_match(kind, nlat, nlon, T, fourier, lead):
     u, v = 10.0 * rng.randn(2, *lead, nlat, nlon)
     t = torch.from_numpy
 
-    _close(psh.synthesize(t(vrt)), jsh.synthesize(jnp.asarray(vrt)))
-    _close(psh.analyze(t(field)), jsh.analyze(jnp.asarray(field)))
-    _close(psh.laplacian(t(field)), jsh.laplacian(jnp.asarray(field)))
-    for got, want in zip(psh.gradients(t(vrt)), jsh.gradients(jnp.asarray(vrt))):
-        _close(got, want)
-    for got, want in zip(psh.uv_from_vrtdiv(t(vrt), t(div)),
-                         jsh.uv_from_vrtdiv(jnp.asarray(vrt), jnp.asarray(div))):
-        _close(got, want)
-    for got, want in zip(psh.vrtdiv_from_uv(t(u), t(v)),
-                         jsh.vrtdiv_from_uv(jnp.asarray(u), jnp.asarray(v))):
-        _close(got, want)
+    def transforms(sh, vrt, div, field, u, v):
+        return (sh.synthesize(vrt), sh.analyze(field), sh.laplacian(field),
+                sh.gradients(vrt), sh.uv_from_vrtdiv(vrt, div),
+                sh.vrtdiv_from_uv(u, v))
+
+    inputs = (vrt, div, field, u, v)
+    got = transforms(psh, *map(t, inputs))
+    # JAX's side, one compiled program.
+    want = jax.jit(functools.partial(transforms, jsh))(
+        *map(jnp.asarray, inputs))
+    for g, w in zip(got[:3], want[:3]):
+        _close(g, w)
+    for pair_g, pair_w in zip(got[3:], want[3:]):
+        for g, w in zip(pair_g, pair_w):
+            _close(g, w)
 
 
 @pytest.mark.parametrize("kind,nlat,nlon,T", GRIDS)

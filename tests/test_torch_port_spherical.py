@@ -35,6 +35,8 @@ from dlwp_torch.models import s2_near_identity_grid
 from dlwp_torch.models.spherical import _engine
 from dlwp_torch.train import TrainConfig, Trainer
 
+from tests.torch_port_threads import one_blas_thread  # noqa: F401
+
 torch.set_num_threads(2)
 RNG = jax.random.PRNGKey(3)
 TOL_F32 = 2e-5  # x the output's scale

@@ -54,6 +54,8 @@ from dlwp_torch.train import (
 )
 from dlwp_torch.utils import split as TSplit
 
+from tests.torch_port_threads import one_blas_thread  # noqa: F401
+
 torch.set_num_threads(1)
 TOL_STEP = 1e-12
 TOL_RUN = 1e-9

@@ -55,6 +55,8 @@ from dlwp_torch.ops.losses import latitude_weighted_loss, mse
 from dlwp_torch.parallel import MeshConfig, build_mesh
 from dlwp_torch.train import TrainConfig, Trainer, restore_checkpoint
 
+from tests.torch_port_threads import one_blas_thread  # noqa: F401
+
 torch.set_num_threads(1)
 TOL_RUN = 1e-9
 TOL_STEP = 1e-12

@@ -30,6 +30,8 @@ import dlwp_torch.models as tmodels
 from dlwp_torch import flax_tree
 from dlwp_torch.forecast import verify as tv
 
+from tests.torch_port_threads import one_blas_thread  # noqa: F401
+
 torch.set_num_threads(1)
 TOL = 1e-10
 
